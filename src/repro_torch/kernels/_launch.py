@@ -1,0 +1,46 @@
+"""Shared argument checks and the launch call of the CUDA wrappers."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+            device: torch.device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of rank `ndim` on
+    the CUDA `device`."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name} must live on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have rank {ndim}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def device_scalar(v, name: str, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """A one-element `dtype` tensor on `device` for a scalar operand the
+    kernel reads from device memory (no host sync on the launch path)."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != 1:
+            raise ValueError(f"{name} must hold one element, got "
+                             f"{tuple(v.shape)}")
+        if v.device != device:
+            raise ValueError(f"{name} must live on {device}, got {v.device}")
+        return v.to(dtype).reshape(1).contiguous()
+    return torch.tensor([v], dtype=dtype, device=device)
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call C entry `entry` on the current stream of `device`; raise if
+    the launch was refused."""
+    lib = build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, entry)(*args, stream)
+    build.check(code, entry)

@@ -1,0 +1,527 @@
+"""Fused quantized render engine: occupancy-culled, kernel-backed inference.
+
+The serving subset of the JAX package's `nerf/fast_render.py`:
+
+1. **Empty-space culling.** Sample points outside the scene box or in
+   unoccupied grid cells are compacted away before the field query. The
+   active mask comes from the occupancy ray-march kernel
+   (`compaction="march"`, the default) or from the inline
+   `occupancy_lookup` (`"scatter"`, the legacy cumsum + scatter strategy).
+   Both give byte-identical colors. The per-chunk sample budget is static;
+   the engine grows it before it could overflow.
+2. **Real integer inference** (`mode="fused"`): a `FusedPack` holds
+   sub-byte packed weight codes per linear layer and packed integer
+   hash-table codes (`repro_torch.quant.packing.PackedTensor`). Activations
+   are quantized to integer codes on the fly and the NGP linears run
+   through `kernels.ops.quant_matmul_packed`, the hash lookups through
+   `kernels.ops.hash_gather`, compositing through
+   `kernels.ops.alpha_composite`. The `int` mode is the integer path
+   everywhere: the CUDA kernels on the card, their exact plain versions
+   on the CPU. There is no float carrier. `mode="reference"` queries the
+   fake-quant `ngp_apply` oracle inside the same culled pipeline.
+
+The one-LSB clamp edge: the paper-exact symmetric grid (Eq. 5) spans
+2^b + 1 levels, one more than a b-bit payload holds; `pack_codes` keeps
+the top of the range exact, so only a tensor using the full span clamps
+its lowest level up by one LSB. The stored payload is the truth the
+kernels and any loaded artifact share bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.backend import (
+    DeviceLike,
+    check_device,
+    resolve_device,
+)
+from repro_torch.kernels.repack import DEFAULT_TILE_BK, repack_tile_native
+from repro_torch.nerf.hash_encoding import level_corner_data
+from repro_torch.nerf.ngp import (
+    NGPConfig,
+    NGPQuantSpec,
+    density,
+    ngp_apply,
+    ngp_linear_names,
+    no_quant_spec,
+    sh_encode,
+)
+from repro_torch.nerf.occupancy import (
+    OccupancyGrid,
+    cull_budget,
+    occupancy_lookup,
+    ray_t_samples,
+)
+from repro_torch.quant.linear_quant import (
+    activation_qparams,
+    fake_quant_weight,
+    quantize_weight,
+    weight_qparams,
+)
+from repro_torch.quant.packing import PackedTensor, pack_codes
+
+
+# ---------------------------------------------------------------------------
+# FusedPack: host-built integer inference parameters for ONE concrete policy.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class FusedPack:
+    """Per-layer packed integer codes + scales, and packed hash tables.
+
+    `modes[i]` selects the lowering of linear layer i:
+      "int"        — packed weight codes + on-the-fly activation codes
+                     through `quant_matmul_packed`;
+      "float_qact" — f32 matmul, activations fake-quantized on the fly
+                     (activation bits in the 9..15 band);
+      "float"      — f32 matmul, activations untouched (>= 16 sentinel).
+
+    Weight storage depends only on the weight bits: `wq` (a sub-byte
+    `PackedTensor`) for bits <= 8, a fake-quantized f32 `w` for 9..15, the
+    raw f32 `w` at >= 16. Hash tables likewise. `layers` / `hash_tables`
+    are the storage truth (planar words: what the artifact serializes);
+    `compute` holds the derived forms staged once by `repack_fused_pack`
+    (tile-native words per layer, the concatenated dequantized hash table,
+    f32 weight carriers for the float modes).
+    """
+
+    layers: Dict[str, Dict]
+    hash_tables: Dict
+    modes: Tuple[str, ...]
+    layout: str = "planar"
+    compute: Dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.layers.values()))["b"].device
+
+
+def _pack_weight(w: torch.Tensor, bits: float,
+                 paper_exact: bool) -> PackedTensor:
+    """Quantize one weight/table tensor and bit-pack its codes (b <= 8)
+    with the top-exact window (module docstring)."""
+    qp = weight_qparams(w.min(), w.max(), bits, paper_exact=paper_exact)
+    return pack_codes(quantize_weight(w, qp), int(round(bits)),
+                      scale=qp.scale)
+
+
+def build_fused_pack(params: Dict, cfg: NGPConfig,
+                     spec: Optional[NGPQuantSpec] = None,
+                     layout: str = f"tile:{DEFAULT_TILE_BK}") -> FusedPack:
+    """Lower a (params, spec) pair to packed integer inference form, on
+    the device of `params`. `layout` selects the staged compute form
+    (`repack_fused_pack`): the default tile-native repack, or "planar"
+    for the bare storage pack."""
+    dev = params["sigma/0"]["w"].device
+    if spec is None:
+        spec = no_quant_spec(cfg, dev)
+    wb = spec.weight_bits.cpu().numpy()
+    ab = spec.act_bits.cpu().numpy()
+    ar = spec.act_ranges.cpu().numpy()
+    hb = spec.hash_bits.cpu().numpy()
+    pe = spec.paper_exact
+
+    layers: Dict[str, Dict] = {}
+    modes = []
+    for i, name in enumerate(ngp_linear_names(cfg)):
+        w, b = params[name]["w"], params[name]["b"]
+        wbi, abi = float(wb[i]), float(ab[i])
+        lo, hi = float(ar[i, 0]), float(ar[i, 1])
+
+        if wbi <= 8.0:
+            store = dict(wq=_pack_weight(w, wbi, pe))
+        elif wbi < 16.0:
+            qp_w = weight_qparams(w.min(), w.max(), wbi, paper_exact=pe)
+            store = dict(w=fake_quant_weight(w, qp_w))
+        else:
+            store = dict(w=w)
+
+        if abi < 16.0:
+            # The activation range is two host floats, differenced in
+            # double precision before the f32 cast (as the reference).
+            qp_a = activation_qparams(lo, hi, abi)
+            act = dict(sx=qp_a.scale.to(dev), zx_f=qp_a.zero_point.to(dev),
+                       qmax=qp_a.q_max.to(dev))
+        if wbi <= 8.0 and abi <= 8.0:
+            off = 2.0 ** (abi - 1.0)  # shift codes [0, 2^b-1] into int8
+            layers[name] = dict(
+                store, b=b, **act,
+                zx=(qp_a.zero_point - off).to(torch.int32).to(dev),
+                off=torch.tensor(off, dtype=torch.float32, device=dev),
+            )
+            modes.append("int")
+        elif abi < 16.0:
+            layers[name] = dict(store, b=b, **act)
+            modes.append("float_qact")
+        else:
+            layers[name] = dict(store, b=b)
+            modes.append("float")
+
+    tables: Dict = {}
+    for l in range(cfg.hash.n_levels):
+        t = params["hash"][f"level_{l}"]
+        bits = float(hb[l])
+        if bits <= 8.0:
+            tables[f"level_{l}"] = _pack_weight(t, bits, pe)
+        elif bits < 16.0:
+            qp = weight_qparams(t.min(), t.max(), bits, paper_exact=pe)
+            tables[f"level_{l}"] = fake_quant_weight(t, qp)
+        else:
+            tables[f"level_{l}"] = t
+    pack = FusedPack(layers=layers, hash_tables=tables, modes=tuple(modes))
+    return repack_fused_pack(pack, layout) if layout != "planar" else pack
+
+
+def repack_fused_pack(pack: FusedPack,
+                      layout: str = f"tile:{DEFAULT_TILE_BK}") -> FusedPack:
+    """Stage the compute-layout forms next to the storage pack (once, at
+    artifact load or pack build):
+
+      "table_cat"       (sum_l T_l, F) f32 — every level table dequantized
+                        and stacked row-wise, so the encode is ONE gather;
+      "table_off"       (L,) int32 — each level's row offset in the cat;
+      "<name>::wq_tile" tile-native `PackedTensor` per packed layer;
+      "<name>::w_f32"   dequantized f32 weight per packed layer (the
+                        float modes' operand).
+    """
+    if layout == "planar":
+        return dataclasses.replace(pack, layout=layout, compute={})
+    bk = int(layout.split(":", 1)[1])
+    compute: Dict = {}
+    tabs, offs, row = [], [], 0
+    for l in range(len(pack.hash_tables)):
+        t = pack.hash_tables[f"level_{l}"]
+        t = t.dequantize() if isinstance(t, PackedTensor) else t
+        tabs.append(t)
+        offs.append(row)
+        row += t.shape[0]
+    compute["table_cat"] = torch.cat(tabs, dim=0).contiguous()
+    compute["table_off"] = torch.tensor(offs, dtype=torch.int32,
+                                        device=pack.device)
+    for name, lyr in pack.layers.items():
+        if "wq" in lyr:
+            compute[f"{name}::wq_tile"] = repack_tile_native(lyr["wq"], bk)
+            compute[f"{name}::w_f32"] = lyr["wq"].dequantize()
+    return dataclasses.replace(pack, layout=layout, compute=compute)
+
+
+def fused_pack_stored_bytes(pack: FusedPack) -> int:
+    """Exact bytes of the pack's quantized model payload: packed words or
+    f32 carrier per linear layer, plus every hash table — the quantity
+    `policy_model_bytes` predicts from the bit vectors."""
+    total = 0
+    for lyr in pack.layers.values():
+        total += lyr["wq"].nbytes_packed if "wq" in lyr \
+            else int(lyr["w"].numel()) * 4
+    for tab in pack.hash_tables.values():
+        total += tab.nbytes_packed if isinstance(tab, PackedTensor) \
+            else int(tab.numel()) * 4
+    return total
+
+
+def _layer_wq(pack: FusedPack, name: str) -> PackedTensor:
+    """The kernel-facing packed weight: the staged tile-native repack when
+    present, the storage-planar words otherwise."""
+    return pack.compute.get(f"{name}::wq_tile", pack.layers[name]["wq"])
+
+
+def _fused_weight_f32(pack: FusedPack, name: str) -> torch.Tensor:
+    lyr = pack.layers[name]
+    if "wq" in lyr:
+        staged = pack.compute.get(f"{name}::w_f32")
+        return lyr["wq"].dequantize() if staged is None else staged
+    return lyr["w"]
+
+
+def _fused_linear(pack: FusedPack, i: int, name: str,
+                  x: torch.Tensor) -> torch.Tensor:
+    lyr = pack.layers[name]
+    mode = pack.modes[i]
+    if mode == "int":
+        y = ops.quant_matmul_packed(ops.quantize_codes(x, lyr),
+                                    _layer_wq(pack, name), lyr["sx"],
+                                    lyr["wq"].scale, lyr["zx"])
+        return y + lyr["b"]
+    if mode == "float_qact":
+        codes = torch.clamp(torch.round(x / lyr["sx"] + lyr["zx_f"]), 0.0,
+                            lyr["qmax"])
+        x = (codes - lyr["zx_f"]) * lyr["sx"]
+    return x @ _fused_weight_f32(pack, name) + lyr["b"]
+
+
+def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
+                    dirs: torch.Tensor, cfg: NGPConfig, corner_data=None,
+                    sh: Optional[torch.Tensor] = None):
+    """Integer-mode field query, mirroring `ngp_apply`'s fake-quant
+    forward. `corner_data` (idx (L,P,8), w (L,P,8)) and `sh` take
+    precomputed geometry-only work. With a repacked pack the encode is
+    one gather over the staged concatenated table, and in `int` mode the
+    first linear folds into `ops.fused_field_query`."""
+    names = ngp_linear_names(cfg)
+    L = cfg.hash.n_levels
+    if corner_data is None:
+        per_level = [level_corner_data(points, l, cfg.hash)
+                     for l in range(L)]
+        corner_data = (torch.stack([i for i, _ in per_level]),
+                       torch.stack([w for _, w in per_level]))
+    idx, w = corner_data
+    if "table_cat" in pack.compute:
+        cat, off = pack.compute["table_cat"], pack.compute["table_off"]
+        if pack.modes[0] == "int":
+            lyr = pack.layers[names[0]]
+            h = ops.fused_field_query(idx, w, cat, off,
+                                      _layer_wq(pack, names[0]), lyr) \
+                + lyr["b"]
+        else:
+            h = _fused_linear(pack, 0, names[0],
+                              ops.hash_encode(idx, w, cat, off))
+    else:
+        # Storage-only pack: per-level gathers over tables dequantized
+        # inside the call.
+        feats = []
+        for l in range(L):
+            table = pack.hash_tables[f"level_{l}"]
+            if isinstance(table, PackedTensor):
+                table = table.dequantize()
+            vals = ops.hash_gather(idx[l].reshape(-1).contiguous(), table)
+            feats.append(ops.trilinear_sum(
+                vals.reshape(idx[l].shape + (cfg.hash.n_features,)), w[l]))
+        h = _fused_linear(pack, 0, names[0], torch.cat(feats, dim=-1))
+    h = _fused_linear(pack, 1, names[1], torch.relu(h))
+    sigma = density(h[..., 0], cfg)
+    if sh is None:
+        sh = sh_encode(dirs, cfg.sh_degree)
+    c = torch.cat([h[..., 1:], sh], dim=-1)
+    c = torch.relu(_fused_linear(pack, 2, names[2], c))
+    c = torch.relu(_fused_linear(pack, 3, names[3], c))
+    rgb = torch.sigmoid(_fused_linear(pack, 4, names[4], c))
+    return sigma, rgb
+
+
+# ---------------------------------------------------------------------------
+# Occupancy-culled ray rendering (one chunk).
+# ---------------------------------------------------------------------------
+def _chunk_color(params, pack, spec, occ: Optional[OccupancyGrid],
+                 rays_o: torch.Tensor, rays_d: torch.Tensor, cfg, rcfg,
+                 mode: str, budget: Optional[int], early_stop: bool,
+                 compaction: str = "march"):
+    """Core renderer for one chunk of rays.
+
+    Returns (color (R,3), acc (R,1), n_active) where n_active is the
+    device count of active samples (None without a grid) — from the SAME
+    mask the colors used, so the caller detects a budget overflow without
+    marching again. Budget overflow drops the samples ranked past B.
+    """
+    dev = rays_o.device
+    n_rays, n_s = rays_o.shape[0], rcfg.n_samples
+    # The host linspace the budget oracle uses, not torch.linspace: the
+    # sample points must be bit-identical on both sides.
+    t1 = torch.from_numpy(ray_t_samples(rcfg)).to(dev)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t1[None, :, None]
+    pts_unit = torch.clamp(pts + 0.5, 0.0, 1.0)
+    inside = ((pts > -0.5) & (pts < 0.5)).all(dim=-1)  # (R, S)
+    flat_pts = pts_unit.reshape(-1, 3)
+    flat_dirs = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
+    zero = torch.zeros((), device=dev)
+
+    def field(p, d):
+        if mode == "fused":
+            return fused_ngp_apply(pack, p, d, cfg)
+        return ngp_apply(params, p, d, cfg, spec)
+
+    n_active = None
+    if occ is None:
+        sigma, rgb = field(flat_pts, flat_dirs)
+        sigma = torch.where(inside, sigma.reshape(n_rays, n_s), zero)
+        rgb = rgb.reshape(n_rays, n_s, 3)
+    else:
+        if compaction == "scatter":
+            active = inside.reshape(-1) & occupancy_lookup(occ, flat_pts)
+        else:
+            active = ops.ray_march(occ.occ, rays_o.contiguous(),
+                                   rays_d.contiguous(), t1,
+                                   early_stop).reshape(-1) > 0.5
+        n_active = active.sum()
+        P = n_rays * n_s
+        B = P if budget is None else min(int(budget), P)
+        rank = torch.cumsum(active, dim=0) - 1
+        valid = active & (rank < B)
+        pos = torch.where(valid, rank, B)  # B = the dropped overflow slot
+        if compaction == "march":
+            # Gather compaction: a scatter of arange at rank gives the
+            # active flat indices in increasing order (fill 0), with no
+            # host sync — the same buffers the scatter strategy writes.
+            inv_take = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+            inv_take.scatter_(0, pos, torch.arange(P, device=dev))
+            buf_pts = flat_pts[inv_take[:B]]
+            buf_dirs = flat_dirs[inv_take[:B]]
+        else:
+            buf_pts = torch.zeros((B + 1, 3), device=dev)
+            buf_dirs = torch.zeros((B + 1, 3), device=dev)
+            buf_pts[pos] = flat_pts
+            buf_dirs[pos] = flat_dirs
+            buf_pts, buf_dirs = buf_pts[:B], buf_dirs[:B]
+        sigma_b, rgb_b = field(buf_pts, buf_dirs)
+        take = torch.clamp(rank, 0, B - 1)
+        sigma = torch.where(valid, sigma_b[take], zero).reshape(n_rays, n_s)
+        rgb = torch.where(valid[:, None], rgb_b[take], zero) \
+            .reshape(n_rays, n_s, 3)
+
+    delta1 = torch.cat([torch.diff(t1),
+                        torch.full((1,), 1e10, device=dev)])
+    delta = delta1.expand(n_rays, n_s).contiguous()
+    color, acc = ops.alpha_composite(sigma.contiguous(), rgb.contiguous(),
+                                     delta, early_stop)
+    if rcfg.white_bg:
+        color = color + (1.0 - acc)
+    return color, acc, n_active
+
+
+def fast_render_rays(params: Dict, rays_o: torch.Tensor,
+                     rays_d: torch.Tensor, cfg: NGPConfig, rcfg,
+                     spec: Optional[NGPQuantSpec] = None,
+                     occ: Optional[OccupancyGrid] = None,
+                     mode: str = "reference",
+                     pack: Optional[FusedPack] = None,
+                     budget: Optional[int] = None, early_stop: bool = True,
+                     compaction: str = "march"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Occupancy-culled render of one ray batch -> (color (R,3), acc (R,1)).
+    `mode="fused"` builds the pack from (params, spec) when none is
+    given. Sampling is the deterministic `ray_t_samples`."""
+    assert mode in ("reference", "fused"), mode
+    if mode == "fused" and pack is None:
+        pack = build_fused_pack(params, cfg, spec)
+    color, acc, _ = _chunk_color(params, pack, spec, occ, rays_o, rays_d,
+                                 cfg, rcfg, mode, budget, early_stop,
+                                 compaction)
+    return color, acc
+
+
+# ---------------------------------------------------------------------------
+# Frame and slot paths (counterparts of `_frame_colors_impl` and
+# `_slot_march_impl`).
+# ---------------------------------------------------------------------------
+def frame_colors(params, pack, spec, occ, rays_o: torch.Tensor,
+                 rays_d: torch.Tensor, cfg, rcfg, mode: str,
+                 budget: Optional[int], early_stop: bool,
+                 compaction: str = "march") -> torch.Tensor:
+    """(C, R, 3) colors of C padded ray chunks, one chunk at a time under
+    the per-chunk `budget`."""
+    return torch.stack([
+        _chunk_color(params, pack, spec, occ, rays_o[c], rays_d[c], cfg,
+                     rcfg, mode, budget, early_stop, compaction)[0]
+        for c in range(rays_o.shape[0])
+    ])
+
+
+def slot_march(params, pack, spec, occ: OccupancyGrid,
+               rays_o: torch.Tensor, rays_d: torch.Tensor, cfg, rcfg,
+               mode: str, budget: Optional[int], early_stop: bool):
+    """Cache-miss serve tier for one slot: march render + the device
+    active count of the same march (the engine's overflow check)."""
+    color, _, n_active = _chunk_color(params, pack, spec, occ, rays_o,
+                                      rays_d, cfg, rcfg, mode, budget,
+                                      early_stop)
+    return color, n_active
+
+
+def _effective_chunk(n_rays: int, chunk: int) -> int:
+    return min(chunk, -(-n_rays // 128) * 128)
+
+
+def _pad_frame(rays_o, rays_d, chunk: int, device: torch.device):
+    """-> (ro (C, chunk, 3), rd) on `device`, zero-padded."""
+    ro = np.asarray(rays_o, np.float32).reshape(-1, 3)
+    rd = np.asarray(rays_d, np.float32).reshape(-1, 3)
+    n = ro.shape[0]
+    c = _effective_chunk(n, chunk)
+    n_chunks = -(-n // c)
+    pad = ((0, n_chunks * c - n), (0, 0))
+
+    def _p(a):
+        return torch.from_numpy(np.pad(a, pad)).reshape(n_chunks, c, 3) \
+            .to(device)
+    return _p(ro), _p(rd)
+
+
+class FastRenderEngine:
+    """Bundles (params, spec, occupancy, mode) into frame calls.
+
+    `pack=` serves a prebuilt `FusedPack` verbatim (deployable artifacts
+    load their packed codes from disk); by default the pack is quantized
+    from (params, spec) at construction. Runs on the card unless
+    `device="cpu"`; every tensor it is given must already live there.
+    """
+
+    def __init__(self, params: Dict, cfg: NGPConfig, rcfg,
+                 spec: Optional[NGPQuantSpec] = None,
+                 occ: Optional[OccupancyGrid] = None, mode: str = "fused",
+                 chunk: int = 4096, budget: Optional[int] = None,
+                 early_stop: bool = True, pack: Optional[FusedPack] = None,
+                 device: DeviceLike = None):
+        assert mode in ("reference", "fused"), mode
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.rcfg = dataclasses.replace(rcfg, stratified=False)
+        self.spec = no_quant_spec(cfg, self.device) if spec is None else spec
+        self.occ = occ
+        self.mode = mode
+        self.chunk = chunk
+        self.early_stop = early_stop
+        if pack is None and mode == "fused":
+            pack = build_fused_pack(params, cfg, self.spec)
+        self.pack = pack if mode == "fused" else None
+        if self.pack is not None:
+            check_device(self.pack.layers[ngp_linear_names(cfg)[0]]["b"],
+                         self.device, "the fused pack")
+        if occ is not None:
+            check_device(occ.occ, self.device, "the occupancy grid")
+        self._budget = budget
+        self._budget_cache: Dict[Tuple, int] = {}
+
+    def _resolve_budget(self, rays_o, rays_d) -> Optional[int]:
+        """Per-chunk sample budget: explicit > cached per ray content >
+        derived from the rays (`cull_budget`, exact for them)."""
+        if self.occ is None:
+            return None
+        if self._budget is not None:
+            return self._budget
+        ro = np.asarray(rays_o, np.float32).reshape(-1, 3)
+        rd = np.asarray(rays_d, np.float32).reshape(-1, 3)
+        key = (ro.shape[0], hash(ro.tobytes()), hash(rd.tobytes()))
+        hit = self._budget_cache.get(key)
+        if hit is None:
+            c = _effective_chunk(ro.shape[0], self.chunk)
+            hit = cull_budget(self.occ, ro, rd, self.rcfg, c)
+            if len(self._budget_cache) >= 8:
+                self._budget_cache.pop(next(iter(self._budget_cache)))
+            self._budget_cache[key] = hit
+        return hit
+
+    def render_rays(self, rays_o, rays_d) -> torch.Tensor:
+        """One-chunk render -> color (R, 3) on the engine's device."""
+        budget = self._resolve_budget(rays_o, rays_d)
+        ro = torch.as_tensor(np.asarray(rays_o, np.float32)).to(self.device)
+        rd = torch.as_tensor(np.asarray(rays_d, np.float32)).to(self.device)
+        color, _ = fast_render_rays(
+            self.params, ro, rd, self.cfg, self.rcfg, self.spec, self.occ,
+            self.mode, self.pack, budget, early_stop=self.early_stop,
+        )
+        return color
+
+    def render_frame(self, rays_o, rays_d) -> torch.Tensor:
+        """Full frame -> (N, 3) colors, chunk by chunk."""
+        n = np.asarray(rays_o).reshape(-1, 3).shape[0]
+        budget = self._resolve_budget(rays_o, rays_d)
+        ro, rd = _pad_frame(rays_o, rays_d, self.chunk, self.device)
+        colors = frame_colors(
+            self.params, self.pack, self.spec, self.occ, ro, rd, self.cfg,
+            self.rcfg, self.mode, budget, self.early_stop,
+        )
+        return colors.reshape(-1, 3)[:n]

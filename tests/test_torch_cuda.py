@@ -1,0 +1,120 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. A CUDA kernel has no CPU mode, so without a card every test here
+skips. On a machine with one (and without JAX, which this file does not
+import), run them with
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the matmul, gather and march are exact; compositing is
+within 1e-5 (the early exit drops less than t_eps per channel)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.alpha_composite import alpha_composite_plain
+from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
+from repro_torch.kernels.quant_matmul import quant_matmul_packed_plain
+from repro_torch.kernels.ray_march import ray_march_plain
+from repro_torch.kernels.repack import repack_tile_native
+from repro_torch.quant.packing import pack_codes
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("bits", [1, 3, 4, 8])
+@pytest.mark.parametrize("layout", ["planar", "tile:128"])
+def test_quant_matmul_packed_kernel_exact(card, bits, layout):
+    rng = np.random.default_rng(bits)
+    for m, k, n in [(1, 1, 1), (37, 45, 5), (300, 129, 70)]:
+        x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+        q = rng.integers(-(2 ** (bits - 1)) - 1, 2 ** (bits - 1), (k, n))
+        w = pack_codes(q, bits, scale=0.01, device=card)
+        w = repack_tile_native(w) if layout != "planar" else w
+        xc = x.to(card)
+        for zx in (17, 128, -128):
+            got = ops.quant_matmul_packed(xc, w, 0.05, w.scale, zx)
+            want = quant_matmul_packed_plain(xc, w, 0.05, w.scale, zx)
+            assert torch.equal(got, want)
+            cpu = quant_matmul_packed_plain(x, _cpu_packed(w), 0.05,
+                                            w.scale.cpu(), zx)
+            assert torch.equal(got.cpu(), cpu)
+
+
+def _cpu_packed(w):
+    import dataclasses
+
+    return dataclasses.replace(w, words=w.words.cpu(), scale=w.scale.cpu(),
+                               offset=w.offset.cpu())
+
+
+def test_hash_gather_kernel_exact(card):
+    rng = np.random.default_rng(1)
+    T = 6_098_925
+    table = torch.from_numpy(rng.normal(size=(T, 2)).astype(np.float32))
+    idx = rng.integers(0, T, 100_003).astype(np.int32)
+    idx[:5] = [-1, T, T + 3, -(2 ** 31), 2 ** 31 - 1]
+    idx_c, table_c = torch.from_numpy(idx).to(card), table.to(card)
+    got = ops.hash_gather(idx_c, table_c)
+    assert torch.equal(got, hash_gather_plain(idx_c, table_c))
+    assert not got[:5].any()
+
+
+def test_ray_march_kernel_exact(card):
+    rng = np.random.default_rng(2)
+    G, R = 32, 600
+    occ = torch.from_numpy((rng.uniform(size=(G, G, G)) < 0.4)
+                           .astype(np.float32)).to(card)
+    o = rng.uniform(-1.3, 1.3, (R, 3)).astype(np.float32)
+    d = (rng.uniform(-0.4, 0.4, (R, 3)) - o).astype(np.float32)
+    faces = (np.arange(G + 1) / G - 0.5).astype(np.float32)
+    o[:64] = rng.choice(faces, (64, 3))
+    d[:64] = 0.0
+    d[np.arange(64), np.arange(64) % 3] = 1.0
+    o[np.arange(64), np.arange(64) % 3] = -1.0
+    d[64:70] = 0.0
+    d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-30)
+    t = torch.from_numpy(np.linspace(0.2, 2.5, 32, dtype=np.float32)).to(card)
+    oc, dc = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+    want = ray_march_plain(occ, oc, dc, t)
+    for early in (True, False):
+        assert torch.equal(ops.ray_march(occ, oc, dc, t, early), want)
+
+
+def test_alpha_composite_kernel_close(card):
+    rng = np.random.default_rng(3)
+    R, S = 700, 32
+    scale = rng.choice([0.0, 0.5, 5.0, 300.0], (R, 1))
+    sigma = torch.from_numpy((rng.exponential(1.0, (R, S)) * scale)
+                             .astype(np.float32)).to(card)
+    delta = torch.full((R, S), 0.07, device=card)
+    delta[:, -1] = 1e10
+    rgb = torch.from_numpy(rng.uniform(size=(R, S, 3)).astype(np.float32)) \
+        .to(card)
+    pc, pa = alpha_composite_plain(sigma, rgb, delta)
+    for early in (False, True):
+        c, a = ops.alpha_composite(sigma, rgb, delta, early, 1e-6)
+        assert (c - pc).abs().max().item() <= 1e-5
+        assert (a - pa).abs().max().item() <= 1e-5
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.zeros((4, 8), dtype=torch.int8, device=card)
+    w = pack_codes(np.zeros((8, 3), np.int64), 4, device=card)
+    with pytest.raises(TypeError):
+        ops.quant_matmul_packed(x.to(torch.int32), w, 1.0, w.scale, 0)
+    with pytest.raises(ValueError):
+        ops.hash_gather(torch.zeros(8, dtype=torch.int32, device=card),
+                        torch.zeros((4, 2), device=card).t())
+    with pytest.raises(ValueError):
+        ops.alpha_composite(torch.zeros((4, 3), device=card),
+                            torch.zeros((4, 3, 3), device=card),
+                            torch.zeros((4, 3), device=card).t().contiguous()
+                            .t())

@@ -1,0 +1,106 @@
+"""The port stands alone: no module of `repro_torch`, nor `chip_smoke.py`,
+imports JAX or the JAX package, and entry points asked for the default
+device (the card) raise without one instead of carrying on on the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_BLOCKED_IMPORTS = r"""
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None  # `import jax` now raises ImportError
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORTS, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25  # every module was imported
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+    assert not hits
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_entry_points_raise_without_a_card(no_card, tmp_path):
+    from repro_torch.configs.ngp import cpu_scale
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.hero.artifact import QuantArtifact
+    from repro_torch.hero.engine import ServeEngine
+    from repro_torch.hero.service import RenderService, serve
+    from repro_torch.nerf.fast_render import FastRenderEngine
+    from repro_torch.nerf.ngp import init_ngp
+    from repro_torch.nerf.render import RenderConfig
+
+    cfg = cpu_scale()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_ngp(torch.Generator().manual_seed(0), cfg)
+    params = init_ngp(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FastRenderEngine(params, cfg, RenderConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"a": {"b": np.zeros(2)}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QuantArtifact.load(tmp_path)  # before reading anything
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RenderService(object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve(object())
+    # Asking for the CPU works.
+    FastRenderEngine(params, cfg, RenderConfig(), device="cpu")
+
+
+def test_ops_dispatch_by_device_and_refuse_others():
+    from repro_torch.kernels import ops
+
+    idx = torch.tensor([0, 2, -1], dtype=torch.int32)
+    table = torch.arange(6, dtype=torch.float32).reshape(3, 2)
+    np.testing.assert_array_equal(ops.hash_gather(idx, table).numpy(),
+                                  [[0, 1], [4, 5], [0, 0]])
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.hash_gather(idx.to("meta"), table.to("meta"))
+
+
+def test_runner_fingerprint_names_the_device(no_card):
+    from repro_torch.kernels.backend import runner_fingerprint
+
+    fp = runner_fingerprint()
+    assert fp["device_kind"] == "cpu" and fp["device_count"] == 0
+    assert fp["kernel_backend"] == "plain-cpu"
+    assert fp["torch_version"] == torch.__version__
