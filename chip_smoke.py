@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's two serving paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -7,20 +7,27 @@ one (or without the rest of the repository beside it).
 
 Phases, each of which raises on failure:
 
-1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all started together) and print the build time.
+1. Build the seven CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and print the build time.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serve path gives it, and time kernel, plain version and,
+   shapes its serve path gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call that computes the same function
    (median of 20 CUDA-event-timed runs after warm-up).
-3. The main path at ``paper()`` width: random weights from a seed,
+3. The NeRF path at ``paper()`` width: random weights from a seed,
    activation ranges calibrated from the field's taps, occupancy baked,
    a mixed int policy packed into a ``QuantArtifact``, saved, loaded
    (``tile:128``) and served by ``RenderService`` (8 requests of 64x64
    camera rays). Every kernel's launch count is zeroed just before the
-   requests and read just after; each must have risen.
+   requests and read just after; each render kernel must have risen.
 4. One request served again on the CPU from the same directory (the plain
    versions) must match the card's colours to 1e-5.
+5. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
+   weights from a seed) served by ``repro_torch.launch.serve``: 8 requests
+   of 1024 prompt tokens and 32 generated tokens, 4 at a time. Counts are
+   zeroed just before and read just after: flash attention must launch
+   once per layer per prefill, decode attention once per layer per step.
+6. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
+   logits and caches within 1e-3.
 
 The last lines are the kernels JSON line, the card's name and power limit
 (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
@@ -42,9 +49,20 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
+PEAK_BF16_OPS = 989e12  # dense bf16 tensor-core rate
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
 QMM_SHAPES = ((32, 64), (64, 16), (40, 64), (64, 64), (64, 3))  # paper (K, N)
 SERVE_ROWS = 512 * 32  # slot_rays * n_samples: the M of one slot's linears
+# The LM serve path: qwen2-7b, 4 requests a batch, 1024 prompt tokens, 32
+# generated; attention shapes (B, Hkv, G, hd) and the cache length.
+LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS = 4, 1024, 32, 8
+LM_B, LM_HKV, LM_G, LM_HD = 4, 4, 7, 128
+LM_SMAX = LM_PROMPT + LM_GEN
+# The attention kernels in bf16 are held to the reference's test bands
+# (3e-2 flash, 2e-2 decode) and to this tighter limit, about three times
+# the worst readings on the H100 (flash 1.64e-3, decode 9.77e-4): a
+# bf16-only fault of a few percent of the output passes the former only.
+BF16_ATTN_LIMIT = 5e-3
 
 
 SPIN_CYCLES = 5_000_000  # ~2.5 ms of device spin: longer than any enqueue
@@ -342,6 +360,173 @@ def phase_alpha_composite(rng, dev):
                  bound(nbytes, 12.0 * walked, PEAK_F32_OPS), None, t_c)
 
 
+def phase_quant_matmul_unpacked(rng, dev):
+    from repro_torch.kernels.quant_matmul import (
+        quant_matmul_cuda as kernel,
+        quant_matmul_plain as plain,
+    )
+
+    M = SERVE_ROWS
+    shapes = [(M, K, N) for K, N in QMM_SHAPES] + [
+        (1, 1, 1), (37, 45, 5), (300, 129, 70), (M + 13, 257, 65)]
+    worst = 0.0
+    for m, K, N in shapes:
+        x = torch.from_numpy(rng.integers(-128, 128, (m, K), dtype=np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-128, 128, (K, N), dtype=np.int8)).to(dev)
+        sx = torch.tensor(float(rng.uniform(1e-3, 1e-1)), device=dev)
+        for zx_v in (0, 17, -128, 127):
+            zx = torch.tensor(zx_v, dtype=torch.int32, device=dev)
+            a = kernel(x, w, sx, 0.011, zx)
+            b = plain(x, w, sx, 0.011, zx)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"quant_matmul M={m} K={K} N={N} zx={zx_v}: max |diff| "
+                    f"{(a - b).abs().max().item()}")
+            worst = max(worst, (a - b).abs().max().item())
+    print(f"quant_matmul: exact on the {len(QMM_SHAPES)} paper linears "
+          f"(M={M}) and 4 ragged shapes x 4 zero points")
+
+    ms = plain_ms = lib_ms = call_ms = nbytes = ops = 0.0
+    for K, N in QMM_SHAPES:
+        x = torch.from_numpy(rng.integers(-128, 128, (M, K), dtype=np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-8, 8, (K, N), dtype=np.int8)).to(dev)
+        sx = torch.tensor(0.02, device=dev)
+        sw = torch.tensor(0.01, device=dev)
+        zx = torch.tensor(-3, dtype=torch.int32, device=dev)
+        xf, wf = x.to(torch.float32), w.to(torch.float32)
+        t_k = median_ms(lambda: kernel(x, w, sx, sw, zx))
+        t_p = median_ms(lambda: plain(x, w, sx, sw, zx))
+        t_l = median_ms(lambda: torch.matmul(xf, wf))
+        t_c = median_ms(lambda: kernel(x, w, sx, sw, zx), hide_host=False)
+        print(f"  K={K:3d} N={N:3d}: kernel {t_k:.4f} ms (one call {t_c:.4f} "
+              f"ms), plain {t_p:.4f} ms, torch.matmul(f32) {t_l:.4f} ms")
+        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+        call_ms += t_c
+        nbytes += M * K + K * N + M * N * 4 + 12
+        ops += 2.0 * M * N * K
+    e = entry("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
+              "src/repro/kernels/quant_matmul.py:70", worst, ms, plain_ms,
+              bound(nbytes, ops, PEAK_INT8_OPS), lib_ms, call_ms)
+    e["timed_as"] = "sum of the five paper linears, M=16384, int8 weights"
+    return e
+
+
+def lm_views(gen, dev, dtype, S):
+    """q, k, v as the LM's prefill hands them to the kernel: strided views
+    of (B, S, H, hd) and (B, S, Hkv, hd) projections."""
+    B, Hkv, G, hd = LM_B, LM_HKV, LM_G, LM_HD
+    q = torch.randn((B, S, Hkv * G, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+    return (q.view(B, S, Hkv, G, hd).permute(0, 2, 1, 3, 4),
+            k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
+
+
+def phase_flash_attention(dev):
+    from repro_torch.kernels.flash_attention_kernel import (
+        flash_attention_cuda as kernel,
+        flash_attention_plain as plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    cases = [(torch.bfloat16, LM_PROMPT, True, 3e-2),
+             (torch.float32, LM_PROMPT, True, 1e-4),
+             (torch.bfloat16, LM_PROMPT, False, 3e-2),
+             (torch.float32, 333, True, 1e-4)]
+    for dtype, S, causal, tol in cases:
+        q, k, v = lm_views(gen, dev, dtype, S)
+        a = kernel(q, k, v, causal)
+        b = plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = (a - b).abs().max().item()
+        if dtype == torch.bfloat16:
+            tol = min(tol, BF16_ATTN_LIMIT)
+        print(f"flash_attention {dtype} S={S} causal={causal}: max |diff| "
+              f"{err:.3g} (tolerance {tol})")
+        if not err <= tol:
+            raise AssertionError(f"flash_attention: {err} > {tol}")
+        if dtype == torch.bfloat16 and causal:
+            worst = err
+    # The main path's shapes: bf16, causal, 28 heads on 4 KV heads.
+    q, k, v = lm_views(gen, dev, torch.bfloat16, LM_PROMPT)
+    B, Hkv, S, G, hd = q.shape
+    # The same inputs in the library's layout: (B, H, S, hd) queries, head
+    # h on KV head h // G, as the kernel groups them.
+    qs = q.permute(0, 2, 1, 3, 4).reshape(B, S, Hkv * G, hd).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_k = median_ms(lambda: kernel(q, k, v, True))
+    t_p = median_ms(lambda: plain(q, k, v, True))
+    t_l = median_ms(lambda: sdpa(qs, k, v, is_causal=True, enable_gqa=True))
+    t_c = median_ms(lambda: kernel(q, k, v, True), hide_host=False)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
+    flops = 4.0 * B * Hkv * G * S * S * hd / 2
+    return entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention_kernel.py:67", worst, t_k,
+                 t_p, bound(nbytes, flops, PEAK_BF16_OPS), t_l, t_c)
+
+
+def phase_decode_attention(dev):
+    from repro_torch.kernels.decode_attention_kernel import (
+        decode_attention_cuda as kernel,
+        decode_attention_plain as plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B, Hkv, G, hd, S = LM_B, LM_HKV, LM_G, LM_HD, LM_SMAX
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(dtype)
+        cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2)]
+        k, v = (c.permute(0, 2, 1, 3) for c in cache)
+        for length in (1, 64, LM_PROMPT + 1, LM_PROMPT + 16, S - 1, S):
+            a = kernel(q, k, v, length)
+            b = plain(q, k, v, length)
+            torch.cuda.synchronize()
+            err = (a.float() - b.float()).abs().max().item()
+            if dtype == torch.bfloat16:
+                tol = min(tol, BF16_ATTN_LIMIT)
+            if not err <= tol:
+                raise AssertionError(f"decode_attention {dtype} length="
+                                     f"{length}: {err} > {tol}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+        # Positions at or past `length` are never read: poison them.
+        length = LM_PROMPT + 16
+        base = kernel(q, k, v, length)
+        cache[0][:, length:] = 99.0
+        cache[1][:, length:] = float("nan")
+        poisoned = kernel(q, k, v, torch.tensor(length, device=dev))
+        torch.cuda.synchronize()
+        if not torch.equal(base, poisoned):
+            raise AssertionError("decode_attention: positions >= length "
+                                 "changed the result")
+    print(f"decode_attention: within {BF16_ATTN_LIMIT} (bf16, worst "
+          f"{worst:.3g}) and 1e-4 "
+          f"(f32) of the plain version at lengths 1..{S}; future positions "
+          "poisoned change nothing")
+    q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(torch.bfloat16)
+    cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2)]
+    k, v = (c.permute(0, 2, 1, 3) for c in cache)
+    length = LM_PROMPT + LM_GEN // 2  # the middle of a request's decode
+    len_t = torch.tensor(length, dtype=torch.int32, device=dev)
+    qs = q.reshape(B, Hkv * G, 1, hd)
+    mask = (torch.arange(S, device=dev) < length)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_k = median_ms(lambda: kernel(q, k, v, len_t))
+    t_p = median_ms(lambda: plain(q, k, v, len_t))
+    t_l = median_ms(lambda: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True))
+    t_c = median_ms(lambda: kernel(q, k, v, len_t), hide_host=False)
+    nbytes = 2 * (2 * B * Hkv * length * hd + 2 * q.numel()) + 4
+    return entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention_kernel.py:61", worst, t_k,
+                 t_p, bound(nbytes, 4.0 * B * Hkv * G * length * hd,
+                            PEAK_BF16_OPS), t_l, t_c)
+
+
 # ---------------------------------------------------------------------------
 # The main path.
 # ---------------------------------------------------------------------------
@@ -424,23 +609,23 @@ def answer(svc, requests):
     return [svc.result(r) for r in rids]
 
 
-def profile_request(svc, request) -> None:
-    """Serve one more request under `torch.profiler` and print where its
-    time went: wall time, device kernel time (busy share), launches, and
-    the kernels that took the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(label: str, fn) -> None:
+    """Run `fn` once under `torch.profiler` and print where its time went:
+    wall time, device kernel time (busy share), launches, and the kernels
+    that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        answer(svc, [request])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3  # ms
-    print(f"profiled request: wall {wall * 1e3:.2f} ms, device kernel time "
+    print(f"profiled {label}: wall {wall * 1e3:.2f} ms, device kernel time "
           f"{busy:.2f} ms ({100.0 * busy / (wall * 1e3):.1f} % busy), "
           f"{len(kernels)} device events")
     by_name = {}
@@ -451,16 +636,172 @@ def profile_request(svc, request) -> None:
         print(f"  {t:8.3f} ms {n:5d}x {name[:90]}")
 
 
+NERF_KERNELS = ("quant_matmul_packed", "hash_gather", "alpha_composite",
+                "ray_march")
+LM_KERNELS = ("flash_attention", "decode_attention")
+
+
 def counters():
     from repro_torch.kernels.alpha_composite import alpha_composite_cuda
+    from repro_torch.kernels.decode_attention_kernel import (
+        decode_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention_kernel import flash_attention_cuda
     from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
-    from repro_torch.kernels.quant_matmul import quant_matmul_packed_cuda
+    from repro_torch.kernels.quant_matmul import (
+        quant_matmul_cuda,
+        quant_matmul_packed_cuda,
+    )
     from repro_torch.kernels.ray_march import ray_march_cuda
 
     return {"quant_matmul_packed": quant_matmul_packed_cuda,
             "hash_gather": hash_gather_cuda,
             "alpha_composite": alpha_composite_cuda,
-            "ray_march": ray_march_cuda}
+            "ray_march": ray_march_cuda,
+            "quant_matmul": quant_matmul_cuda,
+            "flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda}
+
+
+# ---------------------------------------------------------------------------
+# The LM serve path.
+# ---------------------------------------------------------------------------
+def lm_serve(dev, kern):
+    """qwen2-7b at full width through `repro_torch.launch.serve`: random
+    weights from a seed on the card, 8 requests of 1024 prompt tokens and
+    32 generated tokens, 4 at a time. Every kernel's count is zeroed just
+    before and read just after; attention must have gone through the
+    kernels once per layer per prefill and per decode step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as lm_serve_mod
+
+    model = get_arch("qwen2-7b").model
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in kern.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = lm_serve_mod.main([
+        "--arch", "qwen2-7b", "--batch", str(LM_BATCH), "--prompt-len",
+        str(LM_PROMPT), "--gen", str(LM_GEN), "--requests", str(LM_REQUESTS)])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kern.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_attention": model.n_layers * stats.prefills,
+            "decode_attention": model.n_layers * stats.decode_steps}
+    print(f"LM serve: {stats.requests} requests, {stats.tokens} tokens in "
+          f"{stats.wall_s:.3f} s: {stats.tokens_per_s:.1f} tokens/s "
+          f"(init and serve {total_s:.1f} s)")
+    print(f"  prefill ms per batch of {LM_BATCH} x {LM_PROMPT}: "
+          f"{[round(t, 2) for t in stats.prefill_ms]}")
+    print(f"  decode ms per step (batch {LM_BATCH}): "
+          f"{[round(t, 3) for t in stats.decode_ms_per_step]}")
+    print(f"  max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}"
+          f" (want {want}: {model.n_layers} per prefill and per decode step)")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name}: {launches[name]} launches, want {n}")
+    for s in stats.samples:
+        if s.shape != (LM_BATCH, LM_GEN):
+            raise AssertionError(f"bad LM result shape {s.shape}")
+    return launches
+
+
+def lm_profile(dev, steps: int = 4) -> None:
+    """Where one prefill and `steps` decode steps of the LM path spend
+    their time: the same model and traffic as `lm_serve`, each window run
+    once under the profiler after a warm-up."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.serve import greedy
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+
+    model = get_arch("qwen2-7b").model
+    params = lm.init_params(model, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    prompts = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+        vocab_size=model.vocab_size, seq_len=LM_PROMPT,
+        global_batch=LM_BATCH)).batch()).to(dev)
+    prefill_fn = make_prefill_step(model, LM_SMAX)
+    decode_fn = make_decode_step(model)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill_fn(params,
+                                                     {"tokens": prompts})
+
+    def run_decode():
+        for i in range(steps):
+            tok = greedy(state["logits"])[:, None]
+            state["logits"], state["cache"] = decode_fn(
+                params, state["cache"], tok, LM_PROMPT + i)
+
+    with torch.inference_mode():
+        run_prefill()
+        run_decode()
+        profile(f"LM prefill ({LM_BATCH} x {LM_PROMPT})", run_prefill)
+        profile(f"LM decode ({steps} steps, batch {LM_BATCH})", run_decode)
+
+
+def to_device(tree, dev):
+    """The same nested dicts and lists of tensors, on `dev`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def lm_card_vs_cpu(dev, tol: float = 1e-3):
+    """qwen2-7b's widths at 2 layers in float32 on the card and on the CPU
+    (the plain versions), same weights, same 64-token prompts of batch 2,
+    then 8 decode steps fed the card's greedy tokens on both sides. The
+    card's float32 matmuls are full float32 (TF32 off), so the two differ
+    only by summation order: ~1e-5 on logits of order 1, and `tol` = 1e-3
+    leaves a hundredfold margin while any kernel fault shows at 1e-2 or
+    more."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.serve import greedy
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, n_layers=2,
+                              dtype="float32")
+    cpu = torch.device("cpu")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), device=cpu)
+    p_dev = to_device(p_cpu, dev)
+    prompt_len, steps = 64, 8
+    prompts = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=prompt_len,
+        global_batch=2)).batch()).long()
+    worst, agree, total = 0.0, 0, 0
+    with torch.inference_mode():
+        l_dev, c_dev = lm.prefill(p_dev, {"tokens": prompts.to(dev)}, cfg,
+                                  prompt_len + steps)
+        l_cpu, c_cpu = lm.prefill(p_cpu, {"tokens": prompts}, cfg,
+                                  prompt_len + steps)
+        for i in range(steps + 1):
+            worst = max(worst, (l_dev.cpu() - l_cpu).abs().max().item())
+            tok_dev, tok_cpu = greedy(l_dev), greedy(l_cpu)
+            agree += int((tok_dev.cpu() == tok_cpu).sum())
+            total += tok_cpu.numel()
+            if i == steps:
+                break
+            tok = tok_dev[:, None]
+            l_dev, c_dev = lm.decode_step(p_dev, c_dev, tok, prompt_len + i,
+                                          cfg)
+            l_cpu, c_cpu = lm.decode_step(p_cpu, c_cpu, tok.cpu(),
+                                          prompt_len + i, cfg)
+        cache_err = max((c_dev["pos0"][n].cpu() - c_cpu["pos0"][n]).abs()
+                        .max().item() for n in ("k", "v"))
+    print(f"LM card vs CPU (qwen2-7b widths, 2 layers, float32, prompt "
+          f"{prompt_len} x 2, {steps} decode steps): logits max |diff| "
+          f"{worst:.3g} (tolerance {tol}), cache max |diff| {cache_err:.3g}, "
+          f"greedy tokens agree {agree}/{total}")
+    if not (worst <= tol and cache_err <= tol):
+        raise AssertionError(f"LM card vs CPU: logits {worst}, cache "
+                             f"{cache_err} > {tol}")
 
 
 def main() -> int:
@@ -485,10 +826,16 @@ def main() -> int:
     build.library()
 
     dev = torch.device("cuda")
+    # Full float32 products wherever float32 is compared (the default,
+    # stated and set).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = paper()
     rng = np.random.default_rng(0)
     entries = [phase_quant_matmul(rng, dev), phase_hash_gather(rng, dev, cfg),
-               phase_alpha_composite(rng, dev), phase_ray_march(rng, dev)]
+               phase_alpha_composite(rng, dev), phase_ray_march(rng, dev),
+               phase_quant_matmul_unpacked(rng, dev),
+               phase_flash_attention(dev), phase_decode_attention(dev)]
     for e in entries:
         print(f"{e['name']}: max_abs_err {e['max_abs_err']:.3g}, kernel "
               f"{e['ms']:.4f} ms (one call with launch {e['call_ms']:.4f} "
@@ -509,7 +856,7 @@ def main() -> int:
             fn.launches = 0
         colors = answer(svc, requests)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in kern.items()}
+        launches = {name: kern[name].launches for name in NERF_KERNELS}
         stats = svc.stats()
         for (ro, _), c in zip(requests, colors):
             if c.shape != (ro.shape[0], 3) or not np.isfinite(c).all():
@@ -517,8 +864,10 @@ def main() -> int:
         print(f"launches during the 8 served requests: {launches}")
         if min(launches.values()) <= 0:
             raise AssertionError(f"a kernel was never launched: {launches}")
+        if any(kern[n].launches for n in kern if n not in NERF_KERNELS):
+            raise AssertionError("a kernel off the render path was launched")
 
-        profile_request(svc, requests[0])
+        profile("request", lambda: answer(svc, [requests[0]]))
         cpu_svc, _ = serve(tmp, "cpu")
         ref = answer(cpu_svc, requests[:1])[0]
     diff = float(np.abs(ref - colors[0]).max())
@@ -535,9 +884,16 @@ def main() -> int:
           f"{loaded.resident_bytes()}, stored_model_bytes "
           f"{loaded.stored_model_bytes()}, occupied fraction "
           f"{loaded.occ.occupied_fraction:.4f}")
+    del svc, cpu_svc, loaded, art
+
+    lm_launches = lm_serve(dev, kern)
+    launches.update({n: lm_launches[n] for n in LM_KERNELS})
+    lm_profile(dev)
+    lm_card_vs_cpu(dev)
 
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        # quant_matmul lies on neither path: 0 launches in both runs.
+        e["launches"] = launches.get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,39 @@
-"""Model configurations."""
+"""Model configurations: the NeRF field's (`ngp`) and the LM registry.
+
+`get_arch(<id>)` returns an `ArchSpec` with the exact published config.
+The port's registry holds the architectures whose blocks it has ported;
+the reference's other ids raise a `KeyError` that names the ROADMAP slice
+that ports them.
+"""
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import SHAPES, ArchSpec, ShapeSpec
+
+_MODULES = {
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+}
+# The reference's other architectures (MoE, mamba, xLSTM, encoder-decoder,
+# patch frontends, and the dense configs the port has not tested yet).
+_LATER = (
+    "qwen3-moe-235b-a22b", "arctic-480b", "llama3-405b", "granite-34b",
+    "nemotron-4-340b", "llava-next-mistral-7b", "whisper-large-v3",
+    "jamba-v0.1-52b", "xlstm-350m",
+)
+
+ARCH_IDS: List[str] = list(_MODULES)
+_CACHE: Dict[str, ArchSpec] = {}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id in _LATER:
+        raise KeyError(f"arch {arch_id!r} is not ported yet: it comes with "
+                       "ROADMAP §1 slice 10 (LM workload)")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    if arch_id not in _CACHE:
+        _CACHE[arch_id] = importlib.import_module(_MODULES[arch_id]).spec()
+    return _CACHE[arch_id]
+
+
+__all__ = ["SHAPES", "ArchSpec", "ShapeSpec", "ARCH_IDS", "get_arch"]

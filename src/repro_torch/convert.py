@@ -1,16 +1,18 @@
 """Carry weights and packs from numpy arrays into the port's tensors.
 
-The JAX package's parameters are `{top: {sub: array}}` dicts, its packed
-tensors carry `words`/`scale`/`offset` arrays beside static `bits`,
-`shape` and `layout`, and its `FusedPack` holds `layers`, `hash_tables`,
-`modes` and `layout`. These functions read any such object through
-`np.asarray` (numpy arrays, or anything that converts to one) and build
-the port's counterparts on `device`, so both packages can compute on the
-same weights. Nothing here imports the JAX package.
+The JAX package's NGP parameters are `{top: {sub: array}}` dicts, its
+packed tensors carry `words`/`scale`/`offset` arrays beside static
+`bits`, `shape` and `layout`, its `FusedPack` holds `layers`,
+`hash_tables`, `modes` and `layout`, and its LM parameters are a nested
+dict whose block leaves are stacked over periods. These functions read
+any such object through `np.asarray` (numpy arrays, or anything that
+converts to one, bfloat16 included) and build the port's counterparts on
+`device`, so both packages can compute on the same weights. Nothing here
+imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -21,15 +23,25 @@ from repro_torch.quant.packing import PackedTensor
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (the reference's arrays carry an
+        # extension dtype); carry the bits across as int16.
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(node, device: torch.device):
+    if isinstance(node, dict):
+        return {k: _tree(v, device) for k, v in node.items()}
+    return _tensor(node, device)
 
 
 def params_from_numpy(tree: Dict, device: DeviceLike = None) -> Dict:
     """NGP parameters `{top: {sub: array}}` -> the same dict of tensors on
     `device` (the card unless `device="cpu"`)."""
-    dev = resolve_device(device)
-    return {top: {k: _tensor(v, dev) for k, v in sub.items()}
-            for top, sub in tree.items()}
+    return _tree(tree, resolve_device(device))
 
 
 def packed_from_numpy(pt, device: DeviceLike = None) -> PackedTensor:
@@ -63,3 +75,34 @@ def pack_from_numpy(pack, device: DeviceLike = None) -> FusedPack:
                     modes=tuple(pack.modes))
     layout = str(getattr(pack, "layout", "planar"))
     return repack_fused_pack(out, layout) if layout != "planar" else out
+
+
+def lm_params_from_numpy(tree: Dict, device: DeviceLike = None) -> Dict:
+    """The reference's LM parameters (`lm.init_params`: leaves that
+    `np.asarray` reads, block leaves stacked over periods under
+    `blocks/pos<i>`) -> the port's layout on `device`: the same top-level
+    leaves, and `blocks` a list with one dict per layer (layer
+    n * period + i is period n's `pos<i>`)."""
+    dev = resolve_device(device)
+    out = {k: _tree(v, dev) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    n_pos = len(blocks)
+    n_periods = len(np.asarray(_first_leaf(blocks["pos0"])))
+    layers: List[Dict] = []
+    for n in range(n_periods):
+        for i in range(n_pos):
+            layers.append(_tree(_slice(blocks[f"pos{i}"], n), dev))
+    out["blocks"] = layers
+    return out
+
+
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node
+
+
+def _slice(node, n: int):
+    if isinstance(node, dict):
+        return {k: _slice(v, n) for k, v in node.items()}
+    return np.asarray(node)[n]

@@ -6,10 +6,11 @@ import torch
 from repro_torch.kernels import build
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
-            device: torch.device) -> None:
-    """Raise unless `t` is a contiguous `dtype` tensor of rank `ndim` on
-    the CUDA `device`."""
+def require_rows(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+                 device: torch.device) -> None:
+    """Raise unless `t` is a `dtype` tensor of rank `ndim` on the CUDA
+    `device` whose innermost axis is contiguous; the other axes may have
+    any strides (the kernel takes them), so views need no copy."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.device.type != "cuda" or t.device != device:
@@ -18,6 +19,14 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have rank {ndim}, got {tuple(t.shape)}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a contiguous innermost axis")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+            device: torch.device) -> None:
+    """`require_rows`, and `t` must be contiguous."""
+    require_rows(t, name, dtype, ndim, device)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -25,7 +34,8 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 def device_scalar(v, name: str, dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
     """A one-element `dtype` tensor on `device` for a scalar operand the
-    kernel reads from device memory (no host sync on the launch path)."""
+    kernel reads from device memory (a Python number is written by a fill
+    kernel: no host copy and no sync on the launch path)."""
     if isinstance(v, torch.Tensor):
         if v.numel() != 1:
             raise ValueError(f"{name} must hold one element, got "
@@ -33,7 +43,7 @@ def device_scalar(v, name: str, dtype: torch.dtype,
         if v.device != device:
             raise ValueError(f"{name} must live on {device}, got {v.device}")
         return v.to(dtype).reshape(1).contiguous()
-    return torch.tensor([v], dtype=dtype, device=device)
+    return torch.full((1,), v, dtype=dtype, device=device)
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

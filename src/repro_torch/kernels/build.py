@@ -31,6 +31,9 @@ SOURCES = (
     "hash_gather.cu",
     "alpha_composite.cu",
     "ray_march.cu",
+    "quant_matmul.cu",
+    "flash_attention.cu",
+    "decode_attention.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,6 +43,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point: argtypes; all return int (cudaError_t).
 SIGNATURES: Dict[str, List] = {
     # x, words, offset, sx, sw, zx, out, M, K, N, bits, groups_per_tile,
@@ -52,6 +56,21 @@ SIGNATURES: Dict[str, List] = {
     "repro_alpha_composite": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # occ, rays_o, rays_d, t, out, R, S, G, early_stop, stream
     "repro_ray_march": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, sx, sw, zx, out, M, K, N, stream
+    "repro_quant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, out, B, Hkv, S, G, hd, q strides (b, h, s, g), k strides
+    # (b, h, s), v strides (b, h, s), out strides (b, h, s, g), causal,
+    # scale, dtype, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              _L, _L, _L, _L, _I, _F, _I, _P],
+    # q, k, v, length, out, m_part, l_part, acc_part, B, Hkv, G, S, hd,
+    # q strides (b, h, g), k strides (b, h, s), v strides (b, h, s),
+    # scale, dtype, stream
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                               _F, _I, _P],
 }
 
 

@@ -6,9 +6,10 @@ back: there is no flag to pick a path and no `try` around a launch.
 
 `hash_encode` and `fused_field_query` are the compositions the fused
 renderer calls: one gather over the concatenated table, the trilinear
-8-corner sum (plain tensor code, summed corner by corner in a fixed
-order so the CPU and the card round identically), then, for the field
-query, activation quantization and the packed matmul.
+8-corner sum (plain tensor code: a chain of exactly rounded fused
+multiply-adds, as the jitted reference computes it, identical on the CPU
+and the card), then, for the field query, activation quantization and
+the packed matmul.
 """
 from __future__ import annotations
 
@@ -20,13 +21,23 @@ from repro_torch.kernels.alpha_composite import (
     alpha_composite_cuda,
     alpha_composite_plain,
 )
+from repro_torch.kernels.decode_attention_kernel import (
+    decode_attention_cuda,
+    decode_attention_plain,
+)
+from repro_torch.kernels.flash_attention_kernel import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.hash_encoding_kernel import (
     hash_gather_cuda,
     hash_gather_plain,
 )
 from repro_torch.kernels.quant_matmul import (
+    quant_matmul_cuda,
     quant_matmul_packed_cuda,
     quant_matmul_packed_plain,
+    quant_matmul_plain,
 )
 from repro_torch.kernels.ray_march import ray_march_cuda, ray_march_plain
 from repro_torch.quant.packing import PackedTensor
@@ -38,6 +49,15 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def quant_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor, sx, sw,
+                 zx) -> torch.Tensor:
+    """f32 (M, N) = ((x - zx) @ w) * sx * sw over int8 codes, summed
+    exactly in integers."""
+    if _on_card(x_codes):
+        return quant_matmul_cuda(x_codes, w_codes, sx, sw, zx)
+    return quant_matmul_plain(x_codes, w_codes, sx, sw, zx)
 
 
 def quant_matmul_packed(x_codes: torch.Tensor, wq: PackedTensor, sx, sw,
@@ -77,12 +97,65 @@ def ray_march(occ: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
     return ray_march_plain(occ, rays_o, rays_d, t)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Grouped-query attention forward: q (B, Hkv, S, G, hd) against k, v
+    (B, Hkv, S, hd) -> (B, Hkv, S, G, hd) f32. Non-causal attention needs
+    S % 128 == 0, as the reference's kernel does at its default key tile
+    (it has no key mask)."""
+    if not causal and q.shape[2] % 128:
+        raise ValueError("non-causal flash requires S % bk == 0")
+    if _on_card(q):
+        return flash_attention_cuda(q, k, v, causal)
+    return flash_attention_plain(q, k, v, causal)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length) -> torch.Tensor:
+    """One query token per head: q (B, Hkv, G, hd) against the cache k, v
+    (B, Hkv, S, hd) masked to positions < length (>= 1) -> (B, Hkv, G, hd)
+    in q's dtype."""
+    if _on_card(q):
+        return decode_attention_cuda(q, k, v, length)
+    return decode_attention_plain(q, k, v, length)
+
+
+def _fma_f32(a64: torch.Tensor, b64: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """round_f32(a * b + c) rounded once, as a fused multiply-add does, for
+    f32 values `a64`, `b64` (held in float64) and f32 `c`.
+
+    The product of two f32 values is exact in float64. The sum is rounded
+    to float64 and the error kept (TwoSum); the float64 result is then
+    moved to its odd neighbour when it was inexact and even ("round to
+    odd"), which makes the final rounding to f32 equal to a single
+    rounding of the exact value. Elementwise IEEE arithmetic only, so the
+    CPU and the card give the same bits."""
+    p = a64 * b64
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)  # toward the exact sum
+    s = torch.where(fix, bits + step, bits).view(torch.float64)
+    return s.to(torch.float32)
+
+
 def trilinear_sum(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum_c vals[..., c, :] * w[..., c] over the 8 corners, corner by
-    corner (a fixed order: identical on the CPU and the card)."""
-    acc = vals[..., 0, :] * w[..., 0, None]
-    for c in range(1, vals.shape[-2]):
-        acc = acc + vals[..., c, :] * w[..., c, None]
+    """sum_c vals[..., c, :] * w[..., c] over the 8 corners as a chain of
+    fused multiply-adds from 0: acc = fma(vals[c], w[c], acc), c = 0..7.
+    That is what XLA compiles the reference's
+    `jnp.sum(vals * w[..., None], axis=-2)` to under `jit`, so the
+    encodings, and the activation codes rounded from them, are bit-equal
+    to the jitted reference's."""
+    v64 = vals.to(torch.float64)
+    w64 = w.to(torch.float64)[..., None]
+    acc = torch.zeros(vals[..., 0, :].shape, dtype=torch.float32,
+                      device=vals.device)
+    for c in range(vals.shape[-2]):
+        acc = _fma_f32(v64[..., c, :], w64[..., c, :], acc)
     return acc
 
 

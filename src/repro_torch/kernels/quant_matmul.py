@@ -1,10 +1,15 @@
-"""Packed-weight quantized matmul: CUDA wrapper, plain version, counter.
+"""Quantized matmuls: CUDA wrappers, plain versions, counters.
 
 f32 (M, N) = ((x - zx) @ q) * sx * sw, with x int8 activation codes and q
-the weight codes of a sub-byte `PackedTensor` (planar or ``tile:<bk>``
-words), unpacked to clip(u + offset, -128, 127). The kernel is
-`csrc/quant_matmul_packed.cu`; it replaces the Pallas
-`repro/kernels/quant_matmul.py:_qmm_packed_kernel`.
+int8 weight codes, summed exactly in integers. Two weight forms:
+
+- `quant_matmul`: q an unpacked int8 (K, N) matrix. The kernel is
+  `csrc/quant_matmul.cu`; it replaces the Pallas
+  `repro/kernels/quant_matmul.py:_qmm_kernel`.
+- `quant_matmul_packed`: q the codes of a sub-byte `PackedTensor` (planar
+  or ``tile:<bk>`` words), unpacked to clip(u + offset, -128, 127). The
+  kernel is `csrc/quant_matmul_packed.cu`; it replaces the Pallas
+  `repro/kernels/quant_matmul.py:_qmm_packed_kernel`.
 """
 from __future__ import annotations
 
@@ -14,18 +19,49 @@ from repro_torch.kernels._launch import device_scalar, launch, require
 from repro_torch.quant.packing import PackedTensor, packed_groups, tile_layout_bk
 
 
-def quant_matmul_packed_plain(x_codes: torch.Tensor, wq: PackedTensor,
-                              sx, sw, zx) -> torch.Tensor:
+def quant_matmul_plain(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                       sx, sw, zx) -> torch.Tensor:
     """Exact integer semantics on any device: the integer product is taken
     in float64 (every partial sum is an integer below 2^53, so exact;
     CUDA has no integer matmul), then cast to f32 and scaled by sx, sw."""
     dev = x_codes.device
-    q = torch.clamp(wq.codes(), -128, 127).to(torch.float64)
     zx = torch.as_tensor(zx, device=dev).to(torch.float64)
-    acc = (x_codes.to(torch.float64) - zx) @ q
+    acc = (x_codes.to(torch.float64) - zx) @ w_codes.to(torch.float64)
     sx = torch.as_tensor(sx, dtype=torch.float32, device=dev)
     sw = torch.as_tensor(sw, dtype=torch.float32, device=dev)
     return acc.to(torch.float32) * sx * sw
+
+
+def quant_matmul_cuda(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                      sx, sw, zx) -> torch.Tensor:
+    """Launch the CUDA kernel. Raises on anything it does not take."""
+    dev = x_codes.device
+    require(x_codes, "x_codes", torch.int8, 2, dev)
+    require(w_codes, "w_codes", torch.int8, 2, dev)
+    M, K = x_codes.shape
+    if w_codes.shape[0] != K:
+        raise ValueError(f"w {tuple(w_codes.shape)} does not match x "
+                         f"{tuple(x_codes.shape)}")
+    N = w_codes.shape[1]
+    sx_t = device_scalar(sx, "sx", torch.float32, dev)
+    sw_t = device_scalar(sw, "sw", torch.float32, dev)
+    zx_t = device_scalar(zx, "zx", torch.int32, dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    launch("repro_quant_matmul", dev, x_codes.data_ptr(), w_codes.data_ptr(),
+           sx_t.data_ptr(), sw_t.data_ptr(), zx_t.data_ptr(), out.data_ptr(),
+           M, K, N)
+    quant_matmul_cuda.launches += 1
+    return out
+
+
+quant_matmul_cuda.launches = 0
+
+
+def quant_matmul_packed_plain(x_codes: torch.Tensor, wq: PackedTensor,
+                              sx, sw, zx) -> torch.Tensor:
+    """`quant_matmul_plain` over the unpacked codes, clipped to int8."""
+    return quant_matmul_plain(x_codes, torch.clamp(wq.codes(), -128, 127),
+                              sx, sw, zx)
 
 
 def quant_matmul_packed_cuda(x_codes: torch.Tensor, wq: PackedTensor,

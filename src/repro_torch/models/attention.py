@@ -1,0 +1,153 @@
+"""GQA/MQA/MHA attention: the full-sequence (prefill) path and the
+KV-cache decode path.
+
+The counterpart of `repro/models/attention.py`. Both paths compute the
+reference's function through the port's attention kernels instead of the
+reference's chunked jnp softmax:
+
+- `self_attention` (and `attention`, its output alone) hands the
+  projections to `ops.flash_attention` as strided views: (B, S, H, hd) -> (B, S, Hkv, G, hd) -> (B, Hkv, S, G, hd), and the
+  keys and values (B, S, Hkv, hd) -> (B, Hkv, S, hd). Query head h belongs
+  to KV head h // G.
+- `decode_attention` writes the new token's K/V into the cache at `pos`
+  and hands `ops.decode_attention` the cache (B, S_max, Hkv, hd) as a
+  (B, Hkv, S_max, hd) view, masked to `pos + 1` positions; the cache is
+  not copied.
+
+Cross-attention (`_project_qkv`'s `x_kv`, `decode_cross_attention`,
+`precompute_cross_kv`) comes with the encoder-decoder blocks.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ModelConfig, apply_rope, dense_init
+
+
+def attn_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    d, hd = cfg.d_model, cfg.head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    shapes = {
+        "wq": (d, nh * hd),
+        "wk": (d, nkv * hd),
+        "wv": (d, nkv * hd),
+        "wo": (nh * hd, d),
+    }
+    if cfg.qkv_bias:
+        shapes.update(
+            {"bq": (nh * hd,), "bk": (nkv * hd,), "bv": (nkv * hd,)}
+        )
+    return shapes
+
+
+def init_attn(generator: torch.Generator, cfg: ModelConfig) -> Dict:
+    """Weights from `generator` on its device; biases zero."""
+    params = {}
+    for name, shape in attn_param_shapes(cfg).items():
+        if name.startswith("b"):
+            params[name] = torch.zeros(shape, dtype=cfg.param_dtype,
+                                       device=generator.device)
+        else:
+            params[name] = dense_init(generator, shape[0], shape[1],
+                                      cfg.param_dtype)
+    return params
+
+
+def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, S, Hkv, hd) -> (B, S, H * hd) in q's dtype,
+    through `ops.flash_attention` on views (no copies of q, k or v)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    q5 = q.view(B, S, Hkv, H // Hkv, hd).permute(0, 2, 1, 3, 4)
+    out = ops.flash_attention(q5, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                              causal=causal)  # (B, Hkv, S, G, hd) f32
+    return out.permute(0, 2, 1, 3, 4).reshape(B, S, H * hd).to(q.dtype)
+
+
+def self_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                   positions: Optional[torch.Tensor] = None,
+                   causal: bool = True, use_rope: bool = True):
+    """Full-sequence self-attention of x (B, S, d) -> (out (B, S, d), k, v),
+    k and v (B, S, Hkv, hd) after the rotary embedding, as prefill caches
+    them."""
+    S = x.shape[1]
+    q, k, v = _project_qkv(params, x, cfg)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return grouped_attention(q, k, v, causal) @ params["wo"], k, v
+
+
+def attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+              positions: Optional[torch.Tensor] = None, causal: bool = True,
+              use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention (training / prefill). x: (B, S, d)."""
+    return self_attention(params, x, cfg, positions, causal, use_rope)[0]
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  device: torch.device, dtype=None) -> Dict:
+    """One layer's KV cache: (B, S_max, n_kv, hd) x 2."""
+    dtype = dtype or cfg.param_dtype
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(
+    params: Dict,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: Dict,  # {"k","v"}: (B, S_max, n_kv, hd), updated in place
+    pos: int,  # index of the new token
+    cfg: ModelConfig,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Dict]:
+    """One decode step against a pre-filled cache. Returns (out, cache).
+
+    The new token's K/V are written into `cache` at `pos` in place. The
+    reference's one-hot multiply-add update gives the same values bit for
+    bit (every other position is multiplied by 1 and added to 0), so the
+    in-place write changes nothing but the copy it saves."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    q, k_new, v_new = _project_qkv(params, x, cfg)
+    if use_rope:
+        p = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, p, cfg.rope_theta)
+        k_new = apply_rope(k_new, p, cfg.rope_theta)
+    k, v = cache["k"], cache["v"]
+    k[:, pos] = k_new[:, 0].to(k.dtype)
+    v[:, pos] = v_new[:, 0].to(v.dtype)
+
+    Hkv, H = cfg.n_kv_heads, cfg.n_heads
+    qh = q.reshape(B, Hkv, H // Hkv, hd).to(k.dtype)
+    out = ops.decode_attention(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                               pos + 1)  # (B, Hkv, G, hd)
+    out = out.reshape(B, 1, H * hd).to(x.dtype)
+    return out @ params["wo"], cache

@@ -1,0 +1,188 @@
+"""The port's kernels 5-7 (unpacked quant_matmul, flash attention, flash
+decoding) through `repro_torch.kernels.ops` (their plain versions on the
+CPU) against the JAX package's Pallas kernels in interpret mode and its
+`ref.*_ref` oracles, on the same numpy inputs.
+
+Tolerances: the integer matmul is exact (the reference is exact).
+Attention is float: 1e-5 in float32 (summation order only); in bfloat16
+3e-2 for flash and 2e-2 for decode, the bands of `tests/test_kernels.py`
+(p is rounded to bf16 before the PV product, at a different running
+maximum in each implementation)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.attention import _sdpa_chunked
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models.attention import grouped_attention
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a: np.ndarray, dtype: str):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul: exact
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (70, 200, 90), (128, 128, 128),
+                                   (129, 257, 65)])
+@pytest.mark.parametrize("zx", [0, 17, 128])
+def test_quant_matmul_exact(m, k, n, zx):
+    rng = np.random.default_rng(m * 1000 + k + n)
+    x = rng.integers(0, 256, (m, k)).astype(np.uint8).view(np.int8)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    got = tops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w), 0.037,
+                            0.011, zx)
+    pallas = jops.quant_matmul(jnp.asarray(x), jnp.asarray(w), 0.037, 0.011,
+                               zx, use_pallas=True, bm=32, bn=32, bk=64)
+    oracle = jref.quant_matmul_ref(jnp.asarray(x), jnp.asarray(w), 0.037,
+                                   0.011, zx)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(oracle))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_quant_matmul_bits_range_exact(bits):
+    rng = np.random.default_rng(bits)
+    hi = 2 ** (bits - 1) - 1
+    x = rng.integers(0, 2 ** bits, (33, 47)).astype(np.uint8).view(np.int8)
+    w = rng.integers(-hi, hi + 1, (47, 21)).astype(np.int8)
+    got = tops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w), 1.0,
+                            1.0, 2 ** (bits - 1))
+    want = jref.quant_matmul_ref(jnp.asarray(x), jnp.asarray(w), 1.0, 1.0,
+                                 2 ** (bits - 1))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        tref.quant_matmul_ref(torch.from_numpy(x), torch.from_numpy(w), 1.0,
+                              1.0, 2 ** (bits - 1)).numpy(), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# decode_attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,hkv,g,s,hd", [(1, 1, 1, 32, 16), (2, 4, 3, 100, 16),
+                                          (2, 2, 8, 257, 64),
+                                          (2, 2, 7, 300, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention(b, hkv, g, s, hd, dtype):
+    rng = np.random.default_rng(b + s + hd)
+    q_np = rng.normal(size=(b, hkv, g, hd)).astype(np.float32)
+    k_np = rng.normal(size=(b, hkv, s, hd)).astype(np.float32)
+    v_np = rng.normal(size=(b, hkv, s, hd)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q_np, k_np, v_np))
+    length = s - 5
+    got = tops.decode_attention(tq, tk, tv, length)
+    assert got.dtype == tq.dtype and got.shape == (b, hkv, g, hd)
+    pallas = jops.decode_attention(jq, jk, jv, jnp.int32(length),
+                                   use_pallas=True, bs=64)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jnp.int32(length))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_decode_attention_masks_future():
+    """Entries at or beyond `length` must not affect the output."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 2, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 2, 64, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 2, 64, 16)).astype(np.float32))
+    base = tops.decode_attention(q, k, v, 20)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 20:] = 99.0
+    v2[:, :, 20:] = -99.0
+    poisoned = tops.decode_attention(q, k2, v2, torch.tensor(20))
+    np.testing.assert_allclose(base.numpy(), poisoned.numpy(), atol=1e-6)
+    want = jops.decode_attention(jnp.asarray(q.numpy()), jnp.asarray(k2.numpy()),
+                                 jnp.asarray(v2.numpy()), jnp.int32(20),
+                                 use_pallas=True, bs=16)
+    np.testing.assert_allclose(poisoned.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,hkv,g,s,hd", [(1, 1, 1, 64, 16), (2, 2, 4, 96, 32),
+                                          (1, 4, 2, 130, 64),
+                                          (1, 2, 7, 100, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_causal(b, hkv, g, s, hd, dtype):
+    rng = np.random.default_rng(s + hd)
+    q_np = rng.normal(size=(b, hkv, s, g, hd)).astype(np.float32)
+    k_np = rng.normal(size=(b, hkv, s, hd)).astype(np.float32)
+    v_np = rng.normal(size=(b, hkv, s, hd)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q_np, k_np, v_np))
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.float32 and got.shape == (b, hkv, s, g, hd)
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, use_pallas=True,
+                                  bq=32, bk=32)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=True)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got.numpy(), _f32(want), rtol=tol, atol=tol)
+
+
+def test_flash_attention_noncausal():
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(1, 2, 128, 2, 16)).astype(np.float32)
+    k = rng.normal(size=(1, 2, 128, 16)).astype(np.float32)
+    v = rng.normal(size=(1, 2, 128, 16)).astype(np.float32)
+    got = tops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=False)
+    pallas = jops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=False,
+                                  use_pallas=True, bq=32, bk=32)
+    oracle = jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                      causal=False)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_attention_noncausal_ragged_raises_as_the_reference():
+    q = np.zeros((1, 1, 100, 2, 16), np.float32)
+    k = np.zeros((1, 1, 100, 16), np.float32)
+    with pytest.raises(ValueError, match="S % bk"):
+        jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                             causal=False, use_pallas=True)
+    with pytest.raises(ValueError, match="S % bk"):
+        tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(k), causal=False)
+
+
+def test_grouped_attention_on_views_matches_model_attention():
+    """The model layout (B, S, H, hd), handed to the kernel as strided
+    views, against the reference model's chunked attention; query head h
+    belongs to KV head h // G."""
+    rng = np.random.default_rng(7)
+    B, S, Hkv, G, hd = 2, 64, 2, 3, 16
+    q = rng.normal(size=(B, S, Hkv * G, hd)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+    got = grouped_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    want = _sdpa_chunked(*map(jnp.asarray, (q, k, v)), causal=True, chunk=32)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).reshape(B, S, -1),
+                               rtol=2e-4, atol=2e-4)
+    # The kernel's own layout, from the same arrays.
+    q5 = np.moveaxis(q.reshape(B, S, Hkv, G, hd), 1, 2)
+    out5 = tops.flash_attention(torch.from_numpy(q5),
+                                torch.from_numpy(np.moveaxis(k, 1, 2)),
+                                torch.from_numpy(np.moveaxis(v, 1, 2)))
+    np.testing.assert_allclose(
+        np.moveaxis(out5.numpy(), 2, 1).reshape(B, S, -1), got.numpy(),
+        rtol=0, atol=1e-6)

@@ -5,16 +5,24 @@ import), run them with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the matmul, gather and march are exact; compositing is
-within 1e-5 (the early exit drops less than t_eps per channel)."""
+Tolerances: the matmuls, gather and march are exact; compositing is
+within 1e-5 (the early exit drops less than t_eps per channel). Attention
+against its plain versions: 1e-4 in float32 (summation order), and in
+bfloat16 3e-2 (flash) and 2e-2 (decode), the bands of
+`tests/test_kernels.py` (p is rounded to bf16 at another maximum)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.alpha_composite import alpha_composite_plain
+from repro_torch.kernels.decode_attention_kernel import decode_attention_plain
+from repro_torch.kernels.flash_attention_kernel import flash_attention_plain
 from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
-from repro_torch.kernels.quant_matmul import quant_matmul_packed_plain
+from repro_torch.kernels.quant_matmul import (
+    quant_matmul_packed_plain,
+    quant_matmul_plain,
+)
 from repro_torch.kernels.ray_march import ray_march_plain
 from repro_torch.kernels.repack import repack_tile_native
 from repro_torch.quant.packing import pack_codes
@@ -118,3 +126,100 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                             torch.zeros((4, 3, 3), device=card),
                             torch.zeros((4, 3), device=card).t().contiguous()
                             .t())
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 45, 5), (129, 257, 65),
+                                   (16384, 64, 64)])
+def test_quant_matmul_kernel_exact(card, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
+    for zx in (0, 17, 128, -128):
+        got = ops.quant_matmul(x.to(card), w.to(card), 0.037, 0.011, zx)
+        assert torch.equal(got, quant_matmul_plain(x.to(card), w.to(card),
+                                                   0.037, 0.011, zx))
+        assert torch.equal(got.cpu(), quant_matmul_plain(x, w, 0.037, 0.011,
+                                                         zx))
+
+
+def _model_views(rng, card, B, S, Hkv, G, hd, dtype):
+    """q, k, v as the model hands them over: views of (B, S, H, hd) and
+    (B, S, Hkv, hd) tensors."""
+    q = torch.from_numpy(rng.normal(size=(B, S, Hkv * G, hd))
+                         .astype(np.float32)).to(card, dtype)
+    k = torch.from_numpy(rng.normal(size=(B, S, Hkv, hd))
+                         .astype(np.float32)).to(card, dtype)
+    v = torch.from_numpy(rng.normal(size=(B, S, Hkv, hd))
+                         .astype(np.float32)).to(card, dtype)
+    return (q.view(B, S, Hkv, G, hd).permute(0, 2, 1, 3, 4),
+            k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("b,hkv,g,s,hd", [(1, 1, 1, 64, 16), (2, 2, 4, 96, 32),
+                                          (1, 4, 2, 130, 64),
+                                          (2, 4, 7, 257, 128),
+                                          (1, 2, 3, 256, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_close(card, b, hkv, g, s, hd, dtype):
+    rng = np.random.default_rng(s + hd)
+    q, k, v = _model_views(rng, card, b, s, hkv, g, hd, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for causal in (True, False) if s % 128 == 0 else (True,):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal)
+        assert got.shape == (b, hkv, s, g, hd) and got.dtype == torch.float32
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,hkv,g,s,hd", [(1, 1, 1, 32, 16), (2, 4, 3, 100, 16),
+                                          (2, 2, 8, 257, 64),
+                                          (4, 4, 7, 1056, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_close(card, b, hkv, g, s, hd, dtype):
+    rng = np.random.default_rng(b + s)
+    q = torch.from_numpy(rng.normal(size=(b, hkv, g, hd))
+                         .astype(np.float32)).to(card, dtype)
+    cache = [torch.from_numpy(rng.normal(size=(b, s, hkv, hd))
+                              .astype(np.float32)).to(card, dtype)
+             for _ in range(2)]
+    k, v = (c.permute(0, 2, 1, 3) for c in cache)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for length in (1, s - 5, s):
+        got = ops.decode_attention(q, k, v, length)
+        want = decode_attention_plain(q, k, v, length)
+        assert got.dtype == dtype and got.shape == (b, hkv, g, hd)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_decode_attention_kernel_masks_future(card):
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 2, 16)).astype(np.float32)) \
+        .to(card)
+    k = torch.from_numpy(rng.normal(size=(1, 2, 200, 16)).astype(np.float32)) \
+        .to(card)
+    v = torch.from_numpy(rng.normal(size=(1, 2, 200, 16)).astype(np.float32)) \
+        .to(card)
+    base = ops.decode_attention(q, k, v, 70)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 70:] = 99.0
+    v2[:, :, 70:] = float("nan")  # never read
+    poisoned = ops.decode_attention(q, k2, v2, torch.tensor(70, device=card))
+    assert torch.equal(base, poisoned)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q = torch.zeros((1, 1, 8, 2, 16), device=card, dtype=torch.float16)
+    k = torch.zeros((1, 1, 8, 16), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k, k)
+    q = torch.zeros((1, 1, 8, 2, 256), device=card)
+    k = torch.zeros((1, 1, 8, 256), device=card)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k)  # head dim > 128
+    qd = torch.zeros((1, 1, 17, 16), device=card)
+    kd = torch.zeros((1, 1, 8, 16), device=card)
+    with pytest.raises(ValueError):
+        ops.decode_attention(qd, kd, kd, 4)  # G > 16
+    with pytest.raises(ValueError):
+        ops.decode_attention(qd[:, :, :2], kd.transpose(2, 3)
+                             .contiguous().transpose(2, 3), kd, 4)

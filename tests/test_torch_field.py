@@ -271,3 +271,52 @@ def test_fused_ngp_apply_within_1e6(int_packs, points):
                                      torch.from_numpy(dirs), T_CFG)
     np.testing.assert_allclose(trgb2.numpy(), np.asarray(jrgb), rtol=0,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The trilinear sum: an FMA chain, as XLA compiles the reference under jit
+# ---------------------------------------------------------------------------
+def test_hash_encode_bit_equal_to_the_jitted_reference():
+    rng = np.random.default_rng(0)
+    L, B, F, rows = 16, 4096, 2, 1 << 12
+    idx = rng.integers(0, rows, (L, B, 8)).astype(np.int32)
+    w = rng.uniform(size=(L, B, 8)).astype(np.float32)
+    w = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+    table = (rng.normal(size=(L * rows, F)) * 1e-2).astype(np.float32)
+    off = (np.arange(L) * rows).astype(np.int32)
+    jitted = jax.jit(lambda i, w, t, o: jops.hash_encode(i, w, t, o,
+                                                         use_pallas=False))
+    want = np.asarray(jitted(idx, w, table, off))
+    got = tops.hash_encode(*map(torch.from_numpy, (idx, w, table, off)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fused_field_query_codes_equal_the_jitted_reference(int_packs):
+    jp, tp = int_packs
+    pts = np.random.default_rng(5).uniform(size=(16384, 3)).astype(np.float32)
+    idx, w = _corner_data(pts)
+    cat, off = jp.compute["table_cat"], jp.compute["table_off"]
+    lyr = jp.layers["sigma/0"]
+    wq = jp.compute["sigma/0::wq_tile"]
+
+    @jax.jit
+    def j_query(idx, w, sx, zx_f, qmax, act_off):
+        enc = jops.hash_encode(idx, w, cat, off, use_pallas=False)
+        codes = jnp.clip(jnp.round(enc / sx + zx_f), 0.0, qmax) - act_off
+        act = dict(lyr, sx=sx, zx_f=zx_f, qmax=qmax, off=act_off)
+        return enc, codes.astype(jnp.int8), jops.fused_field_query(
+            idx, w, cat, off, wq, act, use_pallas=False)
+
+    j_enc, j_codes, j_out = j_query(idx, w, lyr["sx"], lyr["zx_f"], lyr["qmax"],
+                             lyr["off"])
+    t_idx, t_w = torch.tensor(np.asarray(idx)), torch.tensor(np.asarray(w))
+    tl = tp.layers["sigma/0"]
+    t_enc = tops.hash_encode(t_idx, t_w, tp.compute["table_cat"],
+                             tp.compute["table_off"])
+    np.testing.assert_array_equal(t_enc.numpy(), np.asarray(j_enc))
+    np.testing.assert_array_equal(tops.quantize_codes(t_enc, tl).numpy(),
+                                  np.asarray(j_codes))
+    got = tops.fused_field_query(t_idx, t_w, tp.compute["table_cat"],
+                                 tp.compute["table_off"],
+                                 tp.compute["sigma/0::wq_tile"], tl)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_out))

@@ -86,6 +86,26 @@ def test_default_device_entry_points_raise_without_a_card(no_card, tmp_path):
     FastRenderEngine(params, cfg, RenderConfig(), device="cpu")
 
 
+def test_lm_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_arch("qwen2-7b").smoke
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_params_from_numpy({"embed": np.zeros((2, 2), np.float32),
+                              "blocks": {}})
+    # Asking for the CPU works.
+    lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
 def test_ops_dispatch_by_device_and_refuse_others():
     from repro_torch.kernels import ops
 
