@@ -8,11 +8,16 @@ one (or without the rest of the repository beside it).
 Phases, each of which raises on failure:
 
 1. Build the seven CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and print the build time.
+   ``nvcc`` per source, all started together) and print the build time,
+   every kernel's registers, the attention kernels' spill bytes, and the
+   tensor-core (HGMMA) and cp.async (LDGSTS) instructions in their SASS
+   (``cuobjdump``); the bf16 flash kernel must hold HGMMA.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its serve path gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call that computes the same function
-   (median of 20 CUDA-event-timed runs after warm-up).
+   (median of 20 CUDA-event-timed runs after warm-up). Decode attention
+   is also timed cold, each call on one of 8 caches (69 MB against the
+   50 MB L2), beside the library call on the same caches.
 3. The NeRF path at ``paper()`` width: random weights from a seed,
    activation ranges calibrated from the field's taps, occupancy baked,
    a mixed int policy packed into a ``QuantArtifact``, saved, loaded
@@ -103,16 +108,18 @@ def bound(nbytes: float, ops: float, peak_ops: float):
 
 
 def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
-          call_ms):
+          call_ms, **more):
     """One kernel's record. `ms`, `plain_ms` and `library_ms` are device
-    times; `call_ms` is one kernel call with the host's launch overhead."""
+    times; `call_ms` is one kernel call with the host's launch overhead;
+    `more` adds measured times under their own names."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
             "max_abs_err": float(err), "ms": float(ms),
             "plain_ms": float(plain_ms), "bound_ms": float(bnd[0]),
             "bound_by": bnd[1],
             "library_ms": None if library_ms is None else float(library_ms),
-            "call_ms": float(call_ms)}
+            "call_ms": float(call_ms),
+            **{k: float(v) for k, v in more.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +441,9 @@ def phase_flash_attention(dev):
     cases = [(torch.bfloat16, LM_PROMPT, True, 3e-2),
              (torch.float32, LM_PROMPT, True, 1e-4),
              (torch.bfloat16, LM_PROMPT, False, 3e-2),
-             (torch.float32, 333, True, 1e-4)]
+             (torch.float32, 333, True, 1e-4),
+             (torch.bfloat16, 333, True, 3e-2),
+             (torch.bfloat16, 333, False, 3e-2)]
     for dtype, S, causal, tol in cases:
         q, k, v = lm_views(gen, dev, dtype, S)
         a = kernel(q, k, v, causal)
@@ -447,8 +456,8 @@ def phase_flash_attention(dev):
               f"{err:.3g} (tolerance {tol})")
         if not err <= tol:
             raise AssertionError(f"flash_attention: {err} > {tol}")
-        if dtype == torch.bfloat16 and causal:
-            worst = err
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
     # The main path's shapes: bf16, causal, 28 heads on 4 KV heads.
     q, k, v = lm_views(gen, dev, torch.bfloat16, LM_PROMPT)
     B, Hkv, S, G, hd = q.shape
@@ -471,17 +480,22 @@ def phase_decode_attention(dev):
     from repro_torch.kernels.decode_attention_kernel import (
         decode_attention_cuda as kernel,
         decode_attention_plain as plain,
+        split_len,
     )
 
     gen = torch.Generator(device=dev).manual_seed(2)
     B, Hkv, G, hd, S = LM_B, LM_HKV, LM_G, LM_HD, LM_SMAX
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(dtype)
         cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
                  .to(dtype) for _ in range(2)]
         k, v = (c.permute(0, 2, 1, 3) for c in cache)
-        for length in (1, 64, LM_PROMPT + 1, LM_PROMPT + 16, S - 1, S):
+        sp = split_len(B * Hkv, S, G, hd, q.element_size(), n_sm)
+        edges = {sp - 1, sp, sp + 1, 2 * sp, 2 * sp + 1, (S // sp) * sp}
+        for length in sorted({1, 64, LM_PROMPT + 1, LM_PROMPT + 16, S - 1,
+                              S} | edges):
             a = kernel(q, k, v, length)
             b = plain(q, k, v, length)
             torch.cuda.synchronize()
@@ -505,8 +519,9 @@ def phase_decode_attention(dev):
                                  "changed the result")
     print(f"decode_attention: within {BF16_ATTN_LIMIT} (bf16, worst "
           f"{worst:.3g}) and 1e-4 "
-          f"(f32) of the plain version at lengths 1..{S}; future positions "
-          "poisoned change nothing")
+          f"(f32) of the plain version at lengths 1..{S}, on and beside the "
+          f"edges of its {sp}-position splits; future positions poisoned "
+          "change nothing")
     q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(torch.bfloat16)
     cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
              .to(torch.bfloat16) for _ in range(2)]
@@ -520,11 +535,30 @@ def phase_decode_attention(dev):
     t_p = median_ms(lambda: plain(q, k, v, len_t))
     t_l = median_ms(lambda: sdpa(qs, k, v, attn_mask=mask, enable_gqa=True))
     t_c = median_ms(lambda: kernel(q, k, v, len_t), hide_host=False)
+    # Cold: each timed call reads one of 8 caches (69 MB in all, against a
+    # 50 MB L2), the one read longest ago, as the 28 layers' caches are.
+    ring = [tuple(torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+            for _ in range(8)]
+    turn = iter(range(10 ** 9))
+
+    def cold(f):
+        """`f` on the next cache of the ring: the one read longest ago."""
+        return lambda: f(*ring[next(turn) % len(ring)])
+
+    t_kc = median_ms(cold(lambda kk, vv: kernel(q, kk, vv, len_t)))
+    t_lc = median_ms(cold(lambda kk, vv: sdpa(qs, kk, vv, attn_mask=mask,
+                                              enable_gqa=True)))
+    ring_mb = len(ring) * 2 * ring[0][0].numel() * 2 / 1e6
+    print(f"  decode_attention cold ({len(ring)} caches, {ring_mb:.1f} MB): "
+          f"kernel {t_kc:.4f} ms, SDPA {t_lc:.4f} ms; warm: kernel "
+          f"{t_k:.4f} ms, SDPA {t_l:.4f} ms")
     nbytes = 2 * (2 * B * Hkv * length * hd + 2 * q.numel()) + 4
     return entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention_kernel.py:61", worst, t_k,
                  t_p, bound(nbytes, 4.0 * B * Hkv * G * length * hd,
-                            PEAK_BF16_OPS), t_l, t_c)
+                            PEAK_BF16_OPS), t_l, t_c, ms_cold=t_kc,
+                 library_ms_cold=t_lc)
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +668,7 @@ def profile(label: str, fn) -> None:
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {t:8.3f} ms {n:5d}x {name[:90]}")
+    return busy, by_name
 
 
 NERF_KERNELS = ("quant_matmul_packed", "hash_gather", "alpha_composite",
@@ -740,8 +775,22 @@ def lm_profile(dev, steps: int = 4) -> None:
     with torch.inference_mode():
         run_prefill()
         run_decode()
-        profile(f"LM prefill ({LM_BATCH} x {LM_PROMPT})", run_prefill)
-        profile(f"LM decode ({steps} steps, batch {LM_BATCH})", run_decode)
+        busy, by_name = profile(f"LM prefill ({LM_BATCH} x {LM_PROMPT})",
+                                run_prefill)
+        n, t = by_name_sum(by_name, "flash_")
+        print(f"  flash attention in prefill: {t:.3f} ms over {n} launches, "
+              f"{100.0 * t / busy:.1f} % of its device time")
+        busy, by_name = profile(f"LM decode ({steps} steps, batch "
+                                f"{LM_BATCH})", run_decode)
+        n, t = by_name_sum(by_name, "decode_kernel")
+        print(f"  decode attention in {steps} steps: {t:.3f} ms over {n} "
+              f"launches, {100.0 * t / busy:.1f} % of their device time")
+
+
+def by_name_sum(by_name, part: str):
+    """(launches, ms) of the profiled kernels whose name holds `part`."""
+    hits = [v for name, v in by_name.items() if part in name]
+    return sum(n for n, _ in hits), sum(t for _, t in hits)
 
 
 def to_device(tree, dev):
@@ -804,6 +853,57 @@ def lm_card_vs_cpu(dev, tol: float = 1e-3):
                              f"{cache_err} > {tol}")
 
 
+ATTENTION_SOURCES = ("flash_attention.cu", "decode_attention.cu")
+
+
+def print_ptxas(log: str) -> None:
+    """Registers of every kernel from the build's `ptxas -v` log; for the
+    two attention sources also each kernel's name, its stack and spill
+    bytes, and any note ptxas made about the wgmma pipeline."""
+    src = None
+    for line in log.splitlines():
+        line = line.strip()
+        if line.startswith("=="):
+            src = line[3:]
+            print(f"  {line}")
+        elif "registers" in line:
+            print(f"  {line}")
+        elif src in ATTENTION_SOURCES and (
+                "entry function" in line or "spill" in line
+                or "wgmma" in line or "warpgroup" in line):
+            print(f"  {line[:160]}")
+
+
+def print_tensor_core_ops(lib) -> None:
+    """Count the tensor-core (HGMMA, HMMA) and cp.async (LDGSTS)
+    instructions of the attention kernels in the built library's SASS
+    (`cuobjdump -sass`); the bf16 flash kernel must hold HGMMA."""
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            name = next((k for k in ("flash_tc_kernel", "flash_f32_kernel",
+                                     "decode_kernel") if k in fn), None)
+            if name == "decode_kernel":
+                name += "<bf16>" if "bfloat16" in fn else "<f32>"
+            continue
+        for op in ("HGMMA", "HMMA", "LDGSTS"):
+            if name and re.search(rf"\b{op}\.", line):
+                counts[(name, op)] = counts.get((name, op), 0) + 1
+    for (kernel, op), n in sorted(counts.items()):
+        print(f"  SASS {kernel}: {n} {op}")
+    if not counts.get(("flash_tc_kernel", "HGMMA")):
+        raise AssertionError("the bf16 flash kernel's SASS holds no HGMMA")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -820,10 +920,9 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     res = build.build()
     print(f"kernel build: {res.seconds:.2f} s ({res.path.name})")
-    for line in res.log.splitlines():
-        if "registers" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    print_ptxas(res.log)
     build.library()
+    print_tensor_core_ops(res.path)
 
     dev = torch.device("cuda")
     # Full float32 products wherever float32 is compared (the default,

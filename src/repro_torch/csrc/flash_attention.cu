@@ -15,12 +15,12 @@
 //   out = acc / max(l, 1e-30), f32.
 // These are the Pallas kernel's semantics, step for step.
 //
-// Design for the card. The TPU walked key tiles on a sequential grid axis
-// with the accumulators carried in VMEM; here one block owns one tile of
-// query rows of one (batch, KV head) and loops over the key tiles itself,
-// so nothing carries between blocks. The rows of a tile are the flattened
-// (query position, head-in-group) pairs: the G heads of a KV head share
-// every K/V tile staged in shared memory, which is the point of the
+// Shared by both routes. The TPU walked key tiles on a sequential grid
+// axis with the accumulators carried in VMEM; here one block owns a tile
+// of query rows of one (batch, KV head) and loops over the key tiles
+// itself, so nothing carries between blocks. The rows of a tile are the
+// flattened (query position, head-in-group) pairs: the G heads of a KV head
+// share every K/V tile staged in shared memory, which is the point of the
 // grouped layout, and a G that is not a power of two (7 at qwen2-7b) only
 // changes which query position a row masks with (row / G). Causal tiles
 // lying wholly above the diagonal are skipped, which the TPU could not do;
@@ -28,51 +28,396 @@
 // after it and a fully masked tile would add exp(-1e30 - m) = 0 with
 // corr = 1.
 //
+// The dtype decides the route; neither gives way to the other:
+//
+// - bfloat16: the tensor-core kernel `flash_tc_kernel`. Two consumer
+//   warpgroups own 64 rows each (128 a block). S = Q K^T is
+//   wgmma m64n64k16 with Q and K read from shared memory; O += P V is
+//   wgmma m64n128k16 with P in registers (the S accumulator converted to
+//   bf16 pairs is the A fragment, as in FlashAttention-3) and V read from
+//   shared memory through the transpose bit (V's rows are keys, hd
+//   contiguous). Q is staged once; K and V tiles go through a two-stage
+//   ring, tile t + 1 loading by cp.async (16 bytes a thread, straight from
+//   the strided views, no tensor map) while tile t is computed. Shared
+//   memory holds 128-byte-swizzled panels of 64 rows x 64 columns, hd
+//   zero-padded to 128 (the padded columns add 0 and are never stored).
+//   l sums the unrounded f32 p; the PV product takes p rounded to bf16;
+//   exp is ex2.approx of s * scale * log2 e - m, one multiply-add. Query
+//   tiles run longest first (the tile index reversed) to balance the
+//   causal triangle. Two blocks share a multiprocessor (128 registers a
+//   thread, 97 KB of shared memory a block), so one block's softmax runs
+//   while the other's products do: at the serve shapes on an NVIDIA H100
+//   80GB HBM3 (700 W) that is 1.2x faster than one block of 168 registers.
+// - float32: `flash_f32_kernel`, products on the CUDA cores in f32 out of
+//   shared memory (a 4 x 4 score and a 4 x 8 output micro-tile per
+//   thread). TF32 tensor cores would miss the float32 band (1e-4) that
+//   the card-vs-CPU model check holds this route to.
+//
 // What bounds it on this card: at the prefill shapes (B=4, Hkv=4, S=1024,
-// G=7, hd=128, causal) the two bounds are close: ~3.0e10 FLOP per call
-// at the bf16 tensor-core rate and ~96 MB of operands (the f32 output is
-// the largest) at the memory rate, both ~0.03 ms. This first version keeps
-// the products on the CUDA cores in f32 (a 4 x 4 score and a 4 x 8 output
-// micro-tile per thread, out of shared memory), so it runs far from that
-// bound; wgmma tiles, TMA staging and pipelining are later work.
+// G=7, hd=128, causal, bf16) the two bounds are close: ~3.0e10 FLOP per
+// call at the bf16 tensor-core rate and ~96 MB of operands (the 58.7 MB
+// f32 output is the largest) at the memory rate, both ~0.03 ms. The bf16
+// route keeps both products on the tensor cores and every K/V byte in
+// flight behind the compute of the previous tile; within a block the
+// softmax still waits for the products (both warpgroups in step), and
+// overlapping the two inside a warpgroup is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BR = 64;           // query rows (position, head) per block
-constexpr int BK = 64;           // keys per tile
-constexpr int THREADS = 256;
-constexpr int HD_MAX = 128;
-constexpr int NJ = HD_MAX / 16;  // output columns per thread
 constexpr float NEG = -1e30f;
+constexpr int HD_MAX = 128;
 
 struct Strides {
   long long b, h, s, g;  // element strides; g unused for k and v
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// p rounded to the value operand's type before the PV product.
-__device__ __forceinline__ float round_as(float p, const float*) { return p; }
-__device__ __forceinline__ float round_as(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma tiles.
+// ---------------------------------------------------------------------------
+constexpr int TC_ROWS = 128;              // query rows a block: 2 x 64
+constexpr int TC_KEYS = 64;               // keys a tile
+constexpr int TC_THREADS = 256;           // 2 warpgroups
+constexpr int PANEL = 64 * 128;           // 64 rows x 128 bytes (64 bf16)
+constexpr int Q_BYTES = 2 * 2 * PANEL;    // [warpgroup][hd panel] panels
+constexpr int KV_BYTES = 2 * PANEL;       // one K or V tile: 2 hd panels
+constexpr int STAGE_BYTES = 2 * KV_BYTES; // K then V
+constexpr int TC_SMEM = Q_BYTES + 2 * STAGE_BYTES + 1024;  // + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-size_t smem_bytes(int hd) {
+// 16 bytes from global to shared; only `bytes` (0..16) are read, the rest
+// of the 16 is zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk `c` (0..15) of row `r` in a [rows][128]
+// tile stored as 128-byte-swizzled panels of 64 columns (the layout that
+// TMA's SWIZZLE_128B writes and wgmma's 128B descriptors read).
+__device__ __forceinline__ uint32_t swz(int r, int c, int panel_bytes) {
+  return (c >> 3) * panel_bytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo,
+                                           uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define F8(a, i)                                                        \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),           \
+      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// d (64 x 64 f32) (+)= A (64 x 16, K-major in shared memory) *
+// B (16 x 64, K-major in shared memory).
+__device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128 f32) += A (64 x 16 bf16, registers) * B (16 x 128, MN-major
+// in shared memory: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_64x128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
+        F8(d, 48), F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x by the special-function unit (ex2.approx: relative error ~2^-22,
+// 2^(-1e30) = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a / d correctly rounded, from r = 1 / d (correctly rounded): q = a r,
+// then one fused multiply-add on the exact remainder a - d q (Markstein's
+// correction), three instructions where a division takes a dozen. Exact
+// while nothing over- or underflows; here d = l >= 1 (the row's maximum
+// adds p = 1).
+__device__ __forceinline__ float quot(float a, float d, float r) {
+  const float q = __fmul_rn(a, r);
+  return fmaf(fmaf(-d, q, a), r, q);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Rows [0, 64) of a (rows, hd) operand at `src` (row stride `rs` elements)
+// into a 64 x 128 swizzled tile at `dst`; rows >= n_rows and columns >= hd
+// are zero-filled. 256 threads, 4 chunks each, 16 threads a row.
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long rs, int n_rows, int hd,
+                                          int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = tid + i * TC_THREADS;
+    const int r = e >> 4, c = e & 15;
+    const int bytes = r < n_rows ? min(16, max(0, (hd - c * 8) * 2)) : 0;
+    const __nv_bfloat16* p = bytes ? src + r * rs + c * 8 : src;
+    cp_async16(dst + swz(r, c, PANEL), p, bytes);
+  }
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
+                int Hkv, int S, int G, int hd, Strides qs, Strides ks,
+                Strides vs, Strides os, int causal, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sKV = base + Q_BYTES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // longest first
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+
+  const int qmax = min((r0 + TC_ROWS - 1) / G, S - 1);
+  const int n_tiles = causal ? qmax / TC_KEYS + 1 : (S + TC_KEYS - 1) / TC_KEYS;
+
+  // Q: 128 rows x 16 chunks, 8 a thread; row (s, g) at s * qs.s + g * qs.g.
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int e = tid + i * TC_THREADS;
+    const int r = e >> 4, c = e & 15;
+    const int row = r0 + r, s = row / G, g = row - s * G;
+    const int bytes = s < S ? min(16, max(0, (hd - c * 8) * 2)) : 0;
+    const __nv_bfloat16* p = bytes ? qb + s * qs.s + g * qs.g + c * 8 : qb;
+    cp_async16(sQ + (r >> 6) * 2 * PANEL + swz(r & 63, c, PANEL), p, bytes);
+  }
+  load_tile(sKV, kb, ks.s, S, hd, tid);
+  load_tile(sKV + KV_BYTES, vb, vs.s, S, hd, tid);
+  cp_async_commit();
+  if (n_tiles > 1) {
+    load_tile(sKV + STAGE_BYTES, kb + TC_KEYS * ks.s, ks.s, S - TC_KEYS, hd,
+              tid);
+    load_tile(sKV + STAGE_BYTES + KV_BYTES, vb + TC_KEYS * vs.s, vs.s,
+              S - TC_KEYS, hd, tid);
+  }
+  cp_async_commit();
+
+  // This thread's two rows of its warpgroup's 64 (the accumulator layout).
+  const int rowA = r0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int rowB = rowA + 8;
+  const int qposA = rowA / G, qposB = rowB / G;
+  const int col0 = 2 * (lane & 3);
+  const uint32_t sQw = sQ + wg * 2 * PANEL;
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+  float mA = NEG, mB = NEG, lA = 0.0f, lB = 0.0f;  // l: this thread's part
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const uint32_t sK = sKV + (t & 1) * STAGE_BYTES, sV = sK + KV_BYTES;
+    cp_async_wait<1>();  // tile t (and Q) landed; tile t + 1 may be in flight
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD_MAX / 16; ++kk) {  // all 8: padding adds 0
+      const uint32_t off = (kk >> 2) * PANEL + (kk & 3) * 32;
+      wgmma_ss_64x64(sc, desc128(sQw + off, 16, 1024),
+                     desc128(sK + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+
+    const int k0 = t * TC_KEYS;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + col0 + c;
+        if (key >= S || (causal && key > qposA)) sc[4 * j + c] = NEG;
+        if (key >= S || (causal && key > qposB)) sc[4 * j + 2 + c] = NEG;
+      }
+    }
+    // Maxima in the log2 domain (scale * log2 e > 0 commutes with max);
+    // p = 2^(s * scale_log2 - m) in one multiply-add.
+    float mxA = NEG, mxB = NEG;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mxA = fmaxf(mxA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mxB = fmaxf(mxB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, off));
+      mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, off));
+    }
+    const float mnA = fmaxf(mA, mxA * scale_log2);
+    const float mnB = fmaxf(mB, mxB * scale_log2);
+    const float corrA = fast_exp2(mA - mnA), corrB = fast_exp2(mB - mnB);
+    mA = mnA;
+    mB = mnB;
+    float sumA = 0.0f, sumB = 0.0f;
+    uint32_t pf[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float pa0 = fast_exp2(fmaf(sc[4 * j], scale_log2, -mnA));
+      const float pa1 = fast_exp2(fmaf(sc[4 * j + 1], scale_log2, -mnA));
+      const float pb0 = fast_exp2(fmaf(sc[4 * j + 2], scale_log2, -mnB));
+      const float pb1 = fast_exp2(fmaf(sc[4 * j + 3], scale_log2, -mnB));
+      sumA += pa0 + pa1;
+      sumB += pb0 + pb1;
+      pf[2 * j] = pack_bf16(pa0, pa1);      // row A, keys 8j + col0 + {0,1}
+      pf[2 * j + 1] = pack_bf16(pb0, pb1);  // row B
+    }
+    lA = lA * corrA + sumA;
+    lB = lB * corrB + sumB;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      o[4 * j] *= corrA;
+      o[4 * j + 1] *= corrA;
+      o[4 * j + 2] *= corrB;
+      o[4 * j + 3] *= corrB;
+    }
+
+    // O += P V: 4 steps of 16 keys; the A fragment of step kk is the score
+    // fragment of key groups 2kk and 2kk + 1.
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_KEYS / 16; ++kk) {
+      const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                             pf[4 * kk + 3]};
+      wgmma_rs_64x128(o, a, desc128(sV + kk * 16 * 128, PANEL, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    __syncthreads();  // both warpgroups are done with this stage
+
+    if (t + 2 < n_tiles) {
+      const int k2 = (t + 2) * TC_KEYS;
+      load_tile(sK, kb + k2 * ks.s, ks.s, S - k2, hd, tid);
+      load_tile(sV, vb + k2 * vs.s, vs.s, S - k2, hd, tid);
+    }
+    cp_async_commit();  // (possibly empty: keeps the group count in step)
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    lA += __shfl_xor_sync(0xffffffffu, lA, off);
+    lB += __shfl_xor_sync(0xffffffffu, lB, off);
+  }
+  const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
+  const float rA = 1.0f / dA, rB = 1.0f / dB;
+  const int sA = qposA, gA = rowA - sA * G, sB = qposB, gB = rowB - sB * G;
+  float* oA = out + b * os.b + h * os.h + sA * os.s + gA * os.g;
+  float* oB = out + b * os.b + h * os.h + sB * os.s + gB * os.g;
+  const bool pairs = (hd & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int d = 8 * j + col0;
+    if (d >= hd) continue;
+    if (pairs) {
+      if (sA < S)
+        *reinterpret_cast<float2*>(oA + d) =
+            make_float2(quot(o[4 * j], dA, rA), quot(o[4 * j + 1], dA, rA));
+      if (sB < S)
+        *reinterpret_cast<float2*>(oB + d) =
+            make_float2(quot(o[4 * j + 2], dB, rB), quot(o[4 * j + 3], dB, rB));
+    } else {
+      if (sA < S) oA[d] = quot(o[4 * j], dA, rA);
+      if (sB < S) oB[d] = quot(o[4 * j + 2], dB, rB);
+      if (d + 1 < hd) {
+        if (sA < S) oA[d + 1] = quot(o[4 * j + 1], dA, rA);
+        if (sB < S) oB[d + 1] = quot(o[4 * j + 3], dB, rB);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core tiles.
+// ---------------------------------------------------------------------------
+constexpr int BR = 64;           // query rows (position, head) per block
+constexpr int BK = 64;           // keys per tile
+constexpr int THREADS = 256;
+constexpr int NJ = HD_MAX / 16;  // output columns per thread
+
+size_t f32_smem_bytes(int hd) {
   const int ld = hd + 1;
   return sizeof(float) *
          ((size_t)BR * ld + (size_t)BK * ld + (size_t)BR * (BK + 1) + 3 * BR);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, float* __restrict__ out, int Hkv, int S,
-             int G, int hd, Strides qs, Strides ks, Strides vs, Strides os,
-             int causal, float scale) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 int Hkv, int S, int G, int hd, Strides qs, Strides ks,
+                 Strides vs, Strides os, int causal, float scale) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* Qs = smem;                  // BR x ld
@@ -87,14 +432,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / Hkv, h = bh % Hkv;
   const int r0 = blockIdx.x * BR;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
 
   for (int e = tid; e < BR * hd; e += THREADS) {
     const int r = e / hd, d = e % hd;
     const int row = r0 + r, s = row / G, g = row % G;
-    Qs[r * ld + d] = s < S ? to_f(qb[s * qs.s + g * qs.g + d]) : 0.0f;
+    Qs[r * ld + d] = s < S ? qb[s * qs.s + g * qs.g + d] : 0.0f;
   }
   if (tid < BR) {
     row_m[tid] = NEG;
@@ -116,7 +461,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's PV is done with KVs and Ps
     for (int e = tid; e < BK * hd; e += THREADS) {
       const int c = e / hd, d = e % hd;
-      KVs[c * ld + d] = k0 + c < S ? to_f(kb[(k0 + c) * ks.s + d]) : 0.0f;
+      KVs[c * ld + d] = k0 + c < S ? kb[(k0 + c) * ks.s + d] : 0.0f;
     }
     __syncthreads();
 
@@ -150,7 +495,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int e = tid; e < BK * hd; e += THREADS) {
       const int c = e / hd, d = e % hd;
-      KVs[c * ld + d] = k0 + c < S ? to_f(vb[(k0 + c) * vs.s + d]) : 0.0f;
+      KVs[c * ld + d] = k0 + c < S ? vb[(k0 + c) * vs.s + d] : 0.0f;
     }
     {
       // Four neighbouring lanes own one row, 16 columns each.
@@ -168,7 +513,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 16; ++c) {
         const float p = expf(pr[c] - m_new);
         sum += p;
-        pr[c] = round_as(p, v);
+        pr[c] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -219,26 +564,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hkv, int S, int G, int hd, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(((long long)S * G + BR - 1) / BR, B * Hkv);
-  flash_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (float*)out, Hkv, S, G, hd, qs,
-      ks, vs, os, causal, scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). Strides are in
-// elements: q and out (b, h, s, g), k and v (b, h, s). Requires hd <= 128.
+// elements: q and out (b, h, s, g), k and v (b, h, s). Requires hd <= 128;
+// the bfloat16 route also needs 16-byte-aligned q, k, v and strides that
+// are multiples of 8 elements (the wrapper checks both).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int Hkv,
     int S, int G, int hd, long long qsb, long long qsh, long long qss,
@@ -251,9 +582,27 @@ extern "C" int repro_flash_attention(
   const Strides qs{qsb, qsh, qss, qsg}, ks{ksb, ksh, kss, 0},
       vs{vsb, vsh, vss, 0}, os{osb, osh, oss, osg};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Hkv, S, G, hd, qs, ks, vs,
-                                 os, causal, scale, st);
-  return launch<float>(q, k, v, out, B, Hkv, S, G, hd, qs, ks, vs, os,
-                       causal, scale, st);
+  const long long rows = (long long)S * G;
+  if (dtype == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TC_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(B * Hkv, (rows + TC_ROWS - 1) / TC_ROWS);
+    flash_tc_kernel<<<grid, TC_THREADS, TC_SMEM, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (float*)out, Hkv, S, G, hd, qs, ks, vs, os,
+        causal, scale * 1.4426950408889634f);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = f32_smem_bytes(hd);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((rows + BR - 1) / BR, B * Hkv);
+  flash_f32_kernel<<<grid, THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Hkv, S,
+      G, hd, qs, ks, vs, os, causal, scale);
+  return (int)cudaGetLastError();
 }

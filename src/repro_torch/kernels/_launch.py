@@ -31,6 +31,20 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def require_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless `t` starts on a 16-byte boundary and each stride of an
+    axis longer than one (the innermost aside) is a whole number of 16-byte
+    units: what a kernel that copies rows 16 bytes at a time with
+    `cp.async` takes. Nothing is copied to make it so."""
+    unit = 16 // t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+    for i in range(t.dim() - 1):
+        if t.shape[i] > 1 and t.stride(i) % unit:
+            raise ValueError(f"{name}'s stride {t.stride(i)} on axis {i} is "
+                             f"not a multiple of {unit} elements")
+
+
 def device_scalar(v, name: str, dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
     """A one-element `dtype` tensor on `device` for a scalar operand the

@@ -6,7 +6,9 @@ q (B, Hkv, S, G, hd) holds the G query heads of each KV head; k, v are
 before the PV product, and the output is the f32 sum over max(l, 1e-30).
 The kernel is `csrc/flash_attention.cu` (online softmax over key tiles);
 it replaces the Pallas
-`repro/kernels/flash_attention_kernel.py:_flash_kernel`.
+`repro/kernels/flash_attention_kernel.py:_flash_kernel`. The dtype picks
+its route: bfloat16 runs on the tensor cores (wgmma) from tiles staged by
+`cp.async`, float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._launch import launch, require_rows
+from repro_torch.kernels._launch import launch, require_aligned, require_rows
 
 NEG_INF = -1e30
 HD_MAX = 128  # the kernel's largest head dim
@@ -43,7 +45,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel on strided views (innermost axis contiguous).
     Returns (B, Hkv, S, G, hd) f32: a view of a buffer laid out
     (B, S, Hkv, G, hd), the order the model reads it back in. Raises on
-    anything the kernel does not take."""
+    anything the kernel does not take; in bfloat16 that includes a q, k
+    or v whose start or strides are not 16-byte aligned (the tensor-core
+    route copies 16-byte pieces of rows), which the model's views never
+    are."""
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -56,6 +61,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"match q {tuple(q.shape)}")
     if hd > HD_MAX:
         raise ValueError(f"head dim {hd} > {HD_MAX}")
+    if q.dtype == torch.bfloat16:
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            require_aligned(t, name)
     out = torch.empty((B, S, Hkv, G, hd), dtype=torch.float32,
                       device=dev).permute(0, 2, 1, 3, 4)
     launch("repro_flash_attention", dev, q.data_ptr(), k.data_ptr(),

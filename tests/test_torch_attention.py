@@ -18,6 +18,13 @@ from repro.kernels import ref as jref
 from repro.models.attention import _sdpa_chunked
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels._launch import require_aligned
+from repro_torch.kernels.decode_attention_kernel import (
+    FAC_MAX,
+    KV_SMEM,
+    SPLIT_MAX,
+    split_len,
+)
 from repro_torch.models.attention import grouped_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -186,3 +193,49 @@ def test_grouped_attention_on_views_matches_model_attention():
     np.testing.assert_allclose(
         np.moveaxis(out5.numpy(), 2, 1).reshape(B, S, -1), got.numpy(),
         rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Host-side choices of the CUDA wrappers (plain Python: no card needed)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_seq,S,G,hd,esize", [
+    (16, 1056, 7, 128, 2),  # qwen2-7b decode at batch 4
+    (16, 1056, 7, 128, 4),
+    (1, 1056, 7, 128, 2),
+    (64, 1056, 7, 128, 2),
+    (2, 300, 3, 40, 2),
+    (4, 100_000, 16, 128, 2),
+    (1, 200, 16, 256, 4),
+])
+def test_decode_split_len_fills_the_card_within_its_limits(n_seq, S, G, hd,
+                                                           esize):
+    n_sm = 132
+    sp = split_len(n_seq, S, G, hd, esize, n_sm)
+    row = -(-hd * esize // 16) * 16
+    most = min(SPLIT_MAX, KV_SMEM // (2 * row))
+    assert sp % 16 == 0 and 16 <= sp <= most
+    assert G * -(-S // sp) <= FAC_MAX
+    if 16 < sp < most:  # no limit reached: about three blocks an SM
+        assert 2 * n_sm <= n_seq * -(-S // sp) <= 4 * n_sm
+
+
+def test_decode_split_len_refuses_a_cache_too_long_for_the_combine():
+    with pytest.raises(ValueError, match="positions"):
+        split_len(1, 10 ** 6, 16, 128, 2, 132)
+
+
+def test_require_aligned_refuses_what_16_byte_copies_cannot_take():
+    n = 4 * 64 * 2 * 16
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16)
+    cache = flat[:n].view(4, 64, 2, 16)
+    require_aligned(cache.permute(0, 2, 1, 3), "k")  # the model's view
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        require_aligned(flat[1:n + 1].view(4, 64, 2, 16), "k")
+    wide = torch.zeros((4, 64, 2, 20), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stride 20 on axis 1"):
+        require_aligned(wide[..., :16].permute(0, 2, 1, 3), "k")
+    # An axis of length one may have any stride; float32 counts in fours.
+    require_aligned(wide[:, :, :1, :16], "k")
+    require_aligned(torch.zeros((3, 5, 12), dtype=torch.float32), "q")
+    with pytest.raises(ValueError, match="multiple of 4 elements"):
+        require_aligned(torch.zeros((3, 5, 6), dtype=torch.float32), "q")

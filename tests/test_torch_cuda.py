@@ -9,15 +9,25 @@ Tolerances: the matmuls, gather and march are exact; compositing is
 within 1e-5 (the early exit drops less than t_eps per channel). Attention
 against its plain versions: 1e-4 in float32 (summation order), and in
 bfloat16 3e-2 (flash) and 2e-2 (decode), the bands of
-`tests/test_kernels.py` (p is rounded to bf16 at another maximum)."""
+`tests/test_kernels.py` (p is rounded to bf16 at another maximum); the
+tile-edge and split-edge cases are held to 5e-3 in bfloat16, the limit
+`chip_smoke.py` holds both kernels to at the serve shapes."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention_kernel as dak
 from repro_torch.kernels import ops
 from repro_torch.kernels.alpha_composite import alpha_composite_plain
-from repro_torch.kernels.decode_attention_kernel import decode_attention_plain
-from repro_torch.kernels.flash_attention_kernel import flash_attention_plain
+from repro_torch.kernels.decode_attention_kernel import (
+    decode_attention_cuda,
+    decode_attention_plain,
+    split_len,
+)
+from repro_torch.kernels.flash_attention_kernel import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
 from repro_torch.kernels.quant_matmul import (
     quant_matmul_packed_plain,
@@ -223,3 +233,113 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         ops.decode_attention(qd[:, :, :2], kd.transpose(2, 3)
                              .contiguous().transpose(2, 3), kd, 4)
+
+
+BF16_EDGE_TOL = 5e-3
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 1000])
+@pytest.mark.parametrize("g", [1, 7, 8])
+@pytest.mark.parametrize("hd", [16, 40, 128])
+def test_flash_attention_bf16_tile_edges(card, s, g, hd):
+    """The tensor-core route at the edges of its 64-key tiles and 128-row
+    query tiles, with hd zero-padded in shared memory (40 is not a
+    multiple of 16), causal and full (the kernel masks keys >= S itself;
+    `ops` keeps the reference's S % 128 rule for full attention)."""
+    rng = np.random.default_rng(1000 * s + 10 * g + hd)
+    q, k, v = _model_views(rng, card, 2, s, 2, g, hd, torch.bfloat16)
+    for causal in (True, False):
+        got = flash_attention_cuda(q, k, v, causal)
+        want = flash_attention_plain(q, k, v, causal)
+        assert got.shape == (2, 2, s, g, hd) and got.dtype == torch.float32
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= BF16_EDGE_TOL
+
+
+def test_flash_attention_bf16_refuses_unaligned_views(card):
+    B, S, Hkv, G, hd = 1, 64, 2, 2, 16
+    rng = np.random.default_rng(7)
+    q, k, v = _model_views(rng, card, B, S, Hkv, G, hd, torch.bfloat16)
+    flat = torch.zeros(B * S * Hkv * hd + 1, dtype=torch.bfloat16,
+                       device=card)
+    shifted = flat[1:].view(B, S, Hkv, hd).permute(0, 2, 1, 3)  # 2-byte start
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, shifted, v)
+    wide = torch.zeros((B, S, Hkv, hd + 4), dtype=torch.bfloat16, device=card)
+    odd = wide[..., :hd].permute(0, 2, 1, 3)  # h-stride 20: not 16 bytes
+    with pytest.raises(ValueError, match="stride"):
+        ops.flash_attention(q, k, odd)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.decode_attention(q[:, :, 0], shifted, v, 8)
+    # float32 keeps the CUDA-core route, which takes any strides.
+    widef = torch.randn((B, S, Hkv, hd + 3), device=card)
+    qf, kf = q.float(), widef[..., :hd].permute(0, 2, 1, 3)  # h-stride 19
+    got = ops.flash_attention(qf, kf, kf)
+    assert (got - flash_attention_plain(qf, kf, kf)).abs().max() <= 1e-4
+
+
+def _decode_case(rng, card, b, hkv, g, s, hd, dtype):
+    q = torch.from_numpy(rng.normal(size=(b, hkv, g, hd))
+                         .astype(np.float32)).to(card, dtype)
+    cache = [torch.from_numpy(rng.normal(size=(b, s, hkv, hd))
+                              .astype(np.float32)).to(card, dtype)
+             for _ in range(2)]
+    return q, cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("b,hkv", [(1, 1), (16, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_edges(card, b, hkv, dtype):
+    """Lengths on and beside the edges of the kernel's splits, given as an
+    int and as a tensor on the card, for B * Hkv = 1 and 64."""
+    g, s, hd = 7, 1056, 128
+    rng = np.random.default_rng(b * hkv)
+    q, k, v = _decode_case(rng, card, b, hkv, g, s, hd, dtype)
+    sp = split_len(b * hkv, s, g, hd, q.element_size(),
+                   torch.cuda.get_device_properties(card)
+                   .multi_processor_count)
+    tol = 1e-4 if dtype == torch.float32 else BF16_EDGE_TOL
+    for length in sorted({1, sp - 1, sp, sp + 1, 2 * sp - 1, 2 * sp,
+                          2 * sp + 1, s - sp, s - 1, s}):
+        want = decode_attention_plain(q, k, v, length).float()
+        for arg in (length, torch.tensor(length, device=card)):
+            got = ops.decode_attention(q, k, v, arg)
+            assert got.dtype == dtype and got.shape == (b, hkv, g, hd)
+            err = (got.float() - want).abs().max().item()
+            assert err <= tol, (length, err)
+
+
+def test_decode_attention_back_to_back_calls_reset_tickets(card):
+    """Three calls queued without a sync, at different shapes and lengths
+    (two of them sharing cached scratch): each matches its plain version,
+    and every ticket is back at 0 afterwards."""
+    rng = np.random.default_rng(11)
+    cases = [(2, 4, 7, 1056, 128, 1040), (1, 2, 3, 300, 64, 17),
+             (2, 4, 7, 1056, 128, 49)]
+    inputs = [_decode_case(rng, card, b, h, g, s, hd, torch.bfloat16)
+              for b, h, g, s, hd, _ in cases]
+    outs = [ops.decode_attention(q, k, v, c[-1])
+            for (q, k, v), c in zip(inputs, cases)]
+    torch.cuda.synchronize()
+    for (q, k, v), c, got in zip(inputs, cases, outs):
+        want = decode_attention_plain(q, k, v, c[-1])
+        assert (got.float() - want.float()).abs().max().item() <= BF16_EDGE_TOL
+    for _, _, tickets in dak._SCRATCH.values():
+        assert not tickets.any()
+
+
+def test_decode_attention_one_launch_per_call(card):
+    rng = np.random.default_rng(12)
+    q, k, v = _decode_case(rng, card, 1, 2, 4, 200, 64, torch.bfloat16)
+    ops.decode_attention(q, k, v, 100)
+    torch.cuda.synchronize()
+    n = decode_attention_cuda.launches
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.decode_attention(q, k, v, 150)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert decode_attention_cuda.launches == n + 1
+    assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
