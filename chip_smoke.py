@@ -9,15 +9,21 @@ Phases, each of which raises on failure:
 
 1. Build the seven CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build time,
-   every kernel's registers, the attention kernels' spill bytes, and the
-   tensor-core (HGMMA) and cp.async (LDGSTS) instructions in their SASS
-   (``cuobjdump``); the bf16 flash kernel must hold HGMMA.
+   every kernel's registers, the attention and quantized-matmul kernels'
+   spill bytes, and the tensor-core (HGMMA, HMMA, IMMA) and cp.async
+   (LDGSTS) instructions in their SASS (``cuobjdump``); the bf16 flash
+   kernel must hold HGMMA, and both quantized matmuls an s8 tensor-core
+   instruction.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its serve path gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call that computes the same function
-   (median of 20 CUDA-event-timed runs after warm-up). Decode attention
-   is also timed cold, each call on one of 8 caches (69 MB against the
-   50 MB L2), beside the library call on the same caches.
+   (median of 20 CUDA-event-timed runs after warm-up). The timing floor,
+   an empty launch timed the same ways, is printed first. The quantized
+   matmuls are bit-equal also at N = 8 and 200, K = 257 and on x views
+   off 16-byte boundaries, and their five serve linears are also timed
+   back to back in one bracket (``seq_ms``), as a slot runs them. Decode
+   attention is also timed cold, each call on one of 8 caches (69 MB
+   against the 50 MB L2), beside the library call on the same caches.
 3. The NeRF path at ``paper()`` width: random weights from a seed,
    activation ranges calibrated from the field's taps, occupancy baked,
    a mixed int policy packed into a ``QuantArtifact``, saved, loaded
@@ -125,7 +131,67 @@ def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
 # ---------------------------------------------------------------------------
 # Kernel phases: kernel == plain version on the card, then timed.
 # ---------------------------------------------------------------------------
-def phase_quant_matmul(rng, dev):
+def unaligned_views(rng, M, K, dev):
+    """x operands that start off a 16-byte boundary: one byte into a
+    buffer, and row 1 of an (M + 1, K) matrix (K bytes in)."""
+    buf = torch.from_numpy(rng.integers(-128, 128, M * K + 1, dtype=np.int8))
+    big = torch.from_numpy(rng.integers(-128, 128, (M + 1, K), dtype=np.int8))
+    return {"byte 1": buf.to(dev)[1:].view(M, K), "row 1": big.to(dev)[1:]}
+
+
+def qmm_inputs(rng, dev, packed: bool):
+    """The five paper linears of one slot at M = 16,384: x, the weight
+    (4-bit tile:128 words, or int8 codes), sx, sw, zx, and the f32 operands
+    of the `torch.matmul` yardstick."""
+    from repro_torch.kernels.repack import repack_tile_native
+    from repro_torch.quant.packing import pack_codes
+
+    out = []
+    for K, N in QMM_SHAPES:
+        x = torch.from_numpy(rng.integers(-128, 128, (SERVE_ROWS, K),
+                                          dtype=np.int8)).to(dev)
+        sx = torch.tensor(0.02, device=dev)
+        zx = torch.tensor(-3, dtype=torch.int32, device=dev)
+        if packed:
+            w = repack_tile_native(pack_codes(rng.integers(-9, 8, (K, N)), 4,
+                                              scale=0.01, device=dev))
+            sw, wf = w.scale, w.dequantize()
+        else:
+            w = torch.from_numpy(rng.integers(-8, 8, (K, N),
+                                              dtype=np.int8)).to(dev)
+            sw, wf = torch.tensor(0.01, device=dev), w.to(torch.float32)
+        out.append((x, w, sx, sw, zx, x.to(torch.float32), wf))
+    return out
+
+
+def time_linears(name, kernel, plain, cases, floor):
+    """Time kernel, plain version and `torch.matmul` (f32) on each linear
+    alone (device time, and one kernel call from an idle device) and on
+    all five back to back inside one bracket, as a slot runs them."""
+    tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, call_ms=0.0)
+    for x, w, sx, sw, zx, xf, wf in cases:
+        t_k = median_ms(lambda: kernel(x, w, sx, sw, zx))
+        t_p = median_ms(lambda: plain(x, w, sx, sw, zx))
+        t_l = median_ms(lambda: torch.matmul(xf, wf))
+        t_c = median_ms(lambda: kernel(x, w, sx, sw, zx), hide_host=False)
+        K, N = x.shape[1], wf.shape[1]
+        print(f"  K={K:3d} N={N:3d}: kernel {t_k:.4f} ms (one call {t_c:.4f} "
+              f"ms), plain {t_p:.4f} ms, torch.matmul(f32) {t_l:.4f} ms")
+        for key, t in zip(tot, (t_k, t_p, t_l, t_c)):
+            tot[key] += t
+    seq = {"seq_ms": lambda: [kernel(*c[:5]) for c in cases],
+           "plain_seq_ms": lambda: [plain(*c[:5]) for c in cases],
+           "library_seq_ms": lambda: [torch.matmul(*c[5:]) for c in cases]}
+    seq = {k: median_ms(f) for k, f in seq.items()}
+    print(f"  {name}, the five linears back to back in one bracket: kernel "
+          f"{seq['seq_ms']:.4f} ms, plain {seq['plain_seq_ms']:.4f} ms, "
+          f"torch.matmul(f32) {seq['library_seq_ms']:.4f} ms; summed alone: "
+          f"kernel {tot['ms']:.4f} ms, five empty launches "
+          f"{5 * floor['floor_ms']:.4f} ms")
+    return tot, seq
+
+
+def phase_quant_matmul(rng, dev, floor):
     from repro_torch.kernels.quant_matmul import (
         quant_matmul_packed_cuda as kernel,
         quant_matmul_packed_plain as plain,
@@ -135,8 +201,12 @@ def phase_quant_matmul(rng, dev):
 
     M = SERVE_ROWS
     worst = 0.0
-    for K, N in QMM_SHAPES:
-        x = torch.from_numpy(rng.integers(-128, 128, (M, K), dtype=np.int8)).to(dev)
+    # The paper linears, then N = 8 and 200 (N = 3 is the last paper one)
+    # and a K past one staged chunk.
+    shapes = [(M, K, N) for K, N in QMM_SHAPES] + [
+        (M, 64, 8), (M, 40, 200), (M + 13, 257, 3)]
+    for m, K, N in shapes:
+        x = torch.from_numpy(rng.integers(-128, 128, (m, K), dtype=np.int8)).to(dev)
         for bits in (2, 4, 6, 8):
             # The paper-exact grid [-2^(b-1) - 1, 2^(b-1) - 1], full span.
             q = rng.integers(-(2 ** (bits - 1)) - 1, 2 ** (bits - 1), (K, N))
@@ -151,37 +221,38 @@ def phase_quant_matmul(rng, dev):
                     torch.cuda.synchronize()
                     if not torch.equal(a, b):
                         raise AssertionError(
-                            f"quant_matmul_packed K={K} N={N} bits={bits} "
-                            f"{wq.layout} zx={zx_v}: max |diff| "
+                            f"quant_matmul_packed M={m} K={K} N={N} "
+                            f"bits={bits} {wq.layout} zx={zx_v}: max |diff| "
                             f"{(a - b).abs().max().item()}")
                     worst = max(worst, (a - b).abs().max().item())
-    print(f"quant_matmul_packed: exact on {len(QMM_SHAPES)} shapes x bits "
-          "{2,4,6,8} x {planar, tile:128} x 3 zero points, M=16384")
+    for K, N in ((40, 64), (64, 3)):
+        wq = repack_tile_native(pack_codes(rng.integers(-9, 8, (K, N)), 4,
+                                           scale=0.01, device=dev))
+        for what, x in unaligned_views(rng, M, K, dev).items():
+            a = kernel(x, wq, 0.02, wq.scale, 17)
+            b = plain(x, wq, 0.02, wq.scale, 17)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"quant_matmul_packed x view {what} K={K}"
+                                     f" N={N}: max |diff| "
+                                     f"{(a - b).abs().max().item()}")
+    print(f"quant_matmul_packed: exact on {len(shapes)} shapes (the paper "
+          "linears at M=16384, N=8, N=200, K=257) x bits {2,4,6,8} x "
+          "{planar, tile:128} x 3 zero points, and on x views off 16-byte "
+          "boundaries")
 
     # Time the five linears of one slot (4-bit weights, tile:128, as served).
-    ms = plain_ms = lib_ms = call_ms = nbytes = ops = 0.0
-    for K, N in QMM_SHAPES:
-        x = torch.from_numpy(rng.integers(-128, 128, (M, K), dtype=np.int8)).to(dev)
-        q = rng.integers(-9, 8, (K, N))
-        wq = repack_tile_native(pack_codes(q, 4, scale=0.01, device=dev))
-        sx = torch.tensor(0.02, device=dev)
-        zx = torch.tensor(-3, dtype=torch.int32, device=dev)
-        xf = x.to(torch.float32)
-        wf = wq.dequantize()
-        t_k = median_ms(lambda: kernel(x, wq, sx, wq.scale, zx))
-        t_p = median_ms(lambda: plain(x, wq, sx, wq.scale, zx))
-        t_l = median_ms(lambda: torch.matmul(xf, wf))
-        t_c = median_ms(lambda: kernel(x, wq, sx, wq.scale, zx),
-                        hide_host=False)
-        print(f"  K={K:3d} N={N:3d}: kernel {t_k:.4f} ms (one call {t_c:.4f} "
-              f"ms), plain {t_p:.4f} ms, torch.matmul(f32) {t_l:.4f} ms")
-        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-        call_ms += t_c
-        nbytes += M * K + wq.words.numel() * 4 + M * N * 4 + 16
+    cases = qmm_inputs(rng, dev, packed=True)
+    tot, seq = time_linears("quant_matmul_packed", kernel, plain, cases, floor)
+    nbytes = ops = 0.0
+    for x, w, *_ in cases:
+        (M, K), N = x.shape, w.cols
+        nbytes += M * K + w.words.numel() * 4 + M * N * 4 + 16
         ops += 2.0 * M * N * K
     e = entry("quant_matmul_packed", "src/repro_torch/csrc/quant_matmul_packed.cu",
-              "src/repro/kernels/quant_matmul.py:199", worst, ms, plain_ms,
-              bound(nbytes, ops, PEAK_INT8_OPS), lib_ms, call_ms)
+              "src/repro/kernels/quant_matmul.py:199", worst, tot["ms"],
+              tot["plain_ms"], bound(nbytes, ops, PEAK_INT8_OPS), tot["lib_ms"],
+              tot["call_ms"], **seq, launch_floor_ms=floor["floor_ms"])
     e["timed_as"] = "sum of the five paper linears, M=16384, 4-bit tile:128"
     return e
 
@@ -367,7 +438,7 @@ def phase_alpha_composite(rng, dev):
                  bound(nbytes, 12.0 * walked, PEAK_F32_OPS), None, t_c)
 
 
-def phase_quant_matmul_unpacked(rng, dev):
+def phase_quant_matmul_unpacked(rng, dev, floor):
     from repro_torch.kernels.quant_matmul import (
         quant_matmul_cuda as kernel,
         quant_matmul_plain as plain,
@@ -375,7 +446,8 @@ def phase_quant_matmul_unpacked(rng, dev):
 
     M = SERVE_ROWS
     shapes = [(M, K, N) for K, N in QMM_SHAPES] + [
-        (1, 1, 1), (37, 45, 5), (300, 129, 70), (M + 13, 257, 65)]
+        (1, 1, 1), (37, 45, 5), (300, 129, 70), (M + 13, 257, 65),
+        (M, 64, 8), (M, 40, 200), (300, 33, 3)]
     worst = 0.0
     for m, K, N in shapes:
         x = torch.from_numpy(rng.integers(-128, 128, (m, K), dtype=np.int8)).to(dev)
@@ -391,32 +463,47 @@ def phase_quant_matmul_unpacked(rng, dev):
                     f"quant_matmul M={m} K={K} N={N} zx={zx_v}: max |diff| "
                     f"{(a - b).abs().max().item()}")
             worst = max(worst, (a - b).abs().max().item())
+    for K, N in ((40, 64), (33, 3)):
+        w = torch.from_numpy(rng.integers(-128, 128, (K, N), dtype=np.int8)).to(dev)
+        for what, x in unaligned_views(rng, M, K, dev).items():
+            a = kernel(x, w, 0.02, 0.011, -5)
+            b = plain(x, w, 0.02, 0.011, -5)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"quant_matmul x view {what} K={K} N={N}:"
+                                     f" max |diff| {(a - b).abs().max().item()}")
     print(f"quant_matmul: exact on the {len(QMM_SHAPES)} paper linears "
-          f"(M={M}) and 4 ragged shapes x 4 zero points")
+          f"(M={M}) and {len(shapes) - len(QMM_SHAPES)} ragged shapes (N=3, "
+          "8, 200 among them) x 4 zero points, and on x views off 16-byte "
+          "boundaries")
 
-    ms = plain_ms = lib_ms = call_ms = nbytes = ops = 0.0
-    for K, N in QMM_SHAPES:
-        x = torch.from_numpy(rng.integers(-128, 128, (M, K), dtype=np.int8)).to(dev)
-        w = torch.from_numpy(rng.integers(-8, 8, (K, N), dtype=np.int8)).to(dev)
-        sx = torch.tensor(0.02, device=dev)
-        sw = torch.tensor(0.01, device=dev)
-        zx = torch.tensor(-3, dtype=torch.int32, device=dev)
-        xf, wf = x.to(torch.float32), w.to(torch.float32)
-        t_k = median_ms(lambda: kernel(x, w, sx, sw, zx))
-        t_p = median_ms(lambda: plain(x, w, sx, sw, zx))
-        t_l = median_ms(lambda: torch.matmul(xf, wf))
-        t_c = median_ms(lambda: kernel(x, w, sx, sw, zx), hide_host=False)
-        print(f"  K={K:3d} N={N:3d}: kernel {t_k:.4f} ms (one call {t_c:.4f} "
-              f"ms), plain {t_p:.4f} ms, torch.matmul(f32) {t_l:.4f} ms")
-        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-        call_ms += t_c
+    cases = qmm_inputs(rng, dev, packed=False)
+    tot, seq = time_linears("quant_matmul", kernel, plain, cases, floor)
+    nbytes = ops = 0.0
+    for x, w, *_ in cases:
+        (M, K), N = x.shape, w.shape[1]
         nbytes += M * K + K * N + M * N * 4 + 12
         ops += 2.0 * M * N * K
     e = entry("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
-              "src/repro/kernels/quant_matmul.py:70", worst, ms, plain_ms,
-              bound(nbytes, ops, PEAK_INT8_OPS), lib_ms, call_ms)
+              "src/repro/kernels/quant_matmul.py:70", worst, tot["ms"],
+              tot["plain_ms"], bound(nbytes, ops, PEAK_INT8_OPS), tot["lib_ms"],
+              tot["call_ms"], **seq, launch_floor_ms=floor["floor_ms"])
     e["timed_as"] = "sum of the five paper linears, M=16384, int8 weights"
     return e
+
+
+def launch_floor(dev):
+    """The floor of one bracketed call: an empty launch (a one-element
+    `add_`) timed as the kernels are, device time and one call from an
+    idle device."""
+    t = torch.zeros(1, device=dev)
+    floor = {"floor_ms": median_ms(lambda: t.add_(1)),
+             "floor_call_ms": median_ms(lambda: t.add_(1), hide_host=False)}
+    print(f"timing floor, an empty launch (one-element add_): "
+          f"{floor['floor_ms']:.4f} ms device time, {floor['floor_call_ms']:.4f}"
+          f" ms one call; five separately bracketed launches take at least "
+          f"{5 * floor['floor_ms']:.4f} ms")
+    return floor
 
 
 def lm_views(gen, dev, dtype, S):
@@ -853,13 +940,21 @@ def lm_card_vs_cpu(dev, tol: float = 1e-3):
                              f"{cache_err} > {tol}")
 
 
-ATTENTION_SOURCES = ("flash_attention.cu", "decode_attention.cu")
+# Sources whose ptxas lines are printed in full (kernel names, stack and
+# spill bytes, wgmma notes); for the others only the register counts.
+DETAIL_SOURCES = ("flash_attention.cu", "decode_attention.cu",
+                  "quant_matmul_packed.cu", "quant_matmul.cu")
+# Kernels whose tensor-core (HGMMA, HMMA, IMMA) and cp.async (LDGSTS)
+# instructions are counted in the SASS.
+SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_kernel",
+                "qmm_packed_kernel", "qmm_kernel")
 
 
 def print_ptxas(log: str) -> None:
     """Registers of every kernel from the build's `ptxas -v` log; for the
-    two attention sources also each kernel's name, its stack and spill
-    bytes, and any note ptxas made about the wgmma pipeline."""
+    attention and quantized-matmul sources also each kernel's name, its
+    stack and spill bytes, and any note ptxas made about the wgmma
+    pipeline."""
     src = None
     for line in log.splitlines():
         line = line.strip()
@@ -868,16 +963,15 @@ def print_ptxas(log: str) -> None:
             print(f"  {line}")
         elif "registers" in line:
             print(f"  {line}")
-        elif src in ATTENTION_SOURCES and (
+        elif src in DETAIL_SOURCES and (
                 "entry function" in line or "spill" in line
                 or "wgmma" in line or "warpgroup" in line):
             print(f"  {line[:160]}")
 
 
-def print_tensor_core_ops(lib) -> None:
-    """Count the tensor-core (HGMMA, HMMA) and cp.async (LDGSTS)
-    instructions of the attention kernels in the built library's SASS
-    (`cuobjdump -sass`); the bf16 flash kernel must hold HGMMA."""
+def sass_counts(lib) -> dict:
+    """{(kernel, op): count} of the tensor-core and cp.async instructions
+    of SASS_KERNELS in the built library (`cuobjdump -sass`)."""
     import re
     import shutil
     import subprocess
@@ -890,18 +984,33 @@ def print_tensor_core_ops(lib) -> None:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            name = next((k for k in ("flash_tc_kernel", "flash_f32_kernel",
-                                     "decode_kernel") if k in fn), None)
+            name = next((k for k in SASS_KERNELS if k in fn), None)
             if name == "decode_kernel":
                 name += "<bf16>" if "bfloat16" in fn else "<f32>"
+            if name:
+                counts.setdefault((name, "LDGSTS"), 0)
             continue
-        for op in ("HGMMA", "HMMA", "LDGSTS"):
+        for op in ("HGMMA", "HMMA", "IMMA", "LDGSTS"):
             if name and re.search(rf"\b{op}\.", line):
                 counts[(name, op)] = counts.get((name, op), 0) + 1
+    return counts
+
+
+def print_tensor_core_ops(lib) -> None:
+    """Print the SASS counts; the bf16 flash kernel must hold HGMMA, and
+    both quantized matmuls an s8 tensor-core instruction (IMMA or
+    HGMMA)."""
+    counts = sass_counts(lib)
     for (kernel, op), n in sorted(counts.items()):
         print(f"  SASS {kernel}: {n} {op}")
     if not counts.get(("flash_tc_kernel", "HGMMA")):
         raise AssertionError("the bf16 flash kernel's SASS holds no HGMMA")
+    for k in ("qmm_packed_kernel", "qmm_kernel"):
+        if (k, "LDGSTS") not in counts:
+            raise AssertionError(f"no {k} in the library's SASS")
+        if not (counts.get((k, "IMMA")) or counts.get((k, "HGMMA"))):
+            raise AssertionError(f"{k}'s SASS holds no s8 tensor-core "
+                                 "instruction (IMMA or HGMMA)")
 
 
 def main() -> int:
@@ -931,9 +1040,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = paper()
     rng = np.random.default_rng(0)
-    entries = [phase_quant_matmul(rng, dev), phase_hash_gather(rng, dev, cfg),
+    floor = launch_floor(dev)
+    entries = [phase_quant_matmul(rng, dev, floor),
+               phase_hash_gather(rng, dev, cfg),
                phase_alpha_composite(rng, dev), phase_ray_march(rng, dev),
-               phase_quant_matmul_unpacked(rng, dev),
+               phase_quant_matmul_unpacked(rng, dev, floor),
                phase_flash_attention(dev), phase_decode_attention(dev)]
     for e in entries:
         print(f"{e['name']}: max_abs_err {e['max_abs_err']:.3g}, kernel "

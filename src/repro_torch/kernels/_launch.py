@@ -1,6 +1,8 @@
 """Shared argument checks and the launch call of the CUDA wrappers."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
@@ -58,6 +60,13 @@ def device_scalar(v, name: str, dtype: torch.dtype,
             raise ValueError(f"{name} must live on {device}, got {v.device}")
         return v.to(dtype).reshape(1).contiguous()
     return torch.full((1,), v, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA card `index` (the kernels size their grids
+    by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

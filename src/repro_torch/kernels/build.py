@@ -2,11 +2,12 @@
 
 The sources under `src/repro_torch/csrc/` have a plain C interface, so
 they compile with `nvcc` alone (no PyTorch headers): one `nvcc -c` per
-source, all started together, then one link into
+source (headers beside them found by relative `#include`), all started
+together, then one link into
 `build/repro_torch_kernels/librepro_torch_kernels-<hash>.so` at the repo
-root. The hash covers the sources and the flags, so an edited kernel
-rebuilds and an unchanged one loads from the existing library. Nothing
-is built at import time: the first CUDA launch builds.
+root. The hash covers the sources, their headers and the flags, so an
+edited kernel rebuilds and an unchanged one loads from the existing
+library. Nothing is built at import time: the first CUDA launch builds.
 
 Each C entry takes device pointers (`c_void_p`), sizes (`c_int`) and the
 CUDA stream, launches, and returns `cudaGetLastError()`; `check()` turns
@@ -35,6 +36,7 @@ SOURCES = (
     "flash_attention.cu",
     "decode_attention.cu",
 )
+HEADERS = ("qmm_tile.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -47,17 +49,17 @@ _L = ctypes.c_longlong
 # C signature of every entry point: argtypes; all return int (cudaError_t).
 SIGNATURES: Dict[str, List] = {
     # x, words, offset, sx, sw, zx, out, M, K, N, bits, groups_per_tile,
-    # stream
+    # SM count, stream
     "repro_quant_matmul_packed": [_P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _P],
     # idx, table, out, P, T, F, stream
     "repro_hash_gather": [_P, _P, _P, _I, _I, _I, _P],
     # sigma, rgb, delta, color, acc, R, S, early_stop, t_eps, stream
     "repro_alpha_composite": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # occ, rays_o, rays_d, t, out, R, S, G, early_stop, stream
     "repro_ray_march": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w, sx, sw, zx, out, M, K, N, stream
-    "repro_quant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w, sx, sw, zx, out, M, K, N, SM count, stream
+    "repro_quant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, B, Hkv, S, G, hd, q strides (b, h, s, g), k strides
     # (b, h, s), v strides (b, h, s), out strides (b, h, s, g), causal,
     # scale, dtype, stream
@@ -93,7 +95,7 @@ def nvcc_path() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -12,7 +12,6 @@ launch); it replaces the Pallas
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict, Tuple
 
@@ -23,6 +22,7 @@ from repro_torch.kernels._launch import (
     launch,
     require_aligned,
     require_rows,
+    sm_count,
 )
 
 NEG_INF = -1e30
@@ -68,11 +68,6 @@ def split_len(n_seq: int, S: int, G: int, hd: int, elem_bytes: int,
                          f"> {most} positions (G={G}, hd={hd})")
     split = -(-n_seq * S // (BLOCKS_PER_SM * n_sm))
     return min(most, max(need, -(-split // 16) * 16))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # (device, B * Hkv, splits, G, padded hd) -> (m and l partials, acc
@@ -131,8 +126,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"length must be >= 1, got {length_v}")
     n_seq = B * Hkv
     split = split_len(n_seq, S, G, hd, q.element_size(),
-                      _sm_count(dev.index if dev.index is not None
-                                else torch.cuda.current_device()))
+                      sm_count(dev.index if dev.index is not None
+                               else torch.cuda.current_device()))
     unit = 16 // q.element_size()
     stats, acc, tickets = _scratch(dev, n_seq, -(-S // split), G,
                                    -(-hd // unit) * unit)

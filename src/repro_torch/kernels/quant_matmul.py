@@ -10,12 +10,18 @@ int8 weight codes, summed exactly in integers. Two weight forms:
   or ``tile:<bk>`` words), unpacked to clip(u + offset, -128, 127). The
   kernel is `csrc/quant_matmul_packed.cu`; it replaces the Pallas
   `repro/kernels/quant_matmul.py:_qmm_packed_kernel`.
+
+Both kernels share `csrc/qmm_tile.cuh`: s8 tensor-core tiles of 128 rows
+and up to 64 columns, the weight staged once per block, x tiles streamed
+through a `cp.async` ring by blocks that each walk several M tiles. The C
+entry points plan the launch themselves from (M, K, N) and the card's SM
+count.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import device_scalar, launch, require
+from repro_torch.kernels._launch import device_scalar, launch, require, sm_count
 from repro_torch.quant.packing import PackedTensor, packed_groups, tile_layout_bk
 
 
@@ -49,7 +55,7 @@ def quant_matmul_cuda(x_codes: torch.Tensor, w_codes: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     launch("repro_quant_matmul", dev, x_codes.data_ptr(), w_codes.data_ptr(),
            sx_t.data_ptr(), sw_t.data_ptr(), zx_t.data_ptr(), out.data_ptr(),
-           M, K, N)
+           M, K, N, sm_count(dev.index))
     quant_matmul_cuda.launches += 1
     return out
 
@@ -91,7 +97,7 @@ def quant_matmul_packed_cuda(x_codes: torch.Tensor, wq: PackedTensor,
     launch("repro_quant_matmul_packed", dev,
            x_codes.data_ptr(), wq.words.data_ptr(), off.data_ptr(),
            sx_t.data_ptr(), sw_t.data_ptr(), zx_t.data_ptr(), out.data_ptr(),
-           M, K, N, bits, gpt)
+           M, K, N, bits, gpt, sm_count(dev.index))
     quant_matmul_packed_cuda.launches += 1
     return out
 

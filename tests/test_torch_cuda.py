@@ -343,3 +343,120 @@ def test_decode_attention_one_launch_per_call(card):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert decode_attention_cuda.launches == n + 1
     assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
+
+
+# ---------------------------------------------------------------------------
+# The quantized matmuls at the edges of their tensor-core tiles
+# ---------------------------------------------------------------------------
+QMM_KS = (1, 8, 31, 33, 40, 64, 257)
+QMM_NS = (1, 3, 8, 16, 65, 200)
+QMM_MS = (1, 15, 16, 127, 16385)
+QMM_ZXS = (-128, 0, 17, 127)
+
+
+def _codes(rng, shape):
+    return torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8))
+
+
+def _packed_on(rng, card, k, n, bits, layout):
+    """Codes over the paper-exact grid [-2^(b-1) - 1, 2^(b-1) - 1]."""
+    q = rng.integers(-(2 ** (bits - 1)) - 1, 2 ** (bits - 1), (k, n))
+    w = pack_codes(q, bits, scale=float(rng.uniform(1e-3, 1e-1)), device=card)
+    return repack_tile_native(w) if layout != "planar" else w
+
+
+def _assert_qmm_exact(got, want, what):
+    assert got.shape == want.shape and got.dtype == torch.float32, what
+    assert torch.equal(got, want), (what, (got - want).abs().max().item())
+
+
+@pytest.mark.parametrize("k", QMM_KS)
+@pytest.mark.parametrize("n", QMM_NS)
+def test_quant_matmul_packed_tile_edges(card, k, n):
+    """Every M edge, bits 1-8, both layouts, four zero points: K around
+    the 32-code MMA step and past one 256-code chunk, N around the
+    8-column MMA tile and past one 64-column block tile."""
+    rng = np.random.default_rng(100 * k + n)
+    for m in QMM_MS:
+        x = _codes(rng, (m, k)).to(card)
+        for bits in range(1, 9):
+            for layout in ("planar", "tile:128"):
+                w = _packed_on(rng, card, k, n, bits, layout)
+                for zx in QMM_ZXS:
+                    _assert_qmm_exact(
+                        ops.quant_matmul_packed(x, w, 0.037, w.scale, zx),
+                        quant_matmul_packed_plain(x, w, 0.037, w.scale, zx),
+                        (m, k, n, bits, layout, zx))
+
+
+@pytest.mark.parametrize("k", QMM_KS)
+@pytest.mark.parametrize("n", QMM_NS)
+def test_quant_matmul_tile_edges(card, k, n):
+    rng = np.random.default_rng(200 * k + n)
+    w = _codes(rng, (k, n)).to(card)
+    for m in QMM_MS:
+        x = _codes(rng, (m, k)).to(card)
+        for zx in QMM_ZXS:
+            _assert_qmm_exact(ops.quant_matmul(x, w, 0.037, 0.011, zx),
+                              quant_matmul_plain(x, w, 0.037, 0.011, zx),
+                              (m, k, n, zx))
+
+
+@pytest.mark.parametrize("shift", [1, 2, 4, 8, 40])
+@pytest.mark.parametrize("k", [33, 40, 64, 257])
+def test_quant_matmul_takes_x_views_off_16_byte_boundaries(card, shift, k):
+    """x starting `shift` bytes into a buffer (x_big[1:] with K = 40 starts
+    40 bytes in): the kernels copy x as wide as its alignment allows."""
+    rng = np.random.default_rng(shift + k)
+    m, n = 1000, 64
+    buf = _codes(rng, (m * k + shift,)).to(card)
+    x = buf[shift:].view(m, k)
+    assert x.is_contiguous() and x.data_ptr() % 16 == shift % 16
+    w = _codes(rng, (k, n)).to(card)
+    wq = _packed_on(rng, card, k, n, 4, "tile:128")
+    for zx in (-128, 17):
+        _assert_qmm_exact(ops.quant_matmul(x, w, 0.5, 0.25, zx),
+                          quant_matmul_plain(x, w, 0.5, 0.25, zx), shift)
+        _assert_qmm_exact(ops.quant_matmul_packed(x, wq, 0.5, wq.scale, zx),
+                          quant_matmul_packed_plain(x, wq, 0.5, wq.scale, zx),
+                          shift)
+    x_big = _codes(rng, (m + 1, k)).to(card)
+    _assert_qmm_exact(ops.quant_matmul(x_big[1:], w, 0.5, 0.25, 3),
+                      quant_matmul_plain(x_big[1:], w, 0.5, 0.25, 3), "row 1")
+
+
+@pytest.mark.parametrize("m,k,n", [(262144, 64, 64), (200000, 40, 3),
+                                   (120000, 600, 70)])
+def test_quant_matmul_blocks_walk_several_m_tiles(card, m, k, n):
+    """More 128-row tiles than three times the grid of about two blocks an
+    SM (qmm_tile.cuh): each block walks at least three."""
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert -(-m // 128) > 3 * 2 * n_sm
+    rng = np.random.default_rng(m + k + n)
+    x = _codes(rng, (m, k)).to(card)
+    w = _codes(rng, (k, n)).to(card)
+    wq = _packed_on(rng, card, k, n, 6, "planar")
+    _assert_qmm_exact(ops.quant_matmul(x, w, 0.02, 0.03, -7),
+                      quant_matmul_plain(x, w, 0.02, 0.03, -7), "unpacked")
+    _assert_qmm_exact(ops.quant_matmul_packed(x, wq, 0.02, wq.scale, -7),
+                      quant_matmul_packed_plain(x, wq, 0.02, wq.scale, -7),
+                      "packed")
+
+
+def test_quant_matmul_back_to_back_calls_on_different_weights(card):
+    """Calls queued without a sync on one x with different weights (and
+    shapes): each block stages its own weight, so nothing carries over."""
+    rng = np.random.default_rng(21)
+    x = _codes(rng, (16384, 64)).to(card)
+    ws = [_codes(rng, (64, n)).to(card) for n in (64, 64, 16, 64, 3)]
+    wqs = [_packed_on(rng, card, 64, n, b, lay) for n, b, lay in
+           ((64, 4, "tile:128"), (64, 4, "tile:128"), (64, 8, "planar"),
+            (16, 2, "tile:128"), (64, 4, "planar"))]
+    outs = [ops.quant_matmul(x, w, 0.1, 0.2, 5) for w in ws]
+    outs_p = [ops.quant_matmul_packed(x, w, 0.1, w.scale, 5) for w in wqs]
+    torch.cuda.synchronize()
+    for w, got in zip(ws, outs):
+        _assert_qmm_exact(got, quant_matmul_plain(x, w, 0.1, 0.2, 5), "w")
+    for w, got in zip(wqs, outs_p):
+        _assert_qmm_exact(got, quant_matmul_packed_plain(x, w, 0.1, w.scale, 5),
+                          "wq")
