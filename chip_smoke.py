@@ -7,7 +7,7 @@ one (or without the rest of the repository beside it).
 
 Phases, each of which raises on failure:
 
-1. Build the seven CUDA kernels from ``src/repro_torch/csrc`` (one
+1. Build the eight CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build time,
    every kernel's registers, the attention and quantized-matmul kernels'
    spill bytes, and the tensor-core (HGMMA, HMMA, IMMA) and cp.async
@@ -21,7 +21,9 @@ Phases, each of which raises on failure:
    an empty launch timed the same ways, is printed first. The quantized
    matmuls are bit-equal also at N = 8 and 200, K = 257 and on x views
    off 16-byte boundaries, and their five serve linears are also timed
-   back to back in one bracket (``seq_ms``), as a slot runs them. Decode
+   back to back in one bracket (``seq_ms``), as a slot runs them. The
+   fused hash encode is bit-equal on one slot's serve points and on the
+   grid's edges, both to f32 encodings and to int8 codes. Decode
    attention is also timed cold, each call on one of 8 caches (69 MB
    against the 50 MB L2), beside the library call on the same caches.
 3. The NeRF path at ``paper()`` width: random weights from a seed,
@@ -29,7 +31,10 @@ Phases, each of which raises on failure:
    a mixed int policy packed into a ``QuantArtifact``, saved, loaded
    (``tile:128``) and served by ``RenderService`` (8 requests of 64x64
    camera rays). Every kernel's launch count is zeroed just before the
-   requests and read just after; each render kernel must have risen.
+   requests and read just after; each render kernel must have risen, the
+   fused encode once a slot (as often as the march), and no kernel off
+   the render path (the bare gather among them) may have run. One
+   request is then profiled: wall and device time, and its launches.
 4. One request served again on the CPU from the same directory (the plain
    versions) must match the card's colours to 1e-5.
 5. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
@@ -274,6 +279,90 @@ def serve_points(n_rays: int, dev):
     dirs = rd[:, None, :].expand(pts.shape)
     return (torch.clamp(pts + 0.5, 0.0, 1.0).reshape(-1, 3).to(dev),
             dirs.reshape(-1, 3).to(dev), ro, rd)
+
+
+def encode_edge_points(hc, n_per_level: int, seed: int = 0) -> np.ndarray:
+    """(L * n_per_level, 3) f32 points on the hash grid's edges: for each
+    level, coordinates on its exact cell faces k / res (rounded to f32 from
+    the double and divided in f32), mixed per axis with 0, 1, the float
+    just below 1 and uniform coordinates."""
+    rng = np.random.default_rng(seed)
+    below1 = np.nextafter(np.float32(1), np.float32(0))
+    out = []
+    for res in hc.resolutions():
+        k = rng.integers(0, res + 1, (n_per_level, 3))
+        face = np.where(rng.integers(0, 2, k.shape) == 1,
+                        (k / res).astype(np.float32),
+                        k.astype(np.float32) / np.float32(res))
+        ends = rng.choice(np.array([0.0, 1.0, below1], np.float32), k.shape)
+        pick = rng.integers(0, 4, k.shape)
+        p = np.where(pick == 1, ends, face)
+        p = np.where(pick == 2, rng.uniform(size=k.shape), p)
+        out.append(p.astype(np.float32))
+    return np.concatenate(out)
+
+
+def encode_inputs(rng, hc, dev, subnormal: bool = True):
+    """A concatenated table at `hc`'s widths (trained-like magnitudes;
+    with `subnormal`, every 97th row scaled to 1e-37 so that corner
+    products and partial sums go subnormal), its level description, and
+    an 8-bit activation grid fitted to the encodings' range."""
+    from repro_torch.nerf.hash_encoding import level_meta
+    from repro_torch.quant.linear_quant import activation_qparams
+
+    T = sum(hc.level_entries(l) for l in range(hc.n_levels))
+    table = (rng.normal(size=(T, hc.n_features)) * 0.3).astype(np.float32)
+    if subnormal:
+        table[::97] *= np.float32(1e-37)
+    qp = activation_qparams(-0.8, 0.9, 8)
+    act = dict(sx=qp.scale, zx_f=qp.zero_point, qmax=qp.q_max,
+               off=torch.tensor(128.0))
+    return (torch.from_numpy(table).to(dev), level_meta(hc, dev),
+            {k: v.to(dev) for k, v in act.items()})
+
+
+def phase_hash_encode(rng, dev, cfg):
+    from repro_torch.kernels.hash_encode import (
+        corner_data,
+        hash_encode_points_cuda as kernel,
+        hash_encode_points_plain as plain,
+    )
+
+    hc = cfg.hash
+    table, meta, act = encode_inputs(rng, hc, dev)
+    pts, _, _, _ = serve_points(512, dev)  # one slot's 16,384 samples
+    edges = torch.from_numpy(encode_edge_points(hc, 1024)).to(dev)
+    worst = 0.0
+    for what, p in (("serve points", pts), ("edge points", edges)):
+        for a in (None, act):
+            got, want = kernel(p, table, meta, a), plain(p, table, meta, a)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"hash_encode ({what}, {'codes' if a else 'f32'}): "
+                    f"kernel != plain version, max |diff| {err}")
+            worst = max(worst, err)
+    print(f"hash_encode: exact, f32 encodings and int8 codes, on "
+          f"{pts.shape[0]} serve points and {edges.shape[0]} edge points "
+          f"over a ({table.shape[0]}, {table.shape[1]}) f32 table, "
+          f"{hc.n_levels} levels")
+    t_k = median_ms(lambda: kernel(pts, table, meta, act))
+    t_kf = median_ms(lambda: kernel(pts, table, meta))
+    t_p = median_ms(lambda: plain(pts, table, meta, act))
+    t_c = median_ms(lambda: kernel(pts, table, meta, act), hide_host=False)
+    # Bytes: the points, each table row the corners touch once, the codes.
+    rows = torch.cat([corner_data(pts, r, bool(d), n)[0].reshape(-1) + o
+                      for r, d, n, o in meta.tolist()])
+    uniq = int(torch.unique(rows).numel())
+    B, F, L = pts.shape[0], hc.n_features, hc.n_levels
+    nbytes = B * 3 * 4 + uniq * F * 4 + B * L * F + 4 * 4 + L * 16
+    print(f"  hash_encode: {uniq} distinct table rows of {B * L * 8} corner "
+          f"reads; codes {t_k:.4f} ms, f32 encodings {t_kf:.4f} ms")
+    return entry("hash_encode", "src/repro_torch/csrc/hash_encode.cu",
+                 "src/repro/kernels/hash_encoding_kernel.py:50", worst, t_k,
+                 t_p, bound(nbytes, 0.0, PEAK_F32_OPS), None, t_c,
+                 ms_f32_out=t_kf)
 
 
 def phase_hash_gather(rng, dev, cfg):
@@ -748,7 +837,7 @@ def profile(label: str, fn) -> None:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3  # ms
     print(f"profiled {label}: wall {wall * 1e3:.2f} ms, device kernel time "
           f"{busy:.2f} ms ({100.0 * busy / (wall * 1e3):.1f} % busy), "
-          f"{len(kernels)} device events")
+          f"{len(kernels)} device events (kernel launches and copies)")
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -758,7 +847,7 @@ def profile(label: str, fn) -> None:
     return busy, by_name
 
 
-NERF_KERNELS = ("quant_matmul_packed", "hash_gather", "alpha_composite",
+NERF_KERNELS = ("quant_matmul_packed", "hash_encode", "alpha_composite",
                 "ray_march")
 LM_KERNELS = ("flash_attention", "decode_attention")
 
@@ -769,6 +858,7 @@ def counters():
         decode_attention_cuda,
     )
     from repro_torch.kernels.flash_attention_kernel import flash_attention_cuda
+    from repro_torch.kernels.hash_encode import hash_encode_points_cuda
     from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
     from repro_torch.kernels.quant_matmul import (
         quant_matmul_cuda,
@@ -778,6 +868,7 @@ def counters():
 
     return {"quant_matmul_packed": quant_matmul_packed_cuda,
             "hash_gather": hash_gather_cuda,
+            "hash_encode": hash_encode_points_cuda,
             "alpha_composite": alpha_composite_cuda,
             "ray_march": ray_march_cuda,
             "quant_matmul": quant_matmul_cuda,
@@ -943,7 +1034,8 @@ def lm_card_vs_cpu(dev, tol: float = 1e-3):
 # Sources whose ptxas lines are printed in full (kernel names, stack and
 # spill bytes, wgmma notes); for the others only the register counts.
 DETAIL_SOURCES = ("flash_attention.cu", "decode_attention.cu",
-                  "quant_matmul_packed.cu", "quant_matmul.cu")
+                  "quant_matmul_packed.cu", "quant_matmul.cu",
+                  "hash_encode.cu", "ray_march.cu")
 # Kernels whose tensor-core (HGMMA, HMMA, IMMA) and cp.async (LDGSTS)
 # instructions are counted in the SASS.
 SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_kernel",
@@ -1043,6 +1135,7 @@ def main() -> int:
     floor = launch_floor(dev)
     entries = [phase_quant_matmul(rng, dev, floor),
                phase_hash_gather(rng, dev, cfg),
+               phase_hash_encode(rng, dev, cfg),
                phase_alpha_composite(rng, dev), phase_ray_march(rng, dev),
                phase_quant_matmul_unpacked(rng, dev, floor),
                phase_flash_attention(dev), phase_decode_attention(dev)]
@@ -1076,6 +1169,9 @@ def main() -> int:
             raise AssertionError(f"a kernel was never launched: {launches}")
         if any(kern[n].launches for n in kern if n not in NERF_KERNELS):
             raise AssertionError("a kernel off the render path was launched")
+        if launches["hash_encode"] != launches["ray_march"]:
+            raise AssertionError("the fused encode did not run once a slot "
+                                 f"(one march a slot): {launches}")
 
         profile("request", lambda: answer(svc, [requests[0]]))
         cpu_svc, _ = serve(tmp, "cpu")

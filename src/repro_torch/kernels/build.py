@@ -30,6 +30,7 @@ CSRC = _PKG / "csrc"
 SOURCES = (
     "quant_matmul_packed.cu",
     "hash_gather.cu",
+    "hash_encode.cu",
     "alpha_composite.cu",
     "ray_march.cu",
     "quant_matmul.cu",
@@ -54,6 +55,10 @@ SIGNATURES: Dict[str, List] = {
                                   _I, _I, _I, _I, _I, _I, _P],
     # idx, table, out, P, T, F, stream
     "repro_hash_gather": [_P, _P, _P, _I, _I, _I, _P],
+    # points, table, meta, sx, zx_f, qmax, off (null for the f32
+    # encodings), out, B, L, T, codes, stream
+    "repro_hash_encode": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _P],
     # sigma, rgb, delta, color, acc, R, S, early_stop, t_eps, stream
     "repro_alpha_composite": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # occ, rays_o, rays_d, t, out, R, S, G, early_stop, stream

@@ -1,0 +1,188 @@
+"""Fused multi-resolution hash encode: CUDA wrapper, plain version, counter.
+
+points (B, 3) in [0, 1] -> enc (B, L*F) f32 in level-major column order.
+For each level: the point's voxel, its 8 corner indices (direct or
+hashed), their trilinear weights, the corner rows of the staged
+concatenated table (`table_cat`, each level at its row offset, an index
+outside the table giving a zero row) and the 8-corner sum as a chain of
+exactly rounded fused multiply-adds: what the jitted reference's
+`level_corner_data` + `hash_encode` compute, bit for bit. With `act` (a
+first linear's activation grid: sx, zx_f, qmax, off) the result is that
+layer's int8 activation codes instead, as `quantize_codes` gives them.
+
+The kernel is `csrc/hash_encode.cu`. It replaces the Pallas
+`repro/kernels/hash_encoding_kernel.py:hash_gather` together with the
+composition around it on the serve path (`repro/kernels/ops.py:
+hash_encode` and the corner math of `repro/nerf/hash_encoding.py:
+level_corner_data`). The plain version is that composition in PyTorch.
+
+`meta` (L, 4) int32 describes the levels, one row each: resolution, 1 if
+the level is direct-indexed (else hashed), entries, row offset in
+`table_cat`.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels._launch import device_scalar, launch, require
+from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
+
+PRIMES = (1, 2654435761, 805459861)
+_U32 = 0xFFFFFFFF
+KERNEL_FEATURES = 2  # F the kernel is built for: every configuration's
+
+# The 8 binary corner offsets of a voxel, shape (8, 3): corner c takes
+# bits (c & 1, c >> 1 & 1, c >> 2 & 1).
+_CORNERS = np.stack(
+    [[(c >> d) & 1 for d in range(3)] for c in range(8)], axis=0
+).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _corners_on(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The corner offsets on `device`, int32 and f32, copied there once: a
+    copy from host memory per call would stall the card's stream."""
+    corners = torch.from_numpy(_CORNERS).to(device)
+    return corners, corners.to(torch.float32)
+
+
+def corner_data(points: torch.Tensor, res: int, direct: bool,
+                entries: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level's voxel-corner indices and trilinear weights.
+
+    points: (P, 3) in [0, 1]. Returns (idx (P, 8) int32, w (P, 8) f32).
+    Direct levels index x + y*s + z*s^2 (s = res + 1); hashed ones
+    (x*1 ^ y*2654435761 ^ z*805459861) mod entries in uint32 with
+    wrap-around, taken here in int64 and masked back to 32 bits after
+    each multiply. The weight is the product of the three per-axis
+    factors, taken left to right.
+    """
+    x = points * res
+    x0f = torch.floor(x)
+    frac = x - x0f
+    x0 = torch.clamp(x0f.to(torch.int32), 0, res)  # (P, 3)
+    corners, corners_f = _corners_on(points.device)
+    xc = torch.clamp(x0[:, None, :] + corners[None], 0, res).to(torch.int64)
+    if direct:
+        stride = res + 1
+        idx = xc[..., 0] + xc[..., 1] * stride + xc[..., 2] * stride * stride
+        idx = (idx & _U32).to(torch.int32)
+    else:
+        h = ((xc[..., 0] * PRIMES[0]) & _U32) \
+            ^ ((xc[..., 1] * PRIMES[1]) & _U32) \
+            ^ ((xc[..., 2] * PRIMES[2]) & _U32)
+        idx = (h % entries).to(torch.int32)
+    c = corners_f[None]  # (1, 8, 3)
+    f = frac[:, None, :]
+    t = c * f + (1.0 - c) * (1.0 - f)  # (P, 8, 3)
+    return idx, t[..., 0] * t[..., 1] * t[..., 2]
+
+
+def _fma_f32(a64: torch.Tensor, b64: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """round_f32(a * b + c) rounded once, as a fused multiply-add does, for
+    f32 values `a64`, `b64` (held in float64) and f32 `c`.
+
+    The product of two f32 values is exact in float64. The sum is rounded
+    to float64 and the error kept (TwoSum); the float64 result is then
+    moved to its odd neighbour when it was inexact and even ("round to
+    odd"), which makes the final rounding to f32 equal to a single
+    rounding of the exact value. Elementwise IEEE arithmetic only, so the
+    CPU and the card give the same bits."""
+    p = a64 * b64
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)  # toward the exact sum
+    s = torch.where(fix, bits + step, bits).view(torch.float64)
+    return s.to(torch.float32)
+
+
+def trilinear_sum(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_c vals[..., c, :] * w[..., c] over the 8 corners as a chain of
+    fused multiply-adds from 0: acc = fma(vals[c], w[c], acc), c = 0..7.
+    That is what XLA compiles the reference's
+    `jnp.sum(vals * w[..., None], axis=-2)` to under `jit`, so the
+    encodings, and the activation codes rounded from them, are bit-equal
+    to the jitted reference's at the paper's widths (at some narrower
+    shapes XLA vectorizes the sum in another order)."""
+    v64 = vals.to(torch.float64)
+    w64 = w.to(torch.float64)[..., None]
+    acc = torch.zeros(vals[..., 0, :].shape, dtype=torch.float32,
+                      device=vals.device)
+    for c in range(vals.shape[-2]):
+        acc = _fma_f32(v64[..., c, :], w64[..., c, :], acc)
+    return acc
+
+
+def quantize_codes(x: torch.Tensor, act: Dict) -> torch.Tensor:
+    """Activation codes of a linear layer's input, shifted into int8:
+    clip(round(x / sx + zx_f), 0, qmax) - off."""
+    codes = torch.clamp(torch.round(x / act["sx"] + act["zx_f"]), 0.0,
+                        act["qmax"])
+    return (codes - act["off"]).to(torch.int8)
+
+
+def hash_encode_points_plain(points: torch.Tensor, table_cat: torch.Tensor,
+                             meta: torch.Tensor,
+                             act: Optional[Dict] = None) -> torch.Tensor:
+    """The composition the kernel fuses: `corner_data` per level, one
+    gather over the concatenated table, the FMA-chain trilinear sum, and
+    with `act` the activation codes."""
+    per_level = [corner_data(points, res, bool(direct), entries)
+                 for res, direct, entries, _ in meta.tolist()]
+    idx = torch.stack([i for i, _ in per_level])  # (L, B, 8)
+    w = torch.stack([wl for _, wl in per_level])
+    L, B, C = idx.shape
+    flat = (idx + meta[:, 3, None, None]).reshape(-1)
+    vals = hash_gather_plain(flat, table_cat)
+    enc = trilinear_sum(vals.reshape(L, B, C, -1), w)  # (L, B, F)
+    enc = enc.permute(1, 0, 2).reshape(B, -1)
+    return enc if act is None else quantize_codes(enc, act)
+
+
+def hash_encode_points_cuda(points: torch.Tensor, table_cat: torch.Tensor,
+                            meta: torch.Tensor,
+                            act: Optional[Dict] = None) -> torch.Tensor:
+    """Launch the CUDA kernel: enc (B, L*F) f32, or with `act` int8 codes.
+    The activation grid is read from device memory (no host sync). Raises
+    on anything the kernel does not take."""
+    dev = points.device
+    require(points, "points", torch.float32, 2, dev)
+    require(table_cat, "table_cat", torch.float32, 2, dev)
+    require(meta, "meta", torch.int32, 2, dev)
+    B, L, (T, F) = points.shape[0], meta.shape[0], table_cat.shape
+    if points.shape[1] != 3 or meta.shape[1] != 4:
+        raise ValueError(f"shape mismatch: points {tuple(points.shape)}, "
+                         f"meta {tuple(meta.shape)}")
+    if F != KERNEL_FEATURES:
+        raise ValueError(f"the kernel takes F = {KERNEL_FEATURES}, got {F}")
+    if table_cat.data_ptr() % 8:
+        raise ValueError("table_cat must start on an 8-byte boundary (one "
+                         "row a float2 load)")
+    if meta.data_ptr() % 16:
+        raise ValueError("meta must start on a 16-byte boundary (one level "
+                         "a vector load)")
+    if act is None:
+        out = torch.empty((B, L * F), dtype=torch.float32, device=dev)
+        scal = (None,) * 4
+    else:
+        out = torch.empty((B, L * F), dtype=torch.int8, device=dev)
+        scal = tuple(device_scalar(act[k], k, torch.float32, dev)
+                     for k in ("sx", "zx_f", "qmax", "off"))
+    launch("repro_hash_encode", dev, points.data_ptr(), table_cat.data_ptr(),
+           meta.data_ptr(), *(None if s is None else s.data_ptr()
+                              for s in scal),
+           out.data_ptr(), B, L, T, int(act is not None))
+    hash_encode_points_cuda.launches += 1
+    return out
+
+
+hash_encode_points_cuda.launches = 0

@@ -4,16 +4,17 @@ A CUDA tensor launches the hand-written kernel (`csrc/*.cu`) or raises; a
 CPU tensor takes the kernel's plain PyTorch version. Nothing here falls
 back: there is no flag to pick a path and no `try` around a launch.
 
-`hash_encode` and `fused_field_query` are the compositions the fused
-renderer calls: one gather over the concatenated table, the trilinear
-8-corner sum (plain tensor code: a chain of exactly rounded fused
-multiply-adds, as the jitted reference computes it, identical on the CPU
-and the card), then, for the field query, activation quantization and
-the packed matmul.
+`hash_encode_points` is the fused renderer's whole encode, points to
+encodings or to the first linear's activation codes, in one kernel;
+`fused_field_query` follows it with the packed matmul. `hash_encode` is
+the composition over precomputed corner data: one gather over the
+concatenated table and the trilinear 8-corner sum (plain tensor code: a
+chain of exactly rounded fused multiply-adds, as the jitted reference
+computes it, identical on the CPU and the card).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,6 +29,12 @@ from repro_torch.kernels.decode_attention_kernel import (
 from repro_torch.kernels.flash_attention_kernel import (
     flash_attention_cuda,
     flash_attention_plain,
+)
+from repro_torch.kernels.hash_encode import (  # noqa: F401 (re-exported)
+    hash_encode_points_cuda,
+    hash_encode_points_plain,
+    quantize_codes,
+    trilinear_sum,
 )
 from repro_torch.kernels.hash_encoding_kernel import (
     hash_gather_cuda,
@@ -120,45 +127,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return decode_attention_plain(q, k, v, length)
 
 
-def _fma_f32(a64: torch.Tensor, b64: torch.Tensor,
-             c: torch.Tensor) -> torch.Tensor:
-    """round_f32(a * b + c) rounded once, as a fused multiply-add does, for
-    f32 values `a64`, `b64` (held in float64) and f32 `c`.
-
-    The product of two f32 values is exact in float64. The sum is rounded
-    to float64 and the error kept (TwoSum); the float64 result is then
-    moved to its odd neighbour when it was inexact and even ("round to
-    odd"), which makes the final rounding to f32 equal to a single
-    rounding of the exact value. Elementwise IEEE arithmetic only, so the
-    CPU and the card give the same bits."""
-    p = a64 * b64
-    c64 = c.to(torch.float64)
-    s = p + c64
-    bv = s - p
-    err = (p - (s - bv)) + (c64 - bv)
-    bits = s.view(torch.int64)
-    fix = (err != 0) & ((bits & 1) == 0)
-    step = torch.where((err > 0) == (s > 0), 1, -1)  # toward the exact sum
-    s = torch.where(fix, bits + step, bits).view(torch.float64)
-    return s.to(torch.float32)
-
-
-def trilinear_sum(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum_c vals[..., c, :] * w[..., c] over the 8 corners as a chain of
-    fused multiply-adds from 0: acc = fma(vals[c], w[c], acc), c = 0..7.
-    That is what XLA compiles the reference's
-    `jnp.sum(vals * w[..., None], axis=-2)` to under `jit`, so the
-    encodings, and the activation codes rounded from them, are bit-equal
-    to the jitted reference's."""
-    v64 = vals.to(torch.float64)
-    w64 = w.to(torch.float64)[..., None]
-    acc = torch.zeros(vals[..., 0, :].shape, dtype=torch.float32,
-                      device=vals.device)
-    for c in range(vals.shape[-2]):
-        acc = _fma_f32(v64[..., c, :], w64[..., c, :], acc)
-    return acc
-
-
 def hash_encode(corner_idx: torch.Tensor, corner_w: torch.Tensor,
                 table_cat: torch.Tensor,
                 level_offsets: torch.Tensor) -> torch.Tensor:
@@ -179,21 +147,31 @@ def hash_encode(corner_idx: torch.Tensor, corner_w: torch.Tensor,
     return feats.permute(1, 0, 2).reshape(B, -1)
 
 
-def quantize_codes(x: torch.Tensor, act: Dict) -> torch.Tensor:
-    """Activation codes of a linear layer's input, shifted into int8:
-    clip(round(x / sx + zx_f), 0, qmax) - off."""
-    codes = torch.clamp(torch.round(x / act["sx"] + act["zx_f"]), 0.0,
-                        act["qmax"])
-    return (codes - act["off"]).to(torch.int8)
+def hash_encode_points(points: torch.Tensor, table_cat: torch.Tensor,
+                       meta: torch.Tensor,
+                       act: Optional[Dict] = None) -> torch.Tensor:
+    """Multi-level hash-grid encode from sample points, in one kernel.
+
+    points    (B, 3)  f32 in [0, 1]
+    table_cat (T, F)  f32   — all level tables stacked row-wise
+    meta      (L, 4)  int32 — per level: resolution, direct flag,
+                              entries, row offset in table_cat
+
+    Returns (B, L*F) f32 features in level-major column order, equal to
+    `hash_encode` over each level's `corner_data`; with `act` (a linear's
+    activation grid) that layer's int8 codes, as `quantize_codes` gives
+    them."""
+    if _on_card(points):
+        return hash_encode_points_cuda(points, table_cat, meta, act)
+    return hash_encode_points_plain(points, table_cat, meta, act)
 
 
-def fused_field_query(corner_idx: torch.Tensor, corner_w: torch.Tensor,
-                      table_cat: torch.Tensor, level_offsets: torch.Tensor,
-                      wq: PackedTensor, act: Dict) -> torch.Tensor:
-    """hash_gather -> trilinear interp -> quantized matmul: the first-layer
-    field query of the fused integer renderer. `act` carries the layer's
-    activation grid (sx, zx, zx_f, qmax, off); returns the f32
-    pre-activation (B, N) without the bias."""
-    enc = hash_encode(corner_idx, corner_w, table_cat, level_offsets)
-    return quant_matmul_packed(quantize_codes(enc, act), wq, act["sx"],
-                               wq.scale, act["zx"])
+def fused_field_query(points: torch.Tensor, table_cat: torch.Tensor,
+                      meta: torch.Tensor, wq: PackedTensor,
+                      act: Dict) -> torch.Tensor:
+    """Hash encode straight to activation codes, then the quantized
+    matmul: the first-layer field query of the fused integer renderer.
+    `act` carries the layer's activation grid (sx, zx, zx_f, qmax, off);
+    returns the f32 pre-activation (B, N) without the bias."""
+    codes = hash_encode_points(points, table_cat, meta, act)
+    return quant_matmul_packed(codes, wq, act["sx"], wq.scale, act["zx"])

@@ -13,12 +13,13 @@ The serving subset of the JAX package's `nerf/fast_render.py`:
    sub-byte packed weight codes per linear layer and packed integer
    hash-table codes (`repro_torch.quant.packing.PackedTensor`). Activations
    are quantized to integer codes on the fly and the NGP linears run
-   through `kernels.ops.quant_matmul_packed`, the hash lookups through
-   `kernels.ops.hash_gather`, compositing through
-   `kernels.ops.alpha_composite`. The `int` mode is the integer path
-   everywhere: the CUDA kernels on the card, their exact plain versions
-   on the CPU. There is no float carrier. `mode="reference"` queries the
-   fake-quant `ngp_apply` oracle inside the same culled pipeline.
+   through `kernels.ops.quant_matmul_packed`, the hash encode (points to
+   the first linear's codes) through `kernels.ops.hash_encode_points`,
+   compositing through `kernels.ops.alpha_composite`. The `int` mode is
+   the integer path everywhere: the CUDA kernels on the card, their exact
+   plain versions on the CPU. There is no float carrier.
+   `mode="reference"` queries the fake-quant `ngp_apply` oracle inside
+   the same culled pipeline.
 
 The one-LSB clamp edge: the paper-exact symmetric grid (Eq. 5) spans
 2^b + 1 levels, one more than a b-bit payload holds; `pack_codes` keeps
@@ -29,6 +30,7 @@ kernels and any loaded artifact share bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -41,7 +43,11 @@ from repro_torch.kernels.backend import (
     resolve_device,
 )
 from repro_torch.kernels.repack import DEFAULT_TILE_BK, repack_tile_native
-from repro_torch.nerf.hash_encoding import level_corner_data
+from repro_torch.nerf.hash_encoding import (
+    level_corner_data,
+    level_meta,
+    level_rows,
+)
 from repro_torch.nerf.ngp import (
     NGPConfig,
     NGPQuantSpec,
@@ -257,40 +263,55 @@ def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
                     dirs: torch.Tensor, cfg: NGPConfig, corner_data=None,
                     sh: Optional[torch.Tensor] = None):
     """Integer-mode field query, mirroring `ngp_apply`'s fake-quant
-    forward. `corner_data` (idx (L,P,8), w (L,P,8)) and `sh` take
-    precomputed geometry-only work. With a repacked pack the encode is
-    one gather over the staged concatenated table, and in `int` mode the
-    first linear folds into `ops.fused_field_query`."""
+    forward. With a repacked pack the encode runs from the points in one
+    fused kernel over the staged concatenated table, and in `int` mode
+    straight to the first linear's codes (`ops.fused_field_query`).
+    `corner_data` (idx (L,P,8), w (L,P,8)) takes precomputed corner work
+    instead, through one gather and the trilinear sum; `sh` the
+    precomputed direction encoding."""
     names = ngp_linear_names(cfg)
     L = cfg.hash.n_levels
-    if corner_data is None:
-        per_level = [level_corner_data(points, l, cfg.hash)
-                     for l in range(L)]
-        corner_data = (torch.stack([i for i, _ in per_level]),
-                       torch.stack([w for _, w in per_level]))
-    idx, w = corner_data
-    if "table_cat" in pack.compute:
-        cat, off = pack.compute["table_cat"], pack.compute["table_off"]
+    staged = "table_cat" in pack.compute
+    if staged and corner_data is None:
+        cat = pack.compute["table_cat"]
+        *_, (_, _, n, off) = level_rows(cfg.hash)
+        if cat.shape[0] != off + n:
+            raise ValueError(f"the pack's table has {cat.shape[0]} rows, "
+                             f"the hash config {off + n}")
+        meta = level_meta(cfg.hash, points.device)
         if pack.modes[0] == "int":
             lyr = pack.layers[names[0]]
-            h = ops.fused_field_query(idx, w, cat, off,
+            h = ops.fused_field_query(points, cat, meta,
                                       _layer_wq(pack, names[0]), lyr) \
                 + lyr["b"]
         else:
             h = _fused_linear(pack, 0, names[0],
-                              ops.hash_encode(idx, w, cat, off))
+                              ops.hash_encode_points(points, cat, meta))
     else:
-        # Storage-only pack: per-level gathers over tables dequantized
-        # inside the call.
-        feats = []
-        for l in range(L):
-            table = pack.hash_tables[f"level_{l}"]
-            if isinstance(table, PackedTensor):
-                table = table.dequantize()
-            vals = ops.hash_gather(idx[l].reshape(-1).contiguous(), table)
-            feats.append(ops.trilinear_sum(
-                vals.reshape(idx[l].shape + (cfg.hash.n_features,)), w[l]))
-        h = _fused_linear(pack, 0, names[0], torch.cat(feats, dim=-1))
+        if corner_data is None:
+            per_level = [level_corner_data(points, l, cfg.hash)
+                         for l in range(L)]
+            corner_data = (torch.stack([i for i, _ in per_level]),
+                           torch.stack([w for _, w in per_level]))
+        idx, w = corner_data
+        if staged:
+            enc = ops.hash_encode(idx, w, pack.compute["table_cat"],
+                                  pack.compute["table_off"])
+        else:
+            # Storage-only pack: per-level gathers over tables dequantized
+            # inside the call.
+            feats = []
+            for l in range(L):
+                table = pack.hash_tables[f"level_{l}"]
+                if isinstance(table, PackedTensor):
+                    table = table.dequantize()
+                vals = ops.hash_gather(idx[l].reshape(-1).contiguous(),
+                                       table)
+                feats.append(ops.trilinear_sum(
+                    vals.reshape(idx[l].shape + (cfg.hash.n_features,)),
+                    w[l]))
+            enc = torch.cat(feats, dim=-1)
+        h = _fused_linear(pack, 0, names[0], enc)
     h = _fused_linear(pack, 1, names[1], torch.relu(h))
     sigma = density(h[..., 0], cfg)
     if sh is None:
@@ -305,6 +326,19 @@ def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Occupancy-culled ray rendering (one chunk).
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _t_samples_on(device: torch.device,
+                  rcfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t (S,), delta (S,)) on `device`, made there once per (device,
+    render config): t is the host linspace the budget oracle uses
+    (`ray_t_samples`), not torch.linspace, since the sample points must be
+    bit-identical on both sides; delta its differences, the last 1e10.
+    A copy from host memory per chunk would stall the card's stream."""
+    t = torch.from_numpy(ray_t_samples(rcfg)).to(device)
+    return t, torch.cat([torch.diff(t),
+                         torch.full((1,), 1e10, device=device)])
+
+
 def _chunk_color(params, pack, spec, occ: Optional[OccupancyGrid],
                  rays_o: torch.Tensor, rays_d: torch.Tensor, cfg, rcfg,
                  mode: str, budget: Optional[int], early_stop: bool,
@@ -318,9 +352,7 @@ def _chunk_color(params, pack, spec, occ: Optional[OccupancyGrid],
     """
     dev = rays_o.device
     n_rays, n_s = rays_o.shape[0], rcfg.n_samples
-    # The host linspace the budget oracle uses, not torch.linspace: the
-    # sample points must be bit-identical on both sides.
-    t1 = torch.from_numpy(ray_t_samples(rcfg)).to(dev)
+    t1, delta1 = _t_samples_on(dev, rcfg)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * t1[None, :, None]
     pts_unit = torch.clamp(pts + 0.5, 0.0, 1.0)
     inside = ((pts > -0.5) & (pts < 0.5)).all(dim=-1)  # (R, S)
@@ -371,8 +403,6 @@ def _chunk_color(params, pack, spec, occ: Optional[OccupancyGrid],
         rgb = torch.where(valid[:, None], rgb_b[take], zero) \
             .reshape(n_rays, n_s, 3)
 
-    delta1 = torch.cat([torch.diff(t1),
-                        torch.full((1,), 1e10, device=dev)])
     delta = delta1.expand(n_rays, n_s).contiguous()
     color, acc = ops.alpha_composite(sigma.contiguous(), rgb.contiguous(),
                                      delta, early_stop)

@@ -9,22 +9,23 @@ direct-indexed; finer levels use the spatial hash
 with pi = (1, 2654435761, 805459861) in uint32 with wrap-around. PyTorch
 has little uint32 arithmetic, so the products are taken in int64 and
 masked back to 32 bits after each multiply: the indices equal the JAX
-reference's exactly at every level.
+reference's exactly at every level. The corner math itself lives beside
+the fused encode kernel (`kernels/hash_encode.py`), which computes it on
+the card.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.hash_encode import corner_data
 from repro_torch.kernels.ops import trilinear_sum
 from repro_torch.quant.linear_quant import weight_qparams
 from repro_torch.quant.qat import ste_fake_quant
-
-PRIMES = (1, 2654435761, 805459861)
-_U32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,26 +84,6 @@ def init_hash_tables(generator: torch.Generator, cfg: HashEncodingConfig,
     return tables
 
 
-def _corner_indices(x0: torch.Tensor, level: int,
-                    cfg: HashEncodingConfig) -> torch.Tensor:
-    """Map integer corner coords (P, 8, 3) -> table indices (P, 8) int32."""
-    x = x0.to(torch.int64)
-    if cfg.is_direct(level):
-        stride = cfg.resolutions()[level] + 1
-        idx = x[..., 0] + x[..., 1] * stride + x[..., 2] * stride * stride
-        return (idx & _U32).to(torch.int32)
-    h = ((x[..., 0] * PRIMES[0]) & _U32) \
-        ^ ((x[..., 1] * PRIMES[1]) & _U32) \
-        ^ ((x[..., 2] * PRIMES[2]) & _U32)
-    return (h % cfg.level_entries(level)).to(torch.int32)
-
-
-# The 8 binary corner offsets of a voxel, shape (8, 3).
-_CORNERS = np.stack(
-    [[(c >> d) & 1 for d in range(3)] for c in range(8)], axis=0
-).astype(np.int32)
-
-
 def level_corner_data(points: torch.Tensor, level: int,
                       cfg: HashEncodingConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,20 +93,29 @@ def level_corner_data(points: torch.Tensor, level: int,
     The weight is the product of the three per-axis factors, taken left
     to right.
     """
-    res = cfg.resolutions()[level]
-    dev = points.device
-    x = points * res
-    x0f = torch.floor(x)
-    frac = x - x0f
-    x0 = torch.clamp(x0f.to(torch.int32), 0, res)  # (P, 3)
-    corners = torch.as_tensor(_CORNERS, device=dev)
-    idx = _corner_indices(
-        torch.clamp(x0[:, None, :] + corners[None], 0, res), level, cfg
-    )
-    c = corners.to(torch.float32)[None]  # (1, 8, 3)
-    f = frac[:, None, :]
-    t = c * f + (1.0 - c) * (1.0 - f)  # (P, 8, 3)
-    return idx, t[..., 0] * t[..., 1] * t[..., 2]
+    return corner_data(points, cfg.resolutions()[level], cfg.is_direct(level),
+                       cfg.level_entries(level))
+
+
+@functools.lru_cache(maxsize=None)
+def level_rows(cfg: HashEncodingConfig) -> Tuple[Tuple[int, int, int, int],
+                                                 ...]:
+    """One row a level: resolution, 1 if direct (else hashed), entries,
+    row offset in the concatenated table (levels stacked in order)."""
+    rows, off = [], 0
+    for l in range(cfg.n_levels):
+        n = cfg.level_entries(l)
+        rows.append((cfg.resolutions()[l], int(cfg.is_direct(l)), n, off))
+        off += n
+    return tuple(rows)
+
+
+@functools.lru_cache(maxsize=None)
+def level_meta(cfg: HashEncodingConfig, device: torch.device) -> torch.Tensor:
+    """`level_rows` as an (L, 4) int32 tensor on `device`: the fused encode
+    kernel's level description, copied to the device once per (config,
+    device)."""
+    return torch.tensor(level_rows(cfg), dtype=torch.int32).to(device)
 
 
 def hash_encode(tables: Dict[str, torch.Tensor], points: torch.Tensor,

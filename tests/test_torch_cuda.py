@@ -5,13 +5,17 @@ import), run them with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the matmuls, gather and march are exact; compositing is
+Tolerances: the matmuls, gather, fused encode and march are exact;
+compositing is
 within 1e-5 (the early exit drops less than t_eps per channel). Attention
 against its plain versions: 1e-4 in float32 (summation order), and in
 bfloat16 3e-2 (flash) and 2e-2 (decode), the bands of
 `tests/test_kernels.py` (p is rounded to bf16 at another maximum); the
 tile-edge and split-edge cases are held to 5e-3 in bfloat16, the limit
 `chip_smoke.py` holds both kernels to at the serve shapes."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +32,7 @@ from repro_torch.kernels.flash_attention_kernel import (
     flash_attention_cuda,
     flash_attention_plain,
 )
+from repro_torch.kernels.hash_encode import hash_encode_points_plain
 from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
 from repro_torch.kernels.quant_matmul import (
     quant_matmul_packed_plain,
@@ -35,9 +40,24 @@ from repro_torch.kernels.quant_matmul import (
 )
 from repro_torch.kernels.ray_march import ray_march_plain
 from repro_torch.kernels.repack import repack_tile_native
+from repro_torch.nerf import hash_encoding as he
+from repro_torch.nerf import occupancy as occ_mod
+from repro_torch.nerf.render import RenderConfig
 from repro_torch.quant.packing import pack_codes
 
 pytestmark = pytest.mark.cuda
+
+
+def _chip_smoke():
+    """`chip_smoke.py`, for the inputs it drives the kernels with."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
 
 
 @pytest.fixture
@@ -460,3 +480,147 @@ def test_quant_matmul_back_to_back_calls_on_different_weights(card):
     for w, got in zip(wqs, outs_p):
         _assert_qmm_exact(got, quant_matmul_packed_plain(x, w, 0.1, w.scale, 5),
                           "wq")
+
+
+# ---------------------------------------------------------------------------
+# The fused hash encode: bit-equal to its plain version
+# ---------------------------------------------------------------------------
+def _encode_points(which, hc, card):
+    if which == "serve":
+        return CS.serve_points(512, card)[0]
+    if which == "edges":
+        return torch.from_numpy(CS.encode_edge_points(hc, 1024)).to(card)
+    rng = np.random.default_rng(13)
+    return torch.from_numpy(rng.uniform(size=(16384, 3))
+                            .astype(np.float32)).to(card)
+
+
+@pytest.mark.parametrize("codes", [False, True])
+@pytest.mark.parametrize("which", ["serve", "edges", "random"])
+def test_hash_encode_kernel_exact_paper(card, which, codes):
+    """Paper width (16 levels, 5 direct, 11 hashed, the 6,098,925-row
+    table with subnormal-scale rows), f32 encodings or int8 codes."""
+    from repro_torch.configs.ngp import paper
+
+    hc = paper().hash
+    table, meta, act = CS.encode_inputs(np.random.default_rng(14), hc, card)
+    pts = _encode_points(which, hc, card)
+    a = act if codes else None
+    got = ops.hash_encode_points(pts, table, meta, a)
+    want = hash_encode_points_plain(pts, table, meta, a)
+    assert got.dtype == (torch.int8 if codes else torch.float32)
+    assert torch.equal(got, want)
+
+
+def test_hash_encode_kernel_exact_off_32_offsets_and_past_the_table(card):
+    """Level offsets that are not multiples of 32, odd B, and a table cut
+    short so that some corner rows fall past its end (zero rows)."""
+    hc = he.HashEncodingConfig(n_levels=6, log2_table_size=10,
+                               base_resolution=5, max_resolution=90)
+    meta = he.level_meta(hc, card)
+    assert (meta[1:, 3] % 32 != 0).any()
+    rng = np.random.default_rng(15)
+    rows = int(meta[:, 2].sum())
+    table = torch.from_numpy(rng.normal(size=(rows, 2)).astype(np.float32))
+    pts = torch.from_numpy(np.concatenate([
+        rng.uniform(size=(1001, 3)), CS.encode_edge_points(hc, 50)])
+        .astype(np.float32)).to(card)
+    for t in (table, table[:-50]):
+        t = t.to(card)
+        _, _, act = CS.encode_inputs(rng, hc, card)
+        for a in (None, act):
+            assert torch.equal(ops.hash_encode_points(pts, t, meta, a),
+                               hash_encode_points_plain(pts, t, meta, a))
+
+
+def test_hash_encode_wrapper_refuses_what_the_kernel_does_not_take(card):
+    meta = he.level_meta(he.HashEncodingConfig(n_levels=2), card)
+    pts = torch.zeros((4, 3), device=card)
+    table = torch.zeros((1000, 2), device=card)
+    with pytest.raises(ValueError):  # F = 3
+        ops.hash_encode_points(pts, torch.zeros((1000, 3), device=card), meta)
+    with pytest.raises(ValueError):  # rows off their 8-byte boundary
+        ops.hash_encode_points(pts, table.view(-1)[1:-1].view(-1, 2), meta)
+    with pytest.raises(TypeError):
+        ops.hash_encode_points(pts, table, meta.to(torch.int64))
+    with pytest.raises(ValueError):
+        ops.hash_encode_points(pts[:, :2].contiguous(), table, meta)
+
+
+# ---------------------------------------------------------------------------
+# The warp-per-ray march: bit-equal to its plain version and the host oracle
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("R", [200, 512])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64])
+def test_ray_march_warp_per_ray_exact(card, S, R):
+    """`march_rays`' camera and edge rays (cell and box faces, zero
+    directions, starts inside the box), the early exit on and off."""
+    rng = np.random.default_rng(S * 1000 + R)
+    G = 32
+    occ_np = (rng.uniform(size=(G, G, G)) < 0.5).astype(np.float32)
+    o, d = CS.march_rays(rng, R)
+    rcfg = RenderConfig(n_samples=S)
+    t = torch.from_numpy(occ_mod.ray_t_samples(rcfg)).to(card)
+    occ = torch.from_numpy(occ_np).to(card)
+    oc, dc = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+    want = ray_march_plain(occ, oc, dc, t)
+    grid = occ_mod.OccupancyGrid(occ=occ, resolution=G, threshold=0.5,
+                                 occupied_fraction=float(occ_np.mean()))
+    host, _ = occ_mod.sample_active_mask(grid, o, d, rcfg)
+    for early in (True, False):
+        got = ops.ray_march(occ, oc, dc, t, early)
+        assert torch.equal(got, want)
+        assert np.array_equal(got.cpu().numpy() > 0.5, host)
+
+
+def test_fused_field_runs_the_fused_encode_and_no_corner_ops(card,
+                                                            monkeypatch):
+    """On the card the staged field query encodes through the one kernel:
+    the per-level corner math and the bare gather are never called, and
+    the result matches the CPU's plain versions."""
+    from repro_torch.kernels.hash_encode import hash_encode_points_cuda
+    from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
+    from repro_torch.nerf import fast_render as fr
+    from repro_torch.nerf import ngp
+
+    cfg = ngp.NGPConfig(
+        hash=he.HashEncodingConfig(n_levels=4, log2_table_size=9,
+                                   base_resolution=4, max_resolution=32),
+        hidden_dim=16, color_hidden_dim=16, geo_feat_dim=7, sh_degree=2)
+    params = ngp.init_ngp(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    params["hash"] = {k: v * 1e3 for k, v in params["hash"].items()}
+    rng = np.random.default_rng(16)
+    pts = torch.from_numpy(rng.uniform(size=(500, 3)).astype(np.float32))
+    d = rng.normal(size=(500, 3)).astype(np.float32)
+    dirs = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    _, _, taps = ngp.ngp_apply(params, pts, dirs, cfg, None,
+                               return_taps=True)
+    spec = ngp.NGPQuantSpec(
+        hash_bits=torch.tensor([8.0, 6.0, 4.0, 8.0]),
+        weight_bits=torch.full((5,), 4.0), act_bits=torch.full((5,), 8.0),
+        act_ranges=torch.tensor([[float(taps[n].min()), float(taps[n].max())]
+                                 for n in ngp.ngp_linear_names(cfg)]))
+    want = fr.fused_ngp_apply(fr.build_fused_pack(params, cfg, spec), pts,
+                              dirs, cfg)
+    on_card = {k: {n: t.to(card) for n, t in v.items()}
+               for k, v in params.items()}
+    pack = fr.build_fused_pack(on_card, cfg, ngp.NGPQuantSpec(
+        *(t.to(card) for t in (spec.hash_bits, spec.weight_bits,
+                               spec.act_bits, spec.act_ranges))))
+    assert pack.modes[0] == "int"
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a per-level corner op ran on the card path")
+
+    monkeypatch.setattr(fr, "level_corner_data", refuse)
+    monkeypatch.setattr("repro_torch.kernels.hash_encode.corner_data", refuse)
+    monkeypatch.setattr(ops, "hash_gather", refuse)
+    n_enc = hash_encode_points_cuda.launches
+    n_gather = hash_gather_cuda.launches
+    got = fr.fused_ngp_apply(pack, pts.to(card), dirs.to(card), cfg)
+    torch.cuda.synchronize()
+    assert hash_encode_points_cuda.launches == n_enc + 1
+    assert hash_gather_cuda.launches == n_gather
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max().item() <= 1e-5

@@ -30,6 +30,7 @@ J_CFG = jngp.NGPConfig(
                                 base_resolution=4, max_resolution=32),
     hidden_dim=16, color_hidden_dim=16, geo_feat_dim=7, sh_degree=2,
 )
+CPU = torch.device("cpu")
 T_CFG = tngp.NGPConfig(
     hash=the.HashEncodingConfig(n_levels=4, log2_table_size=9,
                                 base_resolution=4, max_resolution=32),
@@ -242,8 +243,9 @@ def test_fused_field_query_identical_codes(int_packs, points):
     want = jops.fused_field_query(idx, w, cat, off,
                                   jp.compute["sigma/0::wq_tile"], lyr,
                                   use_pallas=True)
-    got = tops.fused_field_query(t_idx, t_w, tp.compute["table_cat"],
-                                 tp.compute["table_off"],
+    got = tops.fused_field_query(torch.from_numpy(pts),
+                                 tp.compute["table_cat"],
+                                 the.level_meta(T_CFG.hash, CPU),
                                  tp.compute["sigma/0::wq_tile"], tl)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
@@ -316,7 +318,8 @@ def test_fused_field_query_codes_equal_the_jitted_reference(int_packs):
     np.testing.assert_array_equal(t_enc.numpy(), np.asarray(j_enc))
     np.testing.assert_array_equal(tops.quantize_codes(t_enc, tl).numpy(),
                                   np.asarray(j_codes))
-    got = tops.fused_field_query(t_idx, t_w, tp.compute["table_cat"],
-                                 tp.compute["table_off"],
+    got = tops.fused_field_query(torch.from_numpy(pts),
+                                 tp.compute["table_cat"],
+                                 the.level_meta(T_CFG.hash, CPU),
                                  tp.compute["sigma/0::wq_tile"], tl)
     np.testing.assert_array_equal(got.numpy(), np.asarray(j_out))
