@@ -7,13 +7,13 @@ one (or without the rest of the repository beside it).
 
 Phases, each of which raises on failure:
 
-1. Build the eight CUDA kernels from ``src/repro_torch/csrc`` (one
+1. Build the nine CUDA sources from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build time,
-   every kernel's registers, the attention and quantized-matmul kernels'
-   spill bytes, and the tensor-core (HGMMA, HMMA, IMMA) and cp.async
-   (LDGSTS) instructions in their SASS (``cuobjdump``); the bf16 flash
-   kernel must hold HGMMA, and both quantized matmuls an s8 tensor-core
-   instruction.
+   every kernel's registers, the attention, quantized-matmul, encode,
+   march and gather-composite kernels' spill bytes, and the tensor-core
+   (HGMMA, HMMA, IMMA) and cp.async (LDGSTS) instructions in their SASS
+   (``cuobjdump``); the bf16 flash kernel must hold HGMMA, and both
+   quantized matmuls an s8 tensor-core instruction.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its serve path gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call that computes the same function
@@ -23,30 +23,46 @@ Phases, each of which raises on failure:
    off 16-byte boundaries, and their five serve linears are also timed
    back to back in one bracket (``seq_ms``), as a slot runs them. The
    fused hash encode is bit-equal on one slot's serve points and on the
-   grid's edges, both to f32 encodings and to int8 codes. Decode
-   attention is also timed cold, each call on one of 8 caches (69 MB
-   against the 50 MB L2), beside the library call on the same caches.
+   grid's edges, both to f32 encodings and to int8 codes. The fused
+   gather-composite is within 1e-5 of its plain version on a real march's
+   ranks (R = 512, S = 32, B = 16,384; a warp tier's int32 take with the
+   march mask; S = 64), early stop off and on, and bit-stable across
+   calls. Decode attention is also timed cold, each call on one of 8
+   caches (69 MB against the 50 MB L2), beside the library call on the
+   same caches.
 3. The NeRF path at ``paper()`` width: random weights from a seed,
    activation ranges calibrated from the field's taps, occupancy baked,
    a mixed int policy packed into a ``QuantArtifact``, saved, loaded
-   (``tile:128``) and served by ``RenderService`` (8 requests of 64x64
-   camera rays). Every kernel's launch count is zeroed just before the
-   requests and read just after; each render kernel must have risen, the
-   fused encode once a slot (as often as the march), and no kernel off
-   the render path (the bare gather among them) may have run. One
-   request is then profiled: wall and device time, and its launches.
+   (``tile:128``) and served by ``RenderService`` with the pose cache on
+   (8 requests of 64x64 camera rays from 8 poses: all misses). Every
+   kernel's launch count is zeroed just before the requests and read just
+   after; each render kernel must have risen, the fused encode and the
+   gather-composite once a slot (as often as the march), no plan may have
+   been built or hit, and no kernel off the render path (the bare gather
+   and the unfused composite among them) may have run. One request of a
+   fresh pose is then profiled: wall and device time, and its launches.
 4. One request served again on the CPU from the same directory (the plain
    versions) must match the card's colours to 1e-5.
-5. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
+5. The revisit stream: two more poses, each visited three times (miss;
+   miss and plan build; hit), then each jittered inside its pose cell
+   (warp), counts zeroed around it: hits, warps and misses must each be
+   > 0, each kernel must have launched as its tiers dictate (the bare
+   gather once a hit slot), and every hit and warp request's colours must
+   equal, bit for bit, the same rays served on the card without the pose
+   cache. Plan bytes and ``resident_bytes`` are printed, and one hit and
+   one warp request are profiled beside the march request.
+6. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
    weights from a seed) served by ``repro_torch.launch.serve``: 8 requests
    of 1024 prompt tokens and 32 generated tokens, 4 at a time. Counts are
    zeroed just before and read just after: flash attention must launch
    once per layer per prefill, decode attention once per layer per step.
-6. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
+7. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
    logits and caches within 1e-3.
 
-The last lines are the kernels JSON line, the card's name and power limit
-(``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels JSON line (``launches`` from the all-miss
+stream and the LM serve, ``launches_revisit`` from the revisit stream),
+the card's name and power limit (``nvidia-smi``), and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -527,6 +543,95 @@ def phase_alpha_composite(rng, dev):
                  bound(nbytes, 12.0 * walked, PEAK_F32_OPS), None, t_c)
 
 
+def composite_inputs(rng, dev, R: int = 512, S: int = 32, G: int = 32):
+    """One march tier's compacted chunk at the serve shape: R camera rays
+    of the first scene pose marched through a half-full G^3 grid on the
+    card, ranked under a budget of every sample (B = R * S), and the field
+    outputs the buffer rows would hold — sigma drawn per ray from empty to
+    opaque, rgb uniform. Returns (sigma_b, rgb_b, take (int64 rank),
+    valid, delta_row, march mask (P,) f32)."""
+    from repro_torch.kernels.ray_march import ray_march_cuda
+    from repro_torch.nerf.occupancy import ray_t_samples
+    from repro_torch.nerf.render import RenderConfig
+
+    _, _, ro, rd = serve_points(R, "cpu")
+    rcfg = RenderConfig(n_samples=S)
+    t = torch.from_numpy(ray_t_samples(rcfg)).to(dev)
+    delta = torch.cat([torch.diff(t), torch.full((1,), 1e10, device=dev)])
+    occ = torch.from_numpy((rng.uniform(size=(G, G, G)) < 0.5)
+                           .astype(np.float32)).to(dev)
+    mask = ray_march_cuda(occ, ro.to(dev).contiguous(),
+                          rd.to(dev).contiguous(), t, True).reshape(-1)
+    active = mask > 0.5
+    P = R * S
+    rank = torch.cumsum(active, dim=0) - 1
+    valid = active & (rank < P)
+    inv_take = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    inv_take.scatter_(0, torch.where(valid, rank, P),
+                      torch.arange(P, device=dev))
+    scale = rng.choice([0.0, 0.5, 5.0, 200.0], (R, 1))  # empty ... opaque
+    sigma = torch.from_numpy((rng.exponential(1.0, (R, S)) * scale)
+                             .astype(np.float32)).to(dev).reshape(-1)
+    rgb = torch.from_numpy(rng.uniform(size=(P, 3)).astype(np.float32)) \
+        .to(dev)
+    rows = inv_take[:P]
+    return (sigma[rows].contiguous(), rgb[rows].contiguous(), rank, valid,
+            delta, mask)
+
+
+def phase_gather_composite(rng, dev):
+    from repro_torch.kernels.gather_composite import (
+        gather_composite_cuda as kernel,
+        gather_composite_plain as plain,
+    )
+
+    t_eps = 1e-6
+    sigma_b, rgb_b, take, valid, delta, mask = composite_inputs(rng, dev)
+    R, S = take.numel() // delta.numel(), delta.numel()
+    # The serve shape (one 32-sample chunk, int64 rank), a warp tier's
+    # int32 take with the march mask to AND, and S = 64 (two chunks, where
+    # the early exit can leave a ray).
+    cases = [("serve", (sigma_b, rgb_b, take, valid, delta), {}),
+             ("warp", (sigma_b, rgb_b, take.to(torch.int32),
+                       valid | (torch.rand(valid.shape, device=dev) < 0.1),
+                       delta), {"active": mask})]
+    s64 = composite_inputs(rng, dev, R=256, S=64)
+    cases.append(("S=64", s64[:5], {}))
+    dense = 0.0
+    for what, args, kw in cases:
+        for early in (False, True):
+            c, acc = kernel(*args, True, early, t_eps, **kw)
+            c2, acc2 = kernel(*args, True, early, t_eps, **kw)
+            pc, pa = plain(*args, True, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(c, c2) and torch.equal(acc, acc2)):
+                raise AssertionError(f"gather_composite {what}: two calls "
+                                     "gave different bits")
+            err = max((c - pc).abs().max().item(),
+                      (acc - pa).abs().max().item())
+            if not err <= 1e-5:
+                raise AssertionError(f"gather_composite {what} early_stop="
+                                     f"{early}: max |diff| {err} > 1e-5")
+            if what == "serve" and not early:
+                dense = err
+            print(f"  gather_composite {what} early_stop={early}: max |diff| "
+                  f"{err:.3g}")
+    print(f"gather_composite: within 1e-5 of the plain composition, early "
+          f"stop off and on, bit-stable across calls; dense reading "
+          f"{dense:.3g} at R={R} S={S} B={sigma_b.numel()} "
+          f"({int(valid.sum())} active samples)")
+    args = (sigma_b, rgb_b, take, valid, delta, True)
+    t_k = median_ms(lambda: kernel(*args, True, t_eps))
+    t_p = median_ms(lambda: plain(*args))
+    t_c = median_ms(lambda: kernel(*args, True, t_eps), hide_host=False)
+    n_valid = int(valid.sum())
+    P = take.numel()
+    nbytes = P * (1 + take.element_size()) + n_valid * 16 + S * 4 + R * 16
+    return entry("gather_composite", "src/repro_torch/csrc/gather_composite.cu",
+                 "src/repro/kernels/alpha_composite.py:77", dense, t_k, t_p,
+                 bound(nbytes, 12.0 * P, PEAK_F32_OPS), None, t_c)
+
+
 def phase_quant_matmul_unpacked(rng, dev, floor):
     from repro_torch.kernels.quant_matmul import (
         quant_matmul_cuda as kernel,
@@ -789,15 +894,17 @@ def build_artifact(cfg, device, seed: int = 0, occ_resolution: int = 32):
         hardware={"name": "random-weights"}, metrics={})
 
 
-def request_rays(n_requests: int, hw: int):
+def request_rays(n_requests: int, hw: int, held_out: bool = False):
     """(rays_o, rays_d) numpy pairs: hw x hw camera rays of successive
-    scene poses."""
+    scene poses (the held-out ring, a different set of poses, with
+    `held_out`)."""
     from repro_torch.nerf.scenes import SceneConfig, camera_poses, camera_rays
 
-    sc = SceneConfig(image_hw=hw, n_train_views=n_requests)
-    train, _ = camera_poses(sc)
+    sc = SceneConfig(image_hw=hw, n_train_views=n_requests,
+                     n_test_views=n_requests)
+    poses = camera_poses(sc)[1 if held_out else 0]
     return [tuple(a.numpy() for a in camera_rays(c2w, hw, sc.focal_mult * hw))
-            for c2w in train]
+            for c2w in poses]
 
 
 def serve(path, device, serve_cfg=None):
@@ -844,10 +951,11 @@ def profile(label: str, fn) -> None:
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {t:8.3f} ms {n:5d}x {name[:90]}")
-    return busy, by_name
+    return busy, by_name, {"events": len(kernels), "device_ms": busy,
+                           "wall_ms": wall * 1e3}
 
 
-NERF_KERNELS = ("quant_matmul_packed", "hash_encode", "alpha_composite",
+NERF_KERNELS = ("quant_matmul_packed", "hash_encode", "gather_composite",
                 "ray_march")
 LM_KERNELS = ("flash_attention", "decode_attention")
 
@@ -858,6 +966,7 @@ def counters():
         decode_attention_cuda,
     )
     from repro_torch.kernels.flash_attention_kernel import flash_attention_cuda
+    from repro_torch.kernels.gather_composite import gather_composite_cuda
     from repro_torch.kernels.hash_encode import hash_encode_points_cuda
     from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
     from repro_torch.kernels.quant_matmul import (
@@ -870,10 +979,110 @@ def counters():
             "hash_gather": hash_gather_cuda,
             "hash_encode": hash_encode_points_cuda,
             "alpha_composite": alpha_composite_cuda,
+            "gather_composite": gather_composite_cuda,
             "ray_march": ray_march_cuda,
             "quant_matmul": quant_matmul_cuda,
             "flash_attention": flash_attention_cuda,
             "decode_attention": decode_attention_cuda}
+
+
+def jittered(ro, rd, key, pos_cell: float, dir_cell: float):
+    """The first of the origins shifted by +-1e-4 or +-5e-5 that keeps the
+    request in pose cell `key` (a pose component can sit on a cell
+    boundary), or None."""
+    from repro_torch.nerf.pose_cache import pose_cell_key
+
+    for eps in (1e-4, -1e-4, 5e-5, -5e-5):
+        ro_j = ro + np.float32(eps)
+        if pose_cell_key(ro_j, rd, pos_cell, dir_cell) == key:
+            return ro_j
+    return None
+
+
+def revisit_stream(path, dev, kern):
+    """The pose-cache tiers at `paper()` width: two held-out poses of 64x64
+    rays, each visited three times in turn (miss; miss and build; hit),
+    then each with its origin jittered inside its pose cell (warp). Every
+    kernel's count is zeroed just before and read just after. Hits, warps
+    and misses must each be > 0, and each hit and warp request's colours
+    equal, bit for bit, the same rays served on the card without the pose
+    cache. Then one hit and one warp request are profiled."""
+    from repro_torch.hero.engine import ServeEngine
+    from repro_torch.hero.service import ServeConfig
+    from repro_torch.nerf.pose_cache import pose_cell_key
+
+    svc, art = serve(path, dev)
+    cfg = svc.engine.cfg
+    plain = ServeEngine({art.scene: art},
+                        ServeConfig().engine_config(pose_cache=False),
+                        device=dev)
+    plain.warmup()
+    poses = request_rays(3, 64, held_out=True)[1:]
+    for fn in kern.values():
+        fn.launches = 0
+    tiers, served = [], []
+
+    def visit(ro, rd):
+        before = dict(svc.stats()["pose_cache"])
+        out = answer(svc, [(ro, rd)])[0]
+        after = svc.stats()["pose_cache"]
+        tier = max(("hits", "warps", "misses"),
+                   key=lambda k: after[k] - before[k])
+        tiers.append(tier)
+        served.append((tier, ro, rd, out))
+
+    for _ in range(3):
+        for ro, rd in poses:
+            visit(ro, rd)
+    warped = []
+    for ro, rd in poses:
+        key = pose_cell_key(ro, rd, cfg.pose_pos_cell, cfg.pose_dir_cell)
+        ro_j = jittered(ro, rd, key, cfg.pose_pos_cell, cfg.pose_dir_cell)
+        if ro_j is not None:
+            visit(ro_j, rd)
+            warped.append((ro_j, rd))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kern.items()}
+    st = svc.stats()
+    pc = st["pose_cache"]
+    print(f"revisit stream: {len(tiers)} requests, tiers {tiers}; pose cache "
+          f"{pc}; launches {launches}")
+    print(f"  plan bytes {pc['bytes']}, resident_bytes "
+          f"{st['cache']['resident_bytes']} (the artifact "
+          f"{art.resident_bytes()} + the plans)")
+    if not (pc["hits"] > 0 and pc["warps"] > 0 and pc["misses"] > 0):
+        raise AssertionError(f"a pose-cache tier never served: {pc}")
+    if st["cache"]["resident_bytes"] != art.resident_bytes() + pc["bytes"]:
+        raise AssertionError("plan bytes are not charged to resident_bytes")
+    slots = pc["hits"] + pc["warps"] + pc["misses"]
+    want = {"gather_composite": slots, "hash_gather": pc["hits"],
+            "hash_encode": pc["warps"] + pc["misses"],
+            "ray_march": pc["warps"] + pc["misses"],
+            "quant_matmul_packed": 5 * slots, "alpha_composite": 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"revisit stream: {name} launched "
+                                 f"{launches[name]} times, want {n}")
+    n_same = 0
+    for tier, ro, rd, out in served:
+        if tier in ("hits", "warps"):
+            ref = plain.render(ro, rd)
+            if not np.array_equal(out, ref):
+                raise AssertionError(
+                    f"a {tier[:-1]} request differs from the same rays "
+                    f"without the pose cache by "
+                    f"{float(np.abs(out - ref).max())}")
+            n_same += 1
+    print(f"  {n_same} hit and warp requests equal, bit for bit, the same "
+          f"rays served on the card without the pose cache")
+    hit = profile("hit request (plan tier, 8 slots)",
+                  lambda: answer(svc, [poses[0]]))
+    warp = profile("warp request (warp tier, 8 slots)",
+                   lambda: answer(svc, [warped[0]]))
+    if svc.stats()["pose_cache"]["hits"] != pc["hits"] + 8 or \
+            svc.stats()["pose_cache"]["warps"] != pc["warps"] + 8:
+        raise AssertionError("the profiled requests missed their tiers")
+    return launches, {"hit": hit[2], "warp": warp[2]}
 
 
 # ---------------------------------------------------------------------------
@@ -953,13 +1162,13 @@ def lm_profile(dev, steps: int = 4) -> None:
     with torch.inference_mode():
         run_prefill()
         run_decode()
-        busy, by_name = profile(f"LM prefill ({LM_BATCH} x {LM_PROMPT})",
-                                run_prefill)
+        busy, by_name, _ = profile(
+            f"LM prefill ({LM_BATCH} x {LM_PROMPT})", run_prefill)
         n, t = by_name_sum(by_name, "flash_")
         print(f"  flash attention in prefill: {t:.3f} ms over {n} launches, "
               f"{100.0 * t / busy:.1f} % of its device time")
-        busy, by_name = profile(f"LM decode ({steps} steps, batch "
-                                f"{LM_BATCH})", run_decode)
+        busy, by_name, _ = profile(f"LM decode ({steps} steps, batch "
+                                   f"{LM_BATCH})", run_decode)
         n, t = by_name_sum(by_name, "decode_kernel")
         print(f"  decode attention in {steps} steps: {t:.3f} ms over {n} "
               f"launches, {100.0 * t / busy:.1f} % of their device time")
@@ -1035,7 +1244,7 @@ def lm_card_vs_cpu(dev, tol: float = 1e-3):
 # spill bytes, wgmma notes); for the others only the register counts.
 DETAIL_SOURCES = ("flash_attention.cu", "decode_attention.cu",
                   "quant_matmul_packed.cu", "quant_matmul.cu",
-                  "hash_encode.cu", "ray_march.cu")
+                  "hash_encode.cu", "ray_march.cu", "gather_composite.cu")
 # Kernels whose tensor-core (HGMMA, HMMA, IMMA) and cp.async (LDGSTS)
 # instructions are counted in the SASS.
 SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_kernel",
@@ -1136,6 +1345,7 @@ def main() -> int:
     entries = [phase_quant_matmul(rng, dev, floor),
                phase_hash_gather(rng, dev, cfg),
                phase_hash_encode(rng, dev, cfg),
+               phase_gather_composite(rng, dev),
                phase_alpha_composite(rng, dev), phase_ray_march(rng, dev),
                phase_quant_matmul_unpacked(rng, dev, floor),
                phase_flash_attention(dev), phase_decode_attention(dev)]
@@ -1149,6 +1359,7 @@ def main() -> int:
     t0 = time.perf_counter()
     art = build_artifact(cfg, dev)
     requests = request_rays(8, 64)
+    fresh = request_rays(3, 64, held_out=True)[0]
     with tempfile.TemporaryDirectory() as tmp:
         art.save(tmp)
         svc, loaded = serve(tmp, dev)
@@ -1161,21 +1372,41 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = {name: kern[name].launches for name in NERF_KERNELS}
         stats = svc.stats()
+        pc = stats["pose_cache"]
         for (ro, _), c in zip(requests, colors):
             if c.shape != (ro.shape[0], 3) or not np.isfinite(c).all():
                 raise AssertionError(f"bad result: shape {c.shape}")
-        print(f"launches during the 8 served requests: {launches}")
+        print(f"launches during the 8 served requests: {launches}; pose "
+              f"cache {pc}")
         if min(launches.values()) <= 0:
             raise AssertionError(f"a kernel was never launched: {launches}")
-        if any(kern[n].launches for n in kern if n not in NERF_KERNELS):
-            raise AssertionError("a kernel off the render path was launched")
-        if launches["hash_encode"] != launches["ray_march"]:
-            raise AssertionError("the fused encode did not run once a slot "
-                                 f"(one march a slot): {launches}")
+        off_path = {n: kern[n].launches for n in kern
+                    if n not in NERF_KERNELS and kern[n].launches}
+        if off_path:
+            raise AssertionError(f"kernels off the render path (the bare "
+                                 f"gather, the unfused composite among "
+                                 f"them) were launched: {off_path}")
+        if not (launches["hash_encode"] == launches["ray_march"]
+                == launches["gather_composite"] == pc["misses"]):
+            raise AssertionError("the fused encode and the gather-composite "
+                                 "did not run once a slot (one march a "
+                                 f"slot): {launches}")
+        if pc["builds"] or pc["hits"] or pc["warps"] or pc["bytes"]:
+            raise AssertionError(f"fresh poses built or hit plans: {pc}")
 
-        profile("request", lambda: answer(svc, [requests[0]]))
+        march = profile("march request (a fresh pose, 8 slots)",
+                        lambda: answer(svc, [fresh]))[2]
+        if svc.stats()["pose_cache"]["builds"]:
+            raise AssertionError("the fresh profiled pose built plans")
         cpu_svc, _ = serve(tmp, "cpu")
         ref = answer(cpu_svc, requests[:1])[0]
+        del svc, cpu_svc
+        revisit_launches, tier_prof = revisit_stream(tmp, dev, kern)
+    tier_prof["march"] = march
+    print("profiled requests by tier (8 slots each): " + "; ".join(
+        f"{k} {v['events']} device events ({v['events'] / 8:.0f} a slot), "
+        f"device {v['device_ms']:.3f} ms, wall {v['wall_ms']:.2f} ms"
+        for k, v in tier_prof.items()))
     diff = float(np.abs(ref - colors[0]).max())
     print(f"card vs CPU plain versions, one request: max |diff| {diff:.3g}")
     if not diff <= 1e-5:
@@ -1190,7 +1421,7 @@ def main() -> int:
           f"{loaded.resident_bytes()}, stored_model_bytes "
           f"{loaded.stored_model_bytes()}, occupied fraction "
           f"{loaded.occ.occupied_fraction:.4f}")
-    del svc, cpu_svc, loaded, art
+    del loaded, art
 
     lm_launches = lm_serve(dev, kern)
     launches.update({n: lm_launches[n] for n in LM_KERNELS})
@@ -1198,8 +1429,9 @@ def main() -> int:
     lm_card_vs_cpu(dev)
 
     for e in entries:
-        # quant_matmul lies on neither path: 0 launches in both runs.
+        # quant_matmul lies on no path: 0 launches in every run.
         e["launches"] = launches.get(e["name"], 0)
+        e["launches_revisit"] = revisit_launches[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,12 @@
 //   res), indexed directly (x + y*s + z*s^2, s = res + 1) or hashed
 //   ((x*1 ^ y*2654435761 ^ z*805459861) mod entries), all in uint32;
 //   weight w_c = (t0 * t1) * t2, t_a = bit ? frac_a : 1 - frac_a;
-//   enc[b, l*2 + f] = fma(v_7, w_7, ... fma(v_0, w_0, 0)), v_c the table
+//   enc[b, l*F + f] = fma(v_7, w_7, ... fma(v_0, w_0, 0)), v_c the table
 //   row at offset + index (a zero row outside the table).
-// With `codes`, out[b, l*2 + f] = int8(clip(rint(enc / sx + zx_f), 0,
-// qmax) - off) instead, the first linear's activation codes.
+// With `codes`, out[b, l*F + f] = int8(clip(rint(enc / sx + zx_f), 0,
+// qmax) - off) instead, the first linear's activation codes. The kernel is
+// a template over F in {1, 2, 4, 8}, the feature counts the Instant-NGP
+// paper (Mueller et al., 2022) sweeps; F = 2 is every configuration's.
 //
 // Exactness: the encodings must be bit-equal to the plain PyTorch
 // composition, which reproduces the jitted reference's roundings, so that
@@ -36,9 +38,8 @@
 // read it back, over ~570 launches a slot. One thread per (point, level),
 // point-major, so a warp covers 32 / L points x L levels: its loads of a
 // point's 3 floats and its level rows of meta are broadcasts, each thread
-// loads a corner row as one float2, and the warp's
-// stores are one contiguous run (256 B at L = 16). F = 2 features a
-// level, as every configuration of the repository has.
+// loads a corner row as one vector (a float2 at F = 2), and the warp's
+// stores are one contiguous run (256 B at L = 16, F = 2).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,7 +58,36 @@ struct ActGrid {
   const float* off;
 };
 
-template <bool CODES>
+// One table row of F features, as one vector load where F allows it
+// (float2 for F = 2, float4s for F = 4 and 8); a zero row outside the
+// table.
+template <int F>
+__device__ __forceinline__ void load_row(const float* __restrict__ table,
+                                         long long row, long long T,
+                                         float (&v)[F]) {
+  if (row < 0 || row >= T) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = 0.0f;
+  } else if constexpr (F == 1) {
+    v[0] = __ldg(table + row);
+  } else if constexpr (F == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(table) + row);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(table) + row * (F / 4);
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 t = __ldg(p + q);
+      v[4 * q + 0] = t.x;
+      v[4 * q + 1] = t.y;
+      v[4 * q + 2] = t.z;
+      v[4 * q + 3] = t.w;
+    }
+  }
+}
+
+template <int F, bool CODES>
 __global__ void __launch_bounds__(THREADS)
 hash_encode_kernel(const float* __restrict__ points,
                    const float* __restrict__ table,
@@ -83,7 +113,9 @@ hash_encode_kernel(const float* __restrict__ points,
   }
   const uint32_t stride = (uint32_t)res + 1u;
   const uint32_t entries = (uint32_t)m.z;
-  float2 acc = make_float2(0.0f, 0.0f);
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     uint32_t cc[3];
@@ -98,13 +130,11 @@ hash_encode_kernel(const float* __restrict__ points,
     const uint32_t h =
         m.y ? cc[0] + cc[1] * stride + cc[2] * stride * stride
             : (cc[0] ^ (cc[1] * PRIME_Y) ^ (cc[2] * PRIME_Z)) % entries;
-    const long long row = (long long)m.w + (long long)(int32_t)h;
-    const float2 v = (row >= 0 && row < T)
-                         ? __ldg(reinterpret_cast<const float2*>(table) + row)
-                         : make_float2(0.0f, 0.0f);
+    float v[F];
+    load_row<F>(table, (long long)m.w + (long long)(int32_t)h, T, v);
     const float w = __fmul_rn(__fmul_rn(t[0], t[1]), t[2]);
-    acc.x = __fmaf_rn(v.x, w, acc.x);
-    acc.y = __fmaf_rn(v.y, w, acc.y);
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = __fmaf_rn(v[f], w, acc[f]);
   }
   if constexpr (CODES) {
     const float sx = __ldg(act.sx), zx_f = __ldg(act.zx_f);
@@ -114,9 +144,40 @@ hash_encode_kernel(const float* __restrict__ points,
       return (signed char)__float2int_rz(
           __fsub_rn(fminf(fmaxf(q, 0.0f), qmax), off));
     };
-    static_cast<char2*>(out)[i] = make_char2(code(acc.x), code(acc.y));
+    signed char* o = static_cast<signed char*>(out) + i * F;
+    if constexpr (F == 2) {
+      *reinterpret_cast<char2*>(o) = make_char2(code(acc[0]), code(acc[1]));
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) o[f] = code(acc[f]);
+    }
   } else {
-    static_cast<float2*>(out)[i] = acc;
+    float* o = static_cast<float*>(out) + i * F;
+    if constexpr (F == 1) {
+      o[0] = acc[0];
+    } else if constexpr (F == 2) {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q) {
+        reinterpret_cast<float4*>(o)[q] = make_float4(
+            acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+      }
+    }
+  }
+}
+
+template <int F>
+void launch_encode(const float* p, const float* tab, const int4* m,
+                   ActGrid act, void* out, long long total, int L, int T,
+                   int codes, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+  if (codes) {
+    hash_encode_kernel<F, true><<<blocks, THREADS, 0, s>>>(p, tab, m, act,
+                                                           out, total, L, T);
+  } else {
+    hash_encode_kernel<F, false><<<blocks, THREADS, 0, s>>>(p, tab, m, act,
+                                                            out, total, L, T);
   }
 }
 
@@ -126,22 +187,25 @@ extern "C" int repro_hash_encode(const void* points, const void* table,
                                  const void* meta, const void* sx,
                                  const void* zx_f, const void* qmax,
                                  const void* off, void* out, int B, int L,
-                                 int T, int codes, void* stream) {
+                                 int T, int F, int codes, void* stream) {
   const long long total = (long long)B * L;
   if (total > 0) {
     const ActGrid act{(const float*)sx, (const float*)zx_f,
                       (const float*)qmax, (const float*)off};
-    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
     cudaStream_t s = (cudaStream_t)stream;
     auto* p = (const float*)points;
     auto* tab = (const float*)table;
     auto* m = (const int4*)meta;
-    if (codes) {
-      hash_encode_kernel<true><<<blocks, THREADS, 0, s>>>(p, tab, m, act,
-                                                          out, total, L, T);
-    } else {
-      hash_encode_kernel<false><<<blocks, THREADS, 0, s>>>(p, tab, m, act,
-                                                           out, total, L, T);
+    switch (F) {
+      case 1: launch_encode<1>(p, tab, m, act, out, total, L, T, codes, s);
+        break;
+      case 2: launch_encode<2>(p, tab, m, act, out, total, L, T, codes, s);
+        break;
+      case 4: launch_encode<4>(p, tab, m, act, out, total, L, T, codes, s);
+        break;
+      case 8: launch_encode<8>(p, tab, m, act, out, total, L, T, codes, s);
+        break;
+      default: return (int)cudaErrorInvalidValue;
     }
   }
   return (int)cudaGetLastError();

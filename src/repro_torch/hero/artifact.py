@@ -10,9 +10,11 @@ hardware-target metadata + metrics recorded at compile.
 per-array sha256 and a schema version, the JAX package's schema v2 exactly:
 this port reads directories the JAX package wrote, and writes directories
 whose manifest sha256s equal the reference's for the same arrays. A schema
-v1 directory (the pre-packing layout) is refused: its upgrade rebuilds the
-pack, which waits for the training slice (ROADMAP queue 1, item 8), as
-does `compile_artifact`.
+v1 directory (the pre-packing layout: int8 weight codes, f32 carriers) is
+verified against its own manifest and then upgraded: the pack is rebuilt
+from the verified float parameters by the same deterministic
+`build_fused_pack` a v2 compile uses, and `model_bytes` re-measured from
+what schema v2 stores. `compile_artifact` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.kernels.repack import DEFAULT_TILE_BK, unrepack_planar
 from repro_torch.nerf.fast_render import (
     FastRenderEngine,
     FusedPack,
+    build_fused_pack,
     fused_pack_stored_bytes,
     repack_fused_pack,
 )
@@ -193,11 +196,12 @@ class QuantArtifact:
     @staticmethod
     def load(path, layout: str = f"tile:{DEFAULT_TILE_BK}",
              device: DeviceLike = None) -> "QuantArtifact":
-        """Load a saved schema-v2 bundle onto `device` (the card unless
+        """Load a saved bundle onto `device` (the card unless
         `device="cpu"`). Integrity (array-set match + per-array sha256
         against the directory's own manifest) is verified before anything
         is built. `layout` picks the compute repack staged after
-        verification; "planar" serves the bare storage form."""
+        verification; "planar" serves the bare storage form. A schema-v1
+        bundle comes back upgraded to schema 2 (module docstring)."""
         dev = resolve_device(device)
         path = Path(path)
         manifest = json.loads((path / "manifest.json").read_text())
@@ -206,12 +210,6 @@ class QuantArtifact:
             raise ValueError(
                 f"artifact {path} has schema_version={version}; this build "
                 f"reads <= {SCHEMA_VERSION}"
-            )
-        if version == 1:
-            raise NotImplementedError(
-                f"artifact {path} is schema v1; its upgrade rebuilds the "
-                "pack and is not ported yet (ROADMAP queue 1, item 8) — "
-                "re-save it with the JAX package to get schema v2"
             )
         with np.load(path / "arrays.npz") as z:
             arrays = {k: z[k] for k in z.files}
@@ -268,18 +266,31 @@ class QuantArtifact:
                 tables[parts[1]] = take_packed(prefix)
 
         occ_meta = manifest["occ"]
-        pack = FusedPack(layers=layers, hash_tables=tables,
-                         modes=tuple(manifest["pack_modes"]))
-        if layout != "planar":
-            pack = repack_fused_pack(pack, layout)
+        bits = [int(b) for b in manifest["bits"]]
+        act_ranges = tensor(arrays["act_ranges"])
+        metrics = dict(manifest["metrics"])
+        if version == 1:
+            # The stored pack is the legacy int8/f32 form: re-pack from
+            # the verified params through the deterministic build path a
+            # v2 compile uses, and re-measure what v2 stores.
+            units = make_quant_units(cfg)
+            policy = QuantPolicy.uniform(units, 8).with_bits(bits)
+            spec = spec_from_policy(cfg, policy, act_ranges)
+            pack = build_fused_pack(params, cfg, spec, layout=layout)
+            metrics["model_bytes"] = float(fused_pack_stored_bytes(pack))
+        else:
+            pack = FusedPack(layers=layers, hash_tables=tables,
+                             modes=tuple(manifest["pack_modes"]))
+            if layout != "planar":
+                pack = repack_fused_pack(pack, layout)
         return QuantArtifact(
             scene=manifest["scene"],
-            bits=[int(b) for b in manifest["bits"]],
+            bits=bits,
             cfg=cfg,
             rcfg=rcfg,
             scene_cfg=dict(manifest["scene_cfg"]),
             params=params,
-            act_ranges=tensor(arrays["act_ranges"]),
+            act_ranges=act_ranges,
             pack=pack,
             occ=OccupancyGrid(
                 occ=tensor(arrays["occ"]),
@@ -288,7 +299,8 @@ class QuantArtifact:
                 occupied_fraction=float(occ_meta["occupied_fraction"]),
             ),
             hardware=manifest["hardware"],
-            metrics=dict(manifest["metrics"]),
+            metrics=metrics,
+            schema_version=SCHEMA_VERSION,
         )
 
 

@@ -55,6 +55,21 @@ from repro_torch.hero.scheduler import (
     WorkItem,
 )
 from repro_torch.kernels.backend import DeviceLike, resolve_device
+from repro_torch.nerf.fast_render import (
+    frame_colors,
+    slot_march,
+    slot_plan,
+    slot_warp,
+)
+from repro_torch.nerf.occupancy import sample_active_mask
+from repro_torch.nerf.pose_cache import (
+    PoseGridConfig,
+    PosePlanCache,
+    build_warp_plan,
+    pose_cell_key,
+    ray_fingerprint,
+    warp_deviation,
+)
 
 
 def _default_size_fn(artifact) -> int:
@@ -82,12 +97,17 @@ class ArtifactCache:
         size_fn: Callable[[object], int],
         protected: Callable[[str], bool],
         on_event: Callable[[Tuple], None],
+        extra_bytes: Optional[Callable[[], int]] = None,
     ):
         self.cache_bytes = cache_bytes
         self._loader = loader
         self._size_fn = size_fn
         self._protected = protected
         self._event = on_event
+        # Non-artifact resident payload charged against the byte budget
+        # (the engine wires the pose-plan cache here, so plan bytes add
+        # eviction pressure like any other device-resident state).
+        self._extra_bytes = extra_bytes
         self._entries: "OrderedDict[str, CacheEntry]" = OrderedDict()
         self.loads = 0
         self.evictions = 0
@@ -98,7 +118,8 @@ class ArtifactCache:
     # ------------------------------------------------------------------
     @property
     def resident_bytes(self) -> int:
-        return sum(e.nbytes for e in self._entries.values())
+        extra = self._extra_bytes() if self._extra_bytes is not None else 0
+        return sum(e.nbytes for e in self._entries.values()) + extra
 
     def scenes(self) -> List[str]:
         return list(self._entries)
@@ -178,7 +199,8 @@ class FusedDeviceStep:
     Per-scene state (quant spec, eval rcfg, grow-on-overflow sample
     budget) lives HERE, not in the cache entry: a scene's budget survives
     eviction and reload. Derived spec/rcfg rebuild only when the artifact
-    object actually changes (reload). Artifacts must live on `device`.
+    object actually changes (reload). Artifacts must live on `device`,
+    where the pose cache's plans are baked too.
     """
 
     def __init__(self, cfg: EngineConfig, device: torch.device):
@@ -187,11 +209,16 @@ class FusedDeviceStep:
         self._align = 128
         self._state: Dict[str, Dict] = {}
         assert cfg.compaction in ("march", "scatter"), cfg.compaction
-        if cfg.pose_cache:
-            raise NotImplementedError(
-                "the pose-grid plan cache (nerf/pose_cache.py) is not "
-                "ported yet (ROADMAP queue 1, item 8); use pose_cache=False"
+        self._pose_cache = None
+        self._pose_grid = None
+        if cfg.pose_cache and cfg.compaction == "march":
+            self._pose_grid = PoseGridConfig(
+                pos_cell=cfg.pose_pos_cell, dir_cell=cfg.pose_dir_cell,
+                margin_cells=cfg.pose_margin_cells,
+                entries=cfg.pose_cache_entries,
+                build_after=cfg.pose_build_after,
             )
+            self._pose_cache = PosePlanCache(cfg.pose_cache_entries)
 
     # ------------------------------------------------------------------
     def _initial_budget(self, artifact, rcfg) -> Optional[int]:
@@ -240,9 +267,6 @@ class FusedDeviceStep:
     def __call__(self, scene: str, artifact, ro: np.ndarray, rd: np.ndarray):
         """One padded bucket through `frame_colors` (the scatter
         strategy's path), with the host-side budget guard."""
-        from repro_torch.nerf.fast_render import frame_colors
-        from repro_torch.nerf.occupancy import sample_active_mask
-
         st = self._scene_state(scene, artifact)
         if st["budget"] is not None:
             # Exactness guard: grow the static budget before a step could
@@ -260,13 +284,53 @@ class FusedDeviceStep:
         )
         return colors.cpu().numpy()
 
+    # ------------------------------------------------------------------
+    # Pose-cache tiers (the `step_items` serve path)
+    # ------------------------------------------------------------------
+    def pose_key(self, scene: str, ro: np.ndarray, rd: np.ndarray):
+        """(scene,) + pose-grid cell of a request bundle, None when the
+        pose cache is disabled."""
+        if self._pose_cache is None or ro.shape[0] == 0:
+            return None
+        return (scene,) + pose_cell_key(
+            ro, rd, self._pose_grid.pos_cell, self._pose_grid.dir_cell
+        )
+
+    def note_pose_use(self, key) -> None:
+        """Count ONE visit of the pose cell (called once per submitted
+        request, not per item — `build_after` is in request visits, so a
+        never-revisited pose costs zero plan builds)."""
+        if self._pose_cache is not None and key is not None:
+            self._pose_cache.note_use(key)
+
+    def pin_pose(self, key) -> None:
+        if self._pose_cache is not None and key is not None:
+            self._pose_cache.pin(key)
+
+    def unpin_pose(self, key) -> None:
+        if self._pose_cache is not None and key is not None:
+            self._pose_cache.unpin(key)
+
+    def drop_scene_plans(self, scene: str) -> int:
+        """Artifact left the device -> its plans index nothing; drop them
+        (even pinned: the in-flight work re-loads and re-misses)."""
+        if self._pose_cache is None:
+            return 0
+        return self._pose_cache.drop_scene(scene)
+
+    def plan_bytes(self) -> int:
+        return self._pose_cache.nbytes if self._pose_cache is not None else 0
+
+    def pose_stats(self) -> Optional[Dict]:
+        return (
+            self._pose_cache.stats() if self._pose_cache is not None else None
+        )
+
     def _march_slot(self, st, artifact, ro_s, rd_s) -> np.ndarray:
         """Cache-miss tier for one padded slot, with grow-on-overflow: the
         march render returns the TRUE device active count of its own mask,
         so an overflowing slot grows the budget and re-renders — no
         silently dropped samples, no host-side mask pass per step."""
-        from repro_torch.nerf.fast_render import slot_march
-
         while True:
             color, need = slot_march(
                 artifact.params, artifact.pack, st["spec"], artifact.occ,
@@ -277,13 +341,41 @@ class FusedDeviceStep:
                 return color.cpu().numpy()
             self._grow(st, int(need))
 
+    def _tier(self, st, it: WorkItem, ro_s: np.ndarray, rd_s: np.ndarray):
+        """(tier, cell entry, plan) of one slot: "hit" (the rays
+        fingerprint-match the cell's baked plan), "warp" (they deviate
+        within its coverage margin) or "march"."""
+        cache, key = self._pose_cache, getattr(it, "pose_key", None)
+        if cache is None or key is None:
+            return "march", None, None
+        # Visits were counted at submit; a cell dropped between submit and
+        # step (scene eviction) restarts at one use.
+        entry = cache.get(key)
+        if entry is None:
+            entry = cache.note_use(key)
+        plan = entry.plans.get(it.seq)
+        if plan is not None:
+            if ray_fingerprint(ro_s, rd_s) == plan.fp:
+                return "hit", entry, plan
+            if warp_deviation(ro_s, rd_s, plan.ref_o, plan.ref_d,
+                              st["rcfg"]) <= plan.margin:
+                return "warp", entry, plan
+        return "march", entry, None  # none yet, or out of coverage
+
     def step_items(
         self, scene: str, artifact, items: List[WorkItem],
         ro: np.ndarray, rd: np.ndarray,
     ) -> np.ndarray:
-        """Per-slot march render of one padded bucket (every slot at the
-        same fixed (slot_rays, 3) shape); empty slots are not rendered."""
+        """Tiered per-slot render of one padded bucket.
+
+        Each live slot resolves to cache-hit (rays fingerprint-match the
+        cell's baked plan), warp (pose deviates within the plan's
+        conservative coverage margin), or march (miss; the cell's use
+        count decides whether to bake a plan for next time). Every tier
+        runs at the same fixed (slot_rays, 3) padded shape; empty slots
+        are not rendered."""
         if self.cfg.compaction != "march":
+            # Legacy scatter strategy has no tiers: one padded-bucket call.
             return np.asarray(self(scene, artifact, ro, rd))
         st = self._scene_state(scene, artifact)
         S = ro.shape[0]
@@ -291,9 +383,34 @@ class FusedDeviceStep:
         n = len(items)
         ro_d = torch.from_numpy(ro[:n]).to(self.device)
         rd_d = torch.from_numpy(rd[:n]).to(self.device)
-        for slot in range(n):
-            colors[slot] = self._march_slot(st, artifact, ro_d[slot],
-                                            rd_d[slot])
+        cache = self._pose_cache
+        args = (artifact.params, artifact.pack, st["spec"], artifact.occ)
+        kw = dict(cfg=artifact.cfg, rcfg=st["rcfg"], mode="fused",
+                  early_stop=self.cfg.early_stop)
+        for slot, it in enumerate(items):
+            tier, entry, plan = self._tier(st, it, ro[slot], rd[slot])
+            if tier == "hit":
+                cache.hits += 1
+                color = slot_plan(*args, ro_d[slot], rd_d[slot],
+                                  plan.plan_row, **kw)
+                colors[slot] = color.cpu().numpy()
+            elif tier == "warp":
+                cache.warps += 1
+                color = slot_warp(*args, ro_d[slot], rd_d[slot],
+                                  plan.inv_take, plan.take, plan.valid_cons,
+                                  **kw)
+                colors[slot] = color.cpu().numpy()
+            else:
+                if entry is not None:
+                    cache.misses += 1
+                colors[slot] = self._march_slot(st, artifact, ro_d[slot],
+                                                rd_d[slot])
+                if (entry is not None
+                        and entry.uses >= self._pose_grid.build_after):
+                    cache.put_plan(it.pose_key, it.seq, build_warp_plan(
+                        artifact.occ, ro[slot], rd[slot], st["rcfg"],
+                        artifact.cfg, self._pose_grid.margin(artifact.occ),
+                    ))
         return colors
 
     # ------------------------------------------------------------------
@@ -307,6 +424,8 @@ class FusedDeviceStep:
     def reset_stats(self) -> None:
         for st in self._state.values():
             st["retraces"] = 0
+        if self._pose_cache is not None:
+            self._pose_cache.reset_stats()
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +463,10 @@ class ServeEngine:
             size_fn if size_fn is not None else _default_size_fn,
             protected=lambda scene: self._sched.pending(scene) > 0,
             on_event=self._event,
+            extra_bytes=(
+                self._stepper.plan_bytes if self._stepper is not None
+                else None
+            ),
         )
         for scene, artifact in self._as_scene_map(artifacts).items():
             self._cache.add(scene, artifact)
@@ -375,6 +498,11 @@ class ServeEngine:
         return {artifacts.scene: artifacts}
 
     def _event(self, ev: Tuple) -> None:
+        # Evicting a scene's artifact invalidates its pose plans (they
+        # index device state that just left) — unconditional, not only
+        # when event tracing is on.
+        if ev and ev[0] == "evict" and self._stepper is not None:
+            self._stepper.drop_scene_plans(ev[1])
         if self._events is not None:
             self._events.append(ev)
 
@@ -476,6 +604,12 @@ class ServeEngine:
         self._requests_submitted += 1
         if self._t_first_submit is None:
             self._t_first_submit = now
+        pose_key = (
+            self._stepper.pose_key(scene, ro, rd)
+            if self._stepper is not None else None
+        )
+        if self._stepper is not None:
+            self._stepper.note_pose_use(pose_key)
         for i in range(n_items):
             s = i * R
             e = min(s + R, n_rays) if n_rays else 0
@@ -483,7 +617,12 @@ class ServeEngine:
                 rid=rid, scene=scene, seq=i, start=s, stop=e,
                 rays_o=ro[s:e], rays_d=rd[s:e],
                 order=self._sched.next_order(), t_enqueue=now,
+                pose_key=pose_key,
             ))
+            # Pin per item: the pose cell stays un-evictable while ANY of
+            # the request's items is in flight (unpinned on render/drop).
+            if self._stepper is not None:
+                self._stepper.pin_pose(pose_key)
         self._event(("submit", rid, scene, n_items))
         return rid
 
@@ -501,6 +640,8 @@ class ServeEngine:
     def _drop_item(self, it: WorkItem, now: float) -> None:
         self._items_dropped += 1
         self._rays_dropped += it.stop - it.start
+        if self._stepper is not None:
+            self._stepper.unpin_pose(it.pose_key)
         self._event(("drop", it.rid, it.seq))
         req = self._requests.get(it.rid)
         if req is None:
@@ -556,8 +697,9 @@ class ServeEngine:
             ro[slot, :n] = it.rays_o
             rd[slot, :n] = it.rays_d
 
-        # The fused stepper's item-aware entry renders slot by slot;
-        # injected 4-arg fakes keep the plain padded-bucket protocol.
+        # The fused stepper's item-aware entry routes each slot through
+        # the pose-cache tiers (hit/warp/march); injected 4-arg fakes
+        # keep the plain padded-bucket protocol.
         step_items = getattr(self._device_step, "step_items", None)
         if step_items is not None:
             colors = np.asarray(step_items(scene, entry.artifact, items, ro, rd))
@@ -571,6 +713,8 @@ class ServeEngine:
 
         now = self._clock()
         for slot, it in enumerate(items):
+            if self._stepper is not None:
+                self._stepper.unpin_pose(it.pose_key)
             req = self._requests[it.rid]
             n = it.stop - it.start
             req.colors[it.start:it.stop] = colors[slot, :n]
@@ -755,6 +899,10 @@ class ServeEngine:
             },
             "slots": self.cfg.slots,
             "slot_rays": self.cfg.slot_rays,
+            "pose_cache": (
+                self._stepper.pose_stats()
+                if self._stepper is not None else None
+            ),
         }
 
 

@@ -80,12 +80,13 @@ class EngineConfig:
     # Ad-hoc compaction strategy of the fused stepper: "march" (default;
     # the occupancy ray-march kernel's active mask + gather compaction) or
     # "scatter" (the legacy cumsum+scatter path — byte-identical colors,
-    # kept as the baseline).
+    # kept as the baseline). "scatter" disables the pose-cache tiers.
     compaction: str = "march"
-    # Pose-grid plan cache (`nerf/pose_cache.py` in the JAX package). Not
-    # ported yet: True raises NotImplementedError. Colors are unaffected —
-    # the reference pins its cache tiers byte-equal to the march tier.
-    pose_cache: bool = False
+    # Pose-grid plan cache (`repro_torch.nerf.pose_cache`): ad-hoc requests
+    # are keyed to a quantized pose cell; repeat cells get compiled cull
+    # plans (hit tier) and nearby poses reuse them conservatively (warp
+    # tier). Ignored by injected device-step functions.
+    pose_cache: bool = True
     pose_pos_cell: float = 0.05  # world units per position cell
     pose_dir_cell: float = 0.05  # direction units per orientation cell
     pose_margin_cells: float = 1.0  # warp coverage margin, in occ cells

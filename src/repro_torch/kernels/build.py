@@ -32,6 +32,7 @@ SOURCES = (
     "hash_gather.cu",
     "hash_encode.cu",
     "alpha_composite.cu",
+    "gather_composite.cu",
     "ray_march.cu",
     "quant_matmul.cu",
     "flash_attention.cu",
@@ -56,11 +57,15 @@ SIGNATURES: Dict[str, List] = {
     # idx, table, out, P, T, F, stream
     "repro_hash_gather": [_P, _P, _P, _I, _I, _I, _P],
     # points, table, meta, sx, zx_f, qmax, off (null for the f32
-    # encodings), out, B, L, T, codes, stream
+    # encodings), out, B, L, T, F, codes, stream
     "repro_hash_encode": [_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _P],
     # sigma, rgb, delta, color, acc, R, S, early_stop, t_eps, stream
     "repro_alpha_composite": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # sigma_b, rgb_b, take, valid, active (or null), delta, color, acc, R,
+    # S, B, take64, white_bg, early_stop, t_eps, stream
+    "repro_gather_composite": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
+                               _I, _I, _I, _F, _P],
     # occ, rays_o, rays_d, t, out, R, S, G, early_stop, stream
     "repro_ray_march": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w, sx, sw, zx, out, M, K, N, SM count, stream

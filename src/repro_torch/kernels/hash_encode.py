@@ -33,7 +33,9 @@ from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
 
 PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
-KERNEL_FEATURES = 2  # F the kernel is built for: every configuration's
+# The feature counts F the kernel is built for: those the Instant-NGP paper
+# sweeps (2 is every configuration's).
+KERNEL_FEATURES = (1, 2, 4, 8)
 
 # The 8 binary corner offsets of a voxel, shape (8, 3): corner c takes
 # bits (c & 1, c >> 1 & 1, c >> 2 & 1).
@@ -162,11 +164,11 @@ def hash_encode_points_cuda(points: torch.Tensor, table_cat: torch.Tensor,
     if points.shape[1] != 3 or meta.shape[1] != 4:
         raise ValueError(f"shape mismatch: points {tuple(points.shape)}, "
                          f"meta {tuple(meta.shape)}")
-    if F != KERNEL_FEATURES:
-        raise ValueError(f"the kernel takes F = {KERNEL_FEATURES}, got {F}")
-    if table_cat.data_ptr() % 8:
-        raise ValueError("table_cat must start on an 8-byte boundary (one "
-                         "row a float2 load)")
+    if F not in KERNEL_FEATURES:
+        raise ValueError(f"the kernel takes F in {KERNEL_FEATURES}, got {F}")
+    if table_cat.data_ptr() % min(4 * F, 16):
+        raise ValueError(f"table_cat must start on a {min(4 * F, 16)}-byte "
+                         "boundary (one row a vector load)")
     if meta.data_ptr() % 16:
         raise ValueError("meta must start on a 16-byte boundary (one level "
                          "a vector load)")
@@ -180,7 +182,7 @@ def hash_encode_points_cuda(points: torch.Tensor, table_cat: torch.Tensor,
     launch("repro_hash_encode", dev, points.data_ptr(), table_cat.data_ptr(),
            meta.data_ptr(), *(None if s is None else s.data_ptr()
                               for s in scal),
-           out.data_ptr(), B, L, T, int(act is not None))
+           out.data_ptr(), B, L, T, F, int(act is not None))
     hash_encode_points_cuda.launches += 1
     return out
 

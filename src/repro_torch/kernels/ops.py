@@ -6,11 +6,14 @@ back: there is no flag to pick a path and no `try` around a launch.
 
 `hash_encode_points` is the fused renderer's whole encode, points to
 encodings or to the first linear's activation codes, in one kernel;
-`fused_field_query` follows it with the packed matmul. `hash_encode` is
-the composition over precomputed corner data: one gather over the
-concatenated table and the trilinear 8-corner sum (plain tensor code: a
-chain of exactly rounded fused multiply-adds, as the jitted reference
-computes it, identical on the CPU and the card).
+`fused_field_query_points` follows it with the packed matmul.
+`hash_encode` is the composition over precomputed corner data: one
+gather over the concatenated table and the trilinear 8-corner sum (plain
+tensor code: a chain of exactly rounded fused multiply-adds, as the
+jitted reference computes it, identical on the CPU and the card);
+`fused_field_query` follows it with the activation codes and the packed
+matmul, under the reference's signature. `gather_composite` takes a
+chunk's compacted field outputs to its served colour in one kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ from repro_torch.kernels.decode_attention_kernel import (
 from repro_torch.kernels.flash_attention_kernel import (
     flash_attention_cuda,
     flash_attention_plain,
+)
+from repro_torch.kernels.gather_composite import (
+    gather_composite_cuda,
+    gather_composite_plain,
 )
 from repro_torch.kernels.hash_encode import (  # noqa: F401 (re-exported)
     hash_encode_points_cuda,
@@ -93,6 +100,26 @@ def alpha_composite(sigma: torch.Tensor, rgb: torch.Tensor,
     if _on_card(sigma):
         return alpha_composite_cuda(sigma, rgb, delta, early_stop, t_eps)
     return alpha_composite_plain(sigma, rgb, delta)
+
+
+def gather_composite(sigma_b: torch.Tensor, rgb_b: torch.Tensor,
+                     take: torch.Tensor, valid: torch.Tensor,
+                     delta_row: torch.Tensor, white_bg: bool,
+                     early_stop: bool = False, t_eps: float = 1e-6,
+                     active: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(color (R, 3), acc (R, 1)) of R rays x S samples from compacted
+    field outputs: sample k = r * S + s reads sigma_b[take[k]] (B,) and
+    rgb_b[take[k]] (B, 3) where valid[k] (and active[k] > 0.5, when the
+    march's f32 mask is given) holds, composites over delta_row (S,), and
+    adds the white background 1 - acc when asked. `early_stop` lets the
+    kernel leave a ray between 32-sample chunks once its transmittance is
+    below `t_eps`; the plain version always walks densely."""
+    if _on_card(sigma_b):
+        return gather_composite_cuda(sigma_b, rgb_b, take, valid, delta_row,
+                                     white_bg, early_stop, t_eps, active)
+    return gather_composite_plain(sigma_b, rgb_b, take, valid, delta_row,
+                                  white_bg, active)
 
 
 def ray_march(occ: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -166,12 +193,24 @@ def hash_encode_points(points: torch.Tensor, table_cat: torch.Tensor,
     return hash_encode_points_plain(points, table_cat, meta, act)
 
 
-def fused_field_query(points: torch.Tensor, table_cat: torch.Tensor,
-                      meta: torch.Tensor, wq: PackedTensor,
-                      act: Dict) -> torch.Tensor:
-    """Hash encode straight to activation codes, then the quantized
-    matmul: the first-layer field query of the fused integer renderer.
+def fused_field_query(corner_idx: torch.Tensor, corner_w: torch.Tensor,
+                      table_cat: torch.Tensor, level_offsets: torch.Tensor,
+                      wq: PackedTensor, act: Dict) -> torch.Tensor:
+    """`hash_encode` over precomputed corner data, the first linear's
+    activation codes, then the quantized matmul: the first-layer field
+    query of the fused integer renderer, under the reference's signature.
     `act` carries the layer's activation grid (sx, zx, zx_f, qmax, off);
     returns the f32 pre-activation (B, N) without the bias."""
+    enc = hash_encode(corner_idx, corner_w, table_cat, level_offsets)
+    return quant_matmul_packed(quantize_codes(enc, act), wq, act["sx"],
+                               wq.scale, act["zx"])
+
+
+def fused_field_query_points(points: torch.Tensor, table_cat: torch.Tensor,
+                             meta: torch.Tensor, wq: PackedTensor,
+                             act: Dict) -> torch.Tensor:
+    """`fused_field_query` from sample points: the hash encode straight to
+    activation codes in one kernel, then the quantized matmul. Same
+    result as `fused_field_query` over each level's corner data."""
     codes = hash_encode_points(points, table_cat, meta, act)
     return quant_matmul_packed(codes, wq, act["sx"], wq.scale, act["zx"])

@@ -14,12 +14,20 @@ The serving subset of the JAX package's `nerf/fast_render.py`:
    hash-table codes (`repro_torch.quant.packing.PackedTensor`). Activations
    are quantized to integer codes on the fly and the NGP linears run
    through `kernels.ops.quant_matmul_packed`, the hash encode (points to
-   the first linear's codes) through `kernels.ops.hash_encode_points`,
-   compositing through `kernels.ops.alpha_composite`. The `int` mode is
+   the first linear's codes) through `kernels.ops.hash_encode_points`, and
+   the gathers from the compacted buffer, the compositing and the white
+   background through `kernels.ops.gather_composite`. The `int` mode is
    the integer path everywhere: the CUDA kernels on the card, their exact
    plain versions on the CPU. There is no float carrier.
    `mode="reference"` queries the fake-quant `ngp_apply` oracle inside
    the same culled pipeline.
+3. **Cull plans** (`CullPlan`, `build_cull_plan`): for FIXED rays the
+   compaction and the geometry-only field work (hash corners, SH basis)
+   are baked on the host once; a plan row replaces the march and the
+   compaction. The serve engine's pose cache (`nerf/pose_cache.py`) keeps
+   such rows per pose cell: `slot_plan` (hit), `slot_warp` (a nearby
+   pose's conservative compaction) and `slot_march` (miss) are its three
+   tiers, and give the same bits for the same rays.
 
 The one-LSB clamp edge: the paper-exact symmetric grid (Eq. 5) spans
 2^b + 1 levels, one more than a b-bit payload holds; `pack_codes` keeps
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.hash_encode import KERNEL_FEATURES
 from repro_torch.kernels.backend import (
     DeviceLike,
     check_device,
@@ -62,6 +71,7 @@ from repro_torch.nerf.occupancy import (
     cull_budget,
     occupancy_lookup,
     ray_t_samples,
+    sample_active_mask,
 )
 from repro_torch.quant.linear_quant import (
     activation_qparams,
@@ -259,20 +269,34 @@ def _fused_linear(pack: FusedPack, i: int, name: str,
     return x @ _fused_weight_f32(pack, name) + lyr["b"]
 
 
+def corner_data_of(points: torch.Tensor, hash_cfg
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(idx (L, P, 8) int32, w (L, P, 8) f32): every level's corner data
+    of `points`, on their device."""
+    per_level = [level_corner_data(points, l, hash_cfg)
+                 for l in range(hash_cfg.n_levels)]
+    return (torch.stack([i for i, _ in per_level]),
+            torch.stack([w for _, w in per_level]))
+
+
 def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
                     dirs: torch.Tensor, cfg: NGPConfig, corner_data=None,
                     sh: Optional[torch.Tensor] = None):
     """Integer-mode field query, mirroring `ngp_apply`'s fake-quant
     forward. With a repacked pack the encode runs from the points in one
     fused kernel over the staged concatenated table, and in `int` mode
-    straight to the first linear's codes (`ops.fused_field_query`).
-    `corner_data` (idx (L,P,8), w (L,P,8)) takes precomputed corner work
-    instead, through one gather and the trilinear sum; `sh` the
-    precomputed direction encoding."""
+    straight to the first linear's codes (`ops.fused_field_query_points`);
+    the kernel takes F in `KERNEL_FEATURES` features a level, and a table
+    of any other width takes the corner-data path. `corner_data` (idx
+    (L,P,8), w (L,P,8)) takes precomputed corner work instead, through one
+    gather and the trilinear sum (`ops.fused_field_query` in `int` mode:
+    the same bits); `sh` the precomputed direction encoding."""
     names = ngp_linear_names(cfg)
     L = cfg.hash.n_levels
     staged = "table_cat" in pack.compute
-    if staged and corner_data is None:
+    fused = (staged and corner_data is None
+             and pack.compute["table_cat"].shape[1] in KERNEL_FEATURES)
+    if fused:
         cat = pack.compute["table_cat"]
         *_, (_, _, n, off) = level_rows(cfg.hash)
         if cat.shape[0] != off + n:
@@ -281,22 +305,26 @@ def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
         meta = level_meta(cfg.hash, points.device)
         if pack.modes[0] == "int":
             lyr = pack.layers[names[0]]
-            h = ops.fused_field_query(points, cat, meta,
-                                      _layer_wq(pack, names[0]), lyr) \
-                + lyr["b"]
+            h = ops.fused_field_query_points(points, cat, meta,
+                                             _layer_wq(pack, names[0]),
+                                             lyr) + lyr["b"]
         else:
             h = _fused_linear(pack, 0, names[0],
                               ops.hash_encode_points(points, cat, meta))
     else:
         if corner_data is None:
-            per_level = [level_corner_data(points, l, cfg.hash)
-                         for l in range(L)]
-            corner_data = (torch.stack([i for i, _ in per_level]),
-                           torch.stack([w for _, w in per_level]))
+            corner_data = corner_data_of(points, cfg.hash)
         idx, w = corner_data
         if staged:
-            enc = ops.hash_encode(idx, w, pack.compute["table_cat"],
-                                  pack.compute["table_off"])
+            cat, off = pack.compute["table_cat"], pack.compute["table_off"]
+            if pack.modes[0] == "int":
+                lyr = pack.layers[names[0]]
+                h = ops.fused_field_query(idx, w, cat, off,
+                                          _layer_wq(pack, names[0]),
+                                          lyr) + lyr["b"]
+            else:
+                h = _fused_linear(pack, 0, names[0],
+                                  ops.hash_encode(idx, w, cat, off))
         else:
             # Storage-only pack: per-level gathers over tables dequantized
             # inside the call.
@@ -310,8 +338,7 @@ def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
                 feats.append(ops.trilinear_sum(
                     vals.reshape(idx[l].shape + (cfg.hash.n_features,)),
                     w[l]))
-            enc = torch.cat(feats, dim=-1)
-        h = _fused_linear(pack, 0, names[0], enc)
+            h = _fused_linear(pack, 0, names[0], torch.cat(feats, dim=-1))
     h = _fused_linear(pack, 1, names[1], torch.relu(h))
     sigma = density(h[..., 0], cfg)
     if sh is None:
@@ -321,6 +348,102 @@ def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
     c = torch.relu(_fused_linear(pack, 3, names[3], c))
     rgb = torch.sigmoid(_fused_linear(pack, 4, names[4], c))
     return sigma, rgb
+
+
+# ---------------------------------------------------------------------------
+# CullPlan: host-precomputed compaction for FIXED rays.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CullPlan:
+    """Per-chunk precomputed compaction of active samples.
+
+    For C chunks of R rays x S samples (P = R*S flattened samples):
+      buf_pts  (C, B, 3) f32 — the active sample points, compacted, in
+                               [0,1]^3 (deterministic eval sampling is
+                               policy- and params-independent, so the
+                               culled field-query INPUTS are fixed too);
+      buf_dirs (C, B, 3) f32 — matching ray directions;
+      take     (C, P) int32  — buffer slot holding sample k's result;
+      valid    (C, P) bool   — sample k survives culling.
+    B is EXACT (max active count over chunks, 128-aligned): the active
+    mask depends only on ray geometry and the frozen occupancy grid.
+
+    The geometry-static field work is baked too, so the fused hot path
+    starts at the table gathers / MLP matmuls:
+      hash_idx (C, L, B, 8) int32 — per-level voxel-corner table rows;
+      hash_w   (C, L, B, 8) f32   — matching trilinear weights;
+      sh       (C, B, sh_dim) f32 — spherical-harmonic view basis.
+    """
+
+    buf_pts: torch.Tensor
+    buf_dirs: torch.Tensor
+    take: torch.Tensor
+    valid: torch.Tensor
+    hash_idx: torch.Tensor
+    hash_w: torch.Tensor
+    sh: torch.Tensor
+
+    @property
+    def budget(self) -> int:
+        return self.buf_pts.shape[-2]
+
+    def row(self, c: int) -> Tuple[torch.Tensor, ...]:
+        """Chunk `c` in `_chunk_color`'s `plan_row` layout."""
+        return (self.buf_pts[c], self.buf_dirs[c], self.take[c],
+                self.valid[c], self.hash_idx[c], self.hash_w[c], self.sh[c])
+
+
+def bake_field_inputs(buf_pts: np.ndarray, buf_dirs: np.ndarray,
+                      cfg: NGPConfig, device: torch.device):
+    """(pts, dirs, hash_idx (L,B,8) int32, hash_w (L,B,8) f32, sh (B,
+    sh_dim) f32) on `device`: fixed sample points and directions with the
+    geometry-only field work a plan bakes, computed there by the same
+    corner math and SH basis the renderer runs."""
+    pts = torch.from_numpy(np.ascontiguousarray(buf_pts)).to(device)
+    dirs = torch.from_numpy(np.ascontiguousarray(buf_dirs)).to(device)
+    idx, w = corner_data_of(pts, cfg.hash)
+    return pts, dirs, idx, w, sh_encode(dirs, cfg.sh_degree)
+
+
+def build_cull_plan(occ: OccupancyGrid, ro_chunks: np.ndarray,
+                    rd_chunks: np.ndarray, ray_mask: Optional[np.ndarray],
+                    rcfg, cfg: NGPConfig, align: int = 128) -> CullPlan:
+    """Precompute the compaction for a fixed, chunked ray population:
+    (C, R, 3) rays (padded rows allowed), `ray_mask` (C, R, 1) 1.0 = a
+    real ray (or None). Baked on the occupancy grid's device."""
+    ro = np.asarray(ro_chunks, np.float32)
+    rd = np.asarray(rd_chunks, np.float32)
+    C, R = ro.shape[:2]
+    S = rcfg.n_samples
+    # Shared oracle with `cull_budget` — the counts must match exactly.
+    active, pts = sample_active_mask(occ, ro, rd, rcfg)  # (C, R, S)
+    if ray_mask is not None:
+        active &= np.asarray(ray_mask).reshape(C, R, 1) > 0.5
+    active = active.reshape(C, R * S)
+    counts = active.sum(axis=1)
+    B = max(align, int(np.ceil(counts.max() / align) * align))
+    B = min(B, R * S)
+    pts_unit = np.clip(pts + 0.5, 0.0, 1.0).reshape(C, R * S, 3)
+    dirs_flat = np.broadcast_to(rd[:, :, None, :], pts.shape) \
+        .reshape(C, R * S, 3)
+    buf_pts = np.zeros((C, B, 3), np.float32)
+    buf_dirs = np.zeros((C, B, 3), np.float32)
+    take = np.zeros((C, R * S), np.int32)
+    valid = np.zeros((C, R * S), bool)
+    for c in range(C):
+        idx = np.nonzero(active[c])[0]
+        buf_pts[c, :idx.size] = pts_unit[c, idx]
+        buf_dirs[c, :idx.size] = dirs_flat[c, idx]
+        take[c, idx] = np.arange(idx.size, dtype=np.int32)
+        valid[c, idx] = True
+    dev = occ.occ.device
+    baked = [bake_field_inputs(buf_pts[c], buf_dirs[c], cfg, dev)
+             for c in range(C)]
+    stack = [torch.stack([b[i] for b in baked]) for i in range(5)]
+    return CullPlan(buf_pts=stack[0], buf_dirs=stack[1],
+                    take=torch.from_numpy(take).to(dev),
+                    valid=torch.from_numpy(valid).to(dev),
+                    hash_idx=stack[2], hash_w=stack[3], sh=stack[4])
 
 
 # ---------------------------------------------------------------------------
@@ -339,37 +462,71 @@ def _t_samples_on(device: torch.device,
                          torch.full((1,), 1e10, device=device)])
 
 
+def _sample_points(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                   t1: torch.Tensor):
+    """(pts (R, S, 3) world, flat_pts (R*S, 3) in [0,1], flat_dirs
+    (R*S, 3)): the deterministic sample points, as the host oracle
+    computes them (a product, then a sum, each rounded)."""
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t1[None, :, None]
+    flat_pts = torch.clamp(pts + 0.5, 0.0, 1.0).reshape(-1, 3)
+    flat_dirs = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
+    return pts, flat_pts, flat_dirs
+
+
+def _field(params, pack, spec, cfg, mode: str, p, d, corner_data=None,
+           sh=None):
+    if mode == "fused":
+        return fused_ngp_apply(pack, p, d, cfg, corner_data=corner_data,
+                               sh=sh)
+    return ngp_apply(params, p, d, cfg, spec)
+
+
+def _composite(sigma_b, rgb_b, take, valid, delta1, rcfg, early_stop,
+               active=None):
+    """The one fused step every tier ends in: compacted field outputs to
+    the served colour (`ops.gather_composite`)."""
+    return ops.gather_composite(sigma_b.contiguous(), rgb_b.contiguous(),
+                                take, valid, delta1, rcfg.white_bg,
+                                early_stop, active=active)
+
+
 def _chunk_color(params, pack, spec, occ: Optional[OccupancyGrid],
                  rays_o: torch.Tensor, rays_d: torch.Tensor, cfg, rcfg,
                  mode: str, budget: Optional[int], early_stop: bool,
-                 compaction: str = "march"):
+                 compaction: str = "march", plan_row=None):
     """Core renderer for one chunk of rays.
 
     Returns (color (R,3), acc (R,1), n_active) where n_active is the
-    device count of active samples (None without a grid) — from the SAME
-    mask the colors used, so the caller detects a budget overflow without
-    marching again. Budget overflow drops the samples ranked past B.
+    device count of active samples (None without a grid or with a plan
+    row) — from the SAME mask the colors used, so the caller detects a
+    budget overflow without marching again. Budget overflow drops the
+    samples ranked past B. `plan_row` (a `CullPlan.row` layout) replaces
+    the march and the compaction with precomputed gathers.
     """
     dev = rays_o.device
     n_rays, n_s = rays_o.shape[0], rcfg.n_samples
     t1, delta1 = _t_samples_on(dev, rcfg)
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * t1[None, :, None]
-    pts_unit = torch.clamp(pts + 0.5, 0.0, 1.0)
+
+    def field(p, d, corner_data=None, sh=None):
+        return _field(params, pack, spec, cfg, mode, p, d, corner_data, sh)
+
+    if plan_row is not None:
+        # Precomputed compaction: the culled field-query inputs and their
+        # hash-corner / SH bases are staged in the plan.
+        buf_pts, buf_dirs, take, valid, hash_idx, hash_w, sh = plan_row
+        sigma_b, rgb_b = field(buf_pts, buf_dirs, (hash_idx, hash_w), sh)
+        color, acc = _composite(sigma_b, rgb_b, take, valid, delta1, rcfg,
+                                early_stop)
+        return color, acc, None
+
+    pts, flat_pts, flat_dirs = _sample_points(rays_o, rays_d, t1)
     inside = ((pts > -0.5) & (pts < 0.5)).all(dim=-1)  # (R, S)
-    flat_pts = pts_unit.reshape(-1, 3)
-    flat_dirs = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
-    zero = torch.zeros((), device=dev)
-
-    def field(p, d):
-        if mode == "fused":
-            return fused_ngp_apply(pack, p, d, cfg)
-        return ngp_apply(params, p, d, cfg, spec)
-
+    P = n_rays * n_s
     n_active = None
     if occ is None:
-        sigma, rgb = field(flat_pts, flat_dirs)
-        sigma = torch.where(inside, sigma.reshape(n_rays, n_s), zero)
-        rgb = rgb.reshape(n_rays, n_s, 3)
+        sigma_b, rgb_b = field(flat_pts, flat_dirs)
+        take = torch.arange(P, device=dev)
+        valid = inside.reshape(-1)
     else:
         if compaction == "scatter":
             active = inside.reshape(-1) & occupancy_lookup(occ, flat_pts)
@@ -378,7 +535,6 @@ def _chunk_color(params, pack, spec, occ: Optional[OccupancyGrid],
                                    rays_d.contiguous(), t1,
                                    early_stop).reshape(-1) > 0.5
         n_active = active.sum()
-        P = n_rays * n_s
         B = P if budget is None else min(int(budget), P)
         rank = torch.cumsum(active, dim=0) - 1
         valid = active & (rank < B)
@@ -398,16 +554,9 @@ def _chunk_color(params, pack, spec, occ: Optional[OccupancyGrid],
             buf_dirs[pos] = flat_dirs
             buf_pts, buf_dirs = buf_pts[:B], buf_dirs[:B]
         sigma_b, rgb_b = field(buf_pts, buf_dirs)
-        take = torch.clamp(rank, 0, B - 1)
-        sigma = torch.where(valid, sigma_b[take], zero).reshape(n_rays, n_s)
-        rgb = torch.where(valid[:, None], rgb_b[take], zero) \
-            .reshape(n_rays, n_s, 3)
-
-    delta = delta1.expand(n_rays, n_s).contiguous()
-    color, acc = ops.alpha_composite(sigma.contiguous(), rgb.contiguous(),
-                                     delta, early_stop)
-    if rcfg.white_bg:
-        color = color + (1.0 - acc)
+        take = rank  # read only where valid, so within [0, B)
+    color, acc = _composite(sigma_b, rgb_b, take, valid, delta1, rcfg,
+                            early_stop)
     return color, acc, n_active
 
 
@@ -418,23 +567,34 @@ def fast_render_rays(params: Dict, rays_o: torch.Tensor,
                      mode: str = "reference",
                      pack: Optional[FusedPack] = None,
                      budget: Optional[int] = None, early_stop: bool = True,
-                     compaction: str = "march"
+                     compaction: str = "march",
+                     plan: Optional[CullPlan] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Occupancy-culled render of one ray batch -> (color (R,3), acc (R,1)).
     `mode="fused"` builds the pack from (params, spec) when none is
-    given. Sampling is the deterministic `ray_t_samples`."""
+    given. Sampling is the deterministic `ray_t_samples`. A single-chunk
+    `plan` (`build_cull_plan`) replaces the on-device compaction with its
+    precomputed gathers."""
     assert mode in ("reference", "fused"), mode
     if mode == "fused" and pack is None:
         pack = build_fused_pack(params, cfg, spec)
+    plan_row = None
+    if plan is not None:
+        assert plan.buf_pts.shape[0] == 1, \
+            "fast_render_rays takes a 1-chunk plan"
+        plan_row = plan.row(0)
     color, acc, _ = _chunk_color(params, pack, spec, occ, rays_o, rays_d,
                                  cfg, rcfg, mode, budget, early_stop,
-                                 compaction)
+                                 compaction, plan_row)
     return color, acc
 
 
 # ---------------------------------------------------------------------------
-# Frame and slot paths (counterparts of `_frame_colors_impl` and
-# `_slot_march_impl`).
+# Frame and slot paths (counterparts of `_frame_colors_impl` and the
+# three serve tiers `_slot_march_impl`, `_slot_plan_impl`,
+# `_slot_warp_impl`). A bucket mixes tiers slot by slot at the same padded
+# shape; each tier ends in the same `ops.gather_composite`, so the same
+# rays give the same bits in every tier.
 # ---------------------------------------------------------------------------
 def frame_colors(params, pack, spec, occ, rays_o: torch.Tensor,
                  rays_d: torch.Tensor, cfg, rcfg, mode: str,
@@ -458,6 +618,36 @@ def slot_march(params, pack, spec, occ: OccupancyGrid,
                                       rays_d, cfg, rcfg, mode, budget,
                                       early_stop)
     return color, n_active
+
+
+def slot_plan(params, pack, spec, occ: OccupancyGrid, rays_o: torch.Tensor,
+              rays_d: torch.Tensor, plan_row, cfg, rcfg, mode: str,
+              early_stop: bool) -> torch.Tensor:
+    """Cache-hit serve tier: the slot's rays fingerprint-match a baked
+    plan row — its gathers, hash corners and SH basis; no march and no
+    compaction."""
+    return _chunk_color(params, pack, spec, occ, rays_o, rays_d, cfg, rcfg,
+                        mode, None, early_stop, plan_row=plan_row)[0]
+
+
+def slot_warp(params, pack, spec, occ: OccupancyGrid, rays_o: torch.Tensor,
+              rays_d: torch.Tensor, inv_take: torch.Tensor,
+              take: torch.Tensor, valid_cons: torch.Tensor, cfg, rcfg,
+              mode: str, early_stop: bool) -> torch.Tensor:
+    """Warped-plan serve tier: a nearby pose's CONSERVATIVE compaction
+    indices for these rays. The plan contributes indices only — the field
+    queries these rays' own sample points — and the final mask is
+    `valid_cons` ANDed with the exact march of these rays (inside the
+    composite kernel), so a plan that covers every exact-active sample
+    renders what the march tier renders."""
+    t1, delta1 = _t_samples_on(rays_o.device, rcfg)
+    _, flat_pts, flat_dirs = _sample_points(rays_o, rays_d, t1)
+    sigma_b, rgb_b = _field(params, pack, spec, cfg, mode,
+                            flat_pts[inv_take], flat_dirs[inv_take])
+    exact = ops.ray_march(occ.occ, rays_o.contiguous(), rays_d.contiguous(),
+                          t1, early_stop)
+    return _composite(sigma_b, rgb_b, take, valid_cons, delta1, rcfg,
+                      early_stop, active=exact.reshape(-1))[0]
 
 
 def _effective_chunk(n_rays: int, chunk: int) -> int:

@@ -106,22 +106,32 @@ def occupancy_lookup(grid: OccupancyGrid,
 
 
 def sample_active_mask(grid: OccupancyGrid, rays_o: np.ndarray,
-                       rays_d: np.ndarray, rcfg):
+                       rays_d: np.ndarray, rcfg, margin: float = 0.0):
     """Host-side oracle for which samples the renderer may cull.
 
     Returns (active (..., S) bool, pts (..., S, 3)): a sample is active
     iff it lies strictly inside the scene box AND in an occupied grid
-    cell — the single source of truth for `cull_budget` and the engine's
-    budget guard.
+    cell — the single source of truth for `cull_budget`, the engine's
+    budget guard and the cull plans.
+
+    `margin > 0` (world units) gives the CONSERVATIVE mask of the
+    pose-cache warp plans: the box grows by `margin` and the occupancy
+    dilates by `ceil(margin * resolution)` cells, so the mask covers the
+    exact (`margin=0`) mask of any rays whose sample points deviate from
+    these by at most `margin` in L-inf.
     """
     ro = np.asarray(rays_o, np.float32)
     rd = np.asarray(rays_d, np.float32)
     t = ray_t_samples(rcfg)
     pts = ro[..., None, :] + rd[..., None, :] * t[:, None]
-    inside = np.all((pts > -0.5) & (pts < 0.5), axis=-1)
+    lo, hi = -0.5 - margin, 0.5 + margin
+    inside = np.all((pts > lo) & (pts < hi), axis=-1)
     g = grid.resolution
     cell = np.clip(((pts + 0.5) * g).astype(np.int64), 0, g - 1)
     occ = grid.host_occ
+    if margin > 0.0:
+        occ = _dilate_max3(torch.from_numpy(occ.astype(np.float32)),
+                           int(np.ceil(margin * g))).numpy() > 0.5
     return inside & occ[cell[..., 0], cell[..., 1], cell[..., 2]], pts
 
 

@@ -5,9 +5,10 @@ import), run them with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the matmuls, gather, fused encode and march are exact;
-compositing is
-within 1e-5 (the early exit drops less than t_eps per channel). Attention
+Tolerances: the matmuls, gather, fused encode (F in {1, 2, 4, 8}) and
+march are exact, and so are the three serve tiers against each other;
+compositing, unfused and fused with the gathers, is within 1e-5 (the
+early exit drops less than t_eps per channel) and bit-stable. Attention
 against its plain versions: 1e-4 in float32 (summation order), and in
 bfloat16 3e-2 (flash) and 2e-2 (decode), the bands of
 `tests/test_kernels.py` (p is rounded to bf16 at another maximum); the
@@ -624,3 +625,149 @@ def test_fused_field_runs_the_fused_encode_and_no_corner_ops(card,
     assert hash_gather_cuda.launches == n_gather
     for g, w in zip(got, want):
         assert (g.cpu() - w).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The fused gather-composite: within 1e-5 of its plain version, bit-stable
+# ---------------------------------------------------------------------------
+def _composite_case(card, rng, R, S, take_dtype, B_extra=0):
+    """Compacted field outputs of R rays x S samples: rays from empty to
+    opaque, one opaque wall (every sample huge), one empty ray (no active
+    sample), the rest half active; `take` the rank of each active sample."""
+    active = rng.uniform(size=(R, S)) < 0.5
+    active[0] = True  # the opaque wall
+    active[1] = False  # the empty ray
+    active = active.reshape(-1)
+    B = int(active.sum()) + B_extra
+    rank = np.cumsum(active) - 1
+    scale = rng.choice([0.0, 0.5, 5.0, 300.0], B)
+    sigma_b = rng.exponential(1.0, B) * scale
+    sigma_b[:S] = 1e4  # ray 0's samples take the first S rows
+    t = occ_mod.ray_t_samples(RenderConfig(n_samples=S))
+    delta = np.append(np.diff(t), np.float32(1e10)).astype(np.float32)
+    to = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dt).to(card)
+    return (to(sigma_b), to(rng.uniform(size=(B, 3))), to(rank, take_dtype),
+            to(active, torch.bool), to(delta))
+
+
+@pytest.mark.parametrize("take_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("R,S", [(512, 32), (300, 64), (77, 5), (40, 100)])
+def test_gather_composite_kernel_close_and_bit_stable(card, R, S, take_dtype):
+    from repro_torch.kernels.gather_composite import gather_composite_plain
+
+    rng = np.random.default_rng(R * S)
+    args = _composite_case(card, rng, R, S, take_dtype)
+    for white_bg in (True, False):
+        pc, pa = gather_composite_plain(*args, white_bg)
+        for early in (False, True):
+            c, a = ops.gather_composite(*args, white_bg, early, 1e-6)
+            c2, a2 = ops.gather_composite(*args, white_bg, early, 1e-6)
+            assert torch.equal(c, c2) and torch.equal(a, a2)
+            assert (c - pc).abs().max().item() <= 1e-5
+            assert (a - pa).abs().max().item() <= 1e-5
+            assert a[0].item() == pytest.approx(1.0, abs=1e-6)  # the wall
+            assert a[1].item() == 0.0  # the empty ray
+            assert c.shape == (R, 3) and a.shape == (R, 1)
+
+
+def test_gather_composite_kernel_ands_the_march_mask(card):
+    from repro_torch.kernels.gather_composite import gather_composite_plain
+
+    rng = np.random.default_rng(5)
+    sigma_b, rgb_b, take, valid, delta = _composite_case(card, rng, 256, 32,
+                                                         torch.int32)
+    march = (torch.rand(valid.shape, device=card) < 0.7).to(torch.float32)
+    got = ops.gather_composite(sigma_b, rgb_b, take, valid, delta, True,
+                               True, active=march)
+    want = gather_composite_plain(sigma_b, rgb_b, take, valid & (march > 0.5),
+                                  delta, True)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-5
+    again = ops.gather_composite(sigma_b, rgb_b, take,
+                                 valid & (march > 0.5), delta, True, True)
+    for g, w in zip(got, again):
+        assert torch.equal(g, w)
+
+
+def test_gather_composite_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.gather_composite import gather_composite_cuda
+
+    rng = np.random.default_rng(6)
+    args = list(_composite_case(card, rng, 64, 32, torch.int64))
+    with pytest.raises(ValueError):  # a CPU tensor
+        gather_composite_cuda(args[0].cpu(), *args[1:], True)
+    for i, bad in ((1, args[1][:, :2].contiguous()), (3, args[3][:-1]),
+                   (4, args[4][:-1]), (2, args[2].to(torch.int16)),
+                   (3, args[3].to(torch.uint8))):
+        case = list(args)
+        case[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            ops.gather_composite(*case, True)
+
+
+# ---------------------------------------------------------------------------
+# The fused encode at F in {1, 4, 8}
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("codes", [False, True])
+@pytest.mark.parametrize("F", [1, 4, 8])
+def test_hash_encode_kernel_exact_other_feature_counts(card, F, codes):
+    """16 levels (direct and hashed) on a 2^14-row table of F features a
+    level: bit-equal to the plain version on edge and random points."""
+    hc = he.HashEncodingConfig(n_levels=16, n_features=F,
+                               log2_table_size=14, base_resolution=16,
+                               max_resolution=2048)
+    rng = np.random.default_rng(30 + F)
+    table, meta, act = CS.encode_inputs(rng, hc, card)
+    assert table.shape[1] == F
+    pts = torch.from_numpy(np.concatenate([
+        rng.uniform(size=(5000, 3)), CS.encode_edge_points(hc, 256)])
+        .astype(np.float32)).to(card)
+    a = act if codes else None
+    got = ops.hash_encode_points(pts, table, meta, a)
+    assert torch.equal(got, hash_encode_points_plain(pts, table, meta, a))
+    assert got.shape == (pts.shape[0], 16 * F)
+
+
+# ---------------------------------------------------------------------------
+# The serve tiers: hit, warp and march give the same bits on the card
+# ---------------------------------------------------------------------------
+def test_serve_tiers_bit_equal_on_the_card(card):
+    """A paper-width field (random weights) on one 512-ray slot: the plan
+    hit (baked corners through the bare gather), the warp (a nearby pose's
+    conservative indices) and the march give the same colours, bit for
+    bit, and the hit tier launches the gather and no march."""
+    from repro_torch.configs.ngp import paper
+    from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
+    from repro_torch.kernels.ray_march import ray_march_cuda
+    from repro_torch.nerf import fast_render as fr
+    from repro_torch.nerf import pose_cache as pc
+
+    cfg = paper()
+    art = CS.build_artifact(cfg, card)
+    (ro, rd), = CS.request_rays(1, 64, held_out=True)
+    ro, rd = ro[:512], rd[:512]
+    rcfg = art.rcfg
+    spec = art.spec()
+    args = (art.params, art.pack, spec, art.occ)
+    kw = dict(cfg=cfg, rcfg=rcfg, mode="fused", early_stop=True)
+    margin = pc.PoseGridConfig().margin(art.occ)
+    plan = pc.build_warp_plan(art.occ, ro, rd, rcfg, cfg, margin)
+    o, d = torch.from_numpy(ro).to(card), torch.from_numpy(rd).to(card)
+    march, need = fr.slot_march(*args, o, d, cfg, rcfg, "fused", None, True)
+    n_gather, n_march = hash_gather_cuda.launches, ray_march_cuda.launches
+    hit = fr.slot_plan(*args, o, d, plan.plan_row, **kw)
+    torch.cuda.synchronize()
+    assert hash_gather_cuda.launches == n_gather + 1
+    assert ray_march_cuda.launches == n_march
+    warp = fr.slot_warp(*args, o, d, plan.inv_take, plan.take,
+                        plan.valid_cons, **kw)
+    assert int(need) > 0
+    assert torch.equal(hit, march) and torch.equal(warp, march)
+    o_j = o + 1e-4
+    assert pc.warp_deviation(o_j.cpu().numpy(), rd, plan.ref_o, plan.ref_d,
+                             rcfg) <= margin
+    warp_j = fr.slot_warp(*args, o_j, d, plan.inv_take, plan.take,
+                          plan.valid_cons, **kw)
+    march_j, _ = fr.slot_march(*args, o_j, d, cfg, rcfg, "fused", None, True)
+    assert torch.equal(warp_j, march_j)

@@ -136,6 +136,23 @@ def test_plain_fused_encode_at_a_narrow_grid(F):
     np.testing.assert_allclose(got.numpy(), j_enc, rtol=0, atol=4e-7)
 
 
+@pytest.mark.parametrize("F", [1, 4])
+def test_plain_fused_encode_other_feature_counts_equal_the_reference(F):
+    """F = 1 and 4 features a level (the kernel's other widths besides 8):
+    the paper's 16 levels on a 2^14-row table, bit-equal to the jitted
+    reference's encodings and codes."""
+    kw = dict(n_levels=16, n_features=F, log2_table_size=14,
+              base_resolution=16, max_resolution=2048)
+    t_hc, j_hc = the.HashEncodingConfig(**kw), jhe.HashEncodingConfig(**kw)
+    assert 0 < sum(t_hc.is_direct(l) for l in range(16)) < 16
+    rng = np.random.default_rng(20 + F)
+    table, _, act = CS.encode_inputs(rng, t_hc, CPU, subnormal=False)
+    assert table.shape[1] == F
+    pts = np.concatenate([rng.uniform(size=(3000, 3)),
+                          CS.encode_edge_points(t_hc, 64)]).astype(np.float32)
+    _assert_encode_equal(j_hc, t_hc, pts, table.numpy(), act)
+
+
 def test_subnormal_corner_products_kept_where_the_reference_flushes():
     """The documented divergence: on a table of subnormal-scale values the
     jitted reference on the CPU flushes every product to zero, the port
@@ -255,8 +272,8 @@ def test_hash_encode_wrapper_call_matches_its_ctypes_signature(monkeypatch):
                 assert t is ctypes.c_void_p and (a is None
                                                  or isinstance(a, int))
             t(a)  # ctypes takes it
-    (_, (*_, B, L, T, codes_flag)), (_, args) = calls
-    assert (B, L, T, codes_flag) == (5, 4, table.shape[0], 0)
+    (_, (*_, B, L, T, F, codes_flag)), (_, args) = calls
+    assert (B, L, T, F, codes_flag) == (5, 4, table.shape[0], 2, 0)
     assert args[-1] == 1 and all(isinstance(a, int) for a in args[3:7])
     assert calls[0][1][3:7] == (None,) * 4  # no activation grid
 

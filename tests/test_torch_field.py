@@ -243,12 +243,43 @@ def test_fused_field_query_identical_codes(int_packs, points):
     want = jops.fused_field_query(idx, w, cat, off,
                                   jp.compute["sigma/0::wq_tile"], lyr,
                                   use_pallas=True)
-    got = tops.fused_field_query(torch.from_numpy(pts),
-                                 tp.compute["table_cat"],
-                                 the.level_meta(T_CFG.hash, CPU),
-                                 tp.compute["sigma/0::wq_tile"], tl)
+    got = tops.fused_field_query_points(torch.from_numpy(pts),
+                                        tp.compute["table_cat"],
+                                        the.level_meta(T_CFG.hash, CPU),
+                                        tp.compute["sigma/0::wq_tile"], tl)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
+
+
+def test_fused_field_query_reference_signature(int_packs, points):
+    """`ops.fused_field_query(corner_idx, corner_w, table_cat,
+    level_offsets, wq, act)`, the reference's signature: on the same
+    corner data, the reference's codes (`use_pallas=False`) and its
+    output, and the same bits as the points form."""
+    jp, tp = int_packs
+    pts, _ = points
+    idx, w = _corner_data(pts)
+    cat, off = jp.compute["table_cat"], jp.compute["table_off"]
+    lyr, tl = jp.layers["sigma/0"], tp.layers["sigma/0"]
+    wq = jp.compute["sigma/0::wq_tile"]
+    j_enc = jops.hash_encode(idx, w, cat, off, use_pallas=False)
+    j_codes = jnp.clip(jnp.round(j_enc / lyr["sx"] + lyr["zx_f"]), 0.0,
+                       lyr["qmax"]) - lyr["off"]
+    want = jops.fused_field_query(idx, w, cat, off, wq, lyr,
+                                  use_pallas=False)
+    t_idx, t_w = torch.tensor(np.asarray(idx)), torch.tensor(np.asarray(w))
+    t_cat, t_off = tp.compute["table_cat"], tp.compute["table_off"]
+    t_codes = tops.quantize_codes(tops.hash_encode(t_idx, t_w, t_cat, t_off),
+                                  tl)
+    np.testing.assert_array_equal(t_codes.numpy(),
+                                  np.asarray(j_codes).astype(np.int8))
+    got = tops.fused_field_query(t_idx, t_w, t_cat, t_off,
+                                 tp.compute["sigma/0::wq_tile"], tl)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    points_form = tops.fused_field_query_points(
+        torch.from_numpy(pts), t_cat, the.level_meta(T_CFG.hash, CPU),
+        tp.compute["sigma/0::wq_tile"], tl)
+    assert torch.equal(got, points_form)
 
 
 def test_fused_ngp_apply_within_1e6(int_packs, points):
@@ -318,8 +349,8 @@ def test_fused_field_query_codes_equal_the_jitted_reference(int_packs):
     np.testing.assert_array_equal(t_enc.numpy(), np.asarray(j_enc))
     np.testing.assert_array_equal(tops.quantize_codes(t_enc, tl).numpy(),
                                   np.asarray(j_codes))
-    got = tops.fused_field_query(torch.from_numpy(pts),
-                                 tp.compute["table_cat"],
-                                 the.level_meta(T_CFG.hash, CPU),
-                                 tp.compute["sigma/0::wq_tile"], tl)
+    got = tops.fused_field_query_points(torch.from_numpy(pts),
+                                        tp.compute["table_cat"],
+                                        the.level_meta(T_CFG.hash, CPU),
+                                        tp.compute["sigma/0::wq_tile"], tl)
     np.testing.assert_array_equal(got.numpy(), np.asarray(j_out))

@@ -4,7 +4,9 @@ kernels (interpret mode, as its own tests run them on the CPU) and its
 
 Tolerances: the integer matmul, the gather and the march mask are exact
 (the reference is exact); compositing is float, within 1e-6 of the dense
-walk, and within t_eps (+1e-6) of the Pallas early-stop walk."""
+walk, and within t_eps (+1e-6) of the Pallas early-stop walk. The fused
+gather-composite's plain version is bit-equal to the composition it
+replaced in the renderer, on each serve tier's inputs."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -203,3 +205,86 @@ def test_hash_encode_matches_reference_composition():
     # Corners are summed one by one here, by XLA's reduction there.
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     assert got.shape == (B, L * F)
+
+
+# ---------------------------------------------------------------------------
+# gather_composite: the gather + composite step every serve tier ends in
+# ---------------------------------------------------------------------------
+def _tier_composite_inputs(tier: str, seed: int = 7):
+    """One chunk's (sigma_b, rgb_b, take, valid, delta_row, active) as each
+    serve tier hands them over: the march (int64 rank, an overflowing
+    budget), a plan hit (int32 take, exact mask) and a warp (int32 take,
+    conservative mask, the march's f32 mask to AND)."""
+    rng = np.random.RandomState(seed)
+    R, S = 24, 12
+    P = R * S
+    active = rng.uniform(size=P) < 0.4
+    delta = np.append(np.diff(np.linspace(0.2, 2.5, S)), 1e10) \
+        .astype(np.float32)
+    if tier == "march":
+        B = 64  # fewer rows than active samples: the overflow is dropped
+        rank = np.cumsum(active) - 1
+        take, valid, act = rank.astype(np.int64), active & (rank < B), None
+    else:
+        cons = active | (rng.uniform(size=P) < 0.2)
+        B = int(cons.sum())
+        take = np.zeros(P, np.int32)
+        take[cons] = np.arange(B, dtype=np.int32)
+        valid, act = (active, None) if tier == "hit" else (
+            cons, active.astype(np.float32))
+    scale = rng.choice([0.0, 0.5, 5.0, 200.0], B)
+    sigma_b = (rng.exponential(1.0, B) * scale).astype(np.float32)
+    rgb_b = rng.uniform(size=(B, 3)).astype(np.float32)
+    return sigma_b, rgb_b, take, valid, delta, act
+
+
+def _replaced_composition(sigma_b, rgb_b, take, valid, delta_row, white_bg,
+                          active):
+    """The composition `ops.gather_composite` replaced in `_chunk_color`,
+    spelled out: the take clamp, the masked gathers, the (R, S) delta,
+    `alpha_composite`, the white background."""
+    if active is not None:
+        valid = valid & (active > 0.5)
+    R, S = take.shape[0] // delta_row.shape[0], delta_row.shape[0]
+    take = torch.clamp(take, 0, sigma_b.shape[0] - 1)
+    zero = torch.zeros(())
+    sigma = torch.where(valid, sigma_b[take], zero).reshape(R, S)
+    rgb = torch.where(valid[:, None], rgb_b[take], zero).reshape(R, S, 3)
+    color, acc = tops.alpha_composite(
+        sigma.contiguous(), rgb.contiguous(),
+        delta_row.expand(R, S).contiguous())
+    return (color + (1.0 - acc) if white_bg else color), acc, sigma, rgb
+
+
+@pytest.mark.parametrize("white_bg", [True, False])
+@pytest.mark.parametrize("tier", ["march", "hit", "warp"])
+def test_gather_composite_plain_bit_equal_to_the_composition(tier, white_bg):
+    args = [None if a is None else _t(a)
+            for a in _tier_composite_inputs(tier)]
+    sigma_b, rgb_b, take, valid, delta, act = args
+    color, acc = tops.gather_composite(sigma_b, rgb_b, take, valid, delta,
+                                       white_bg, True, active=act)
+    w_color, w_acc, sigma, rgb = _replaced_composition(
+        sigma_b, rgb_b, take, valid, delta, white_bg, act)
+    assert torch.equal(color, w_color) and torch.equal(acc, w_acc)
+    assert color.shape == (24, 3) and acc.shape == (24, 1)
+    # And the reference's compositing of the same gathered samples.
+    R, S = sigma.shape
+    jc, ja = jref.alpha_composite_ref(
+        jnp.asarray(sigma.numpy()), jnp.asarray(rgb.numpy()),
+        jnp.asarray(np.tile(delta.numpy(), (R, 1))))
+    jc = np.asarray(jc) + (1.0 - np.asarray(ja)) * white_bg
+    np.testing.assert_allclose(color.numpy(), jc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(ja), rtol=0,
+                               atol=1e-6)
+
+
+def test_gather_composite_plain_refuses_bad_shapes():
+    sigma_b, rgb_b, take, valid, delta = (
+        _t(a) for a in _tier_composite_inputs("hit")[:5])
+    good = dict(sigma_b=sigma_b, rgb_b=rgb_b, take=take, valid=valid,
+                delta_row=delta, white_bg=True)
+    for bad in (dict(rgb_b=rgb_b[:, :2]), dict(valid=valid[:-1]),
+                dict(delta_row=delta[:-1]), dict(active=torch.zeros(3))):
+        with pytest.raises(ValueError):
+            tops.gather_composite(**dict(good, **bad))

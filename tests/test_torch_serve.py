@@ -1,12 +1,16 @@
 """Serving parity: a schema-v2 `QuantArtifact` written by the JAX package
 is loaded, re-saved and served by the port on the CPU.
 
-Held to: manifests (sha256s included) equal to the reference's; served
+Held to: manifests (sha256s included) equal to the reference's; a
+schema-v1 directory upgraded to schema 2 with the v2 colours; served
 frames within PSNR >= 60 dB of the reference service on the same rays (a
 1-ulp difference can flip a rare activation code); sample budgets and
-active counts exact; march == scatter byte for byte inside the port; and
-the reference's scheduler traces reproduced exactly by the port's engine
-through the same fake clock and fake device."""
+active counts exact; march == scatter byte for byte inside the port; the
+pose-cache tiers (miss, build, hit, warp) and their plan bytes step for
+step with the reference engine's, hit == warp == march == no pose cache
+byte for byte; and the reference's scheduler traces reproduced exactly
+by the port's engine through the same fake clock and fake device."""
+import dataclasses
 import json
 import shutil
 
@@ -121,7 +125,66 @@ def test_port_loads_and_resaves_identical_manifest(ref_dir, tmp_path):
     assert back.stored_model_bytes() == ref.stored_model_bytes()
 
 
+def _write_v1_dir(artifact, path):
+    """Materialize the legacy schema-1 layout (int8 weight codes + f32
+    w_deq carrier + float-carrier hash tables) from a v2 artifact of the
+    JAX package, with a valid v1 manifest: a copy of the helper of
+    `tests/test_hero_api.py`."""
+    from repro.hero.artifact import _SEP, _sha
+    from repro.quant.packing import PackedTensor
+
+    arrays = {"act_ranges": np.asarray(artifact.act_ranges)}
+    for top, sub in artifact.params.items():
+        for k, v in sub.items():
+            arrays[f"params{_SEP}{top}{_SEP}{k}"] = np.asarray(v)
+    for name, lyr in artifact.pack.layers.items():
+        for k, v in lyr.items():
+            if isinstance(v, PackedTensor):
+                arrays[f"pack{_SEP}{name}{_SEP}w_codes"] = np.clip(
+                    np.asarray(v.codes()), -128, 127
+                ).astype(np.int8)
+                arrays[f"pack{_SEP}{name}{_SEP}w_deq"] = np.asarray(
+                    v.dequantize()
+                )
+                arrays[f"pack{_SEP}{name}{_SEP}sw"] = np.asarray(v.scale)
+            else:
+                arrays[f"pack{_SEP}{name}{_SEP}{k}"] = np.asarray(v)
+    for name, t in artifact.pack.hash_tables.items():
+        tt = t.dequantize() if isinstance(t, PackedTensor) else t
+        arrays[f"packtab{_SEP}{name}"] = np.asarray(tt)
+    arrays["occ"] = np.asarray(artifact.occ.occ)
+
+    manifest = {
+        "schema_version": 1,
+        "scene": artifact.scene,
+        "bits": [int(b) for b in artifact.bits],
+        "cfg": dataclasses.asdict(artifact.cfg),
+        "rcfg": dataclasses.asdict(artifact.rcfg),
+        "scene_cfg": artifact.scene_cfg,
+        "pack_modes": list(artifact.pack.modes),
+        "occ": {
+            "resolution": artifact.occ.resolution,
+            "threshold": artifact.occ.threshold,
+            "occupied_fraction": artifact.occ.occupied_fraction,
+        },
+        "hardware": artifact.hardware,
+        "metrics": artifact.metrics,
+        "arrays": {
+            k: {"shape": list(v.shape), "dtype": str(v.dtype),
+                "sha256": _sha(v)}
+            for k, v in arrays.items()
+        },
+    }
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "arrays.npz", "wb") as f:
+        np.savez(f, **arrays)
+    (path / "manifest.json").write_text(json.dumps(manifest, indent=2))
+    return path
+
+
 def test_bad_sha256_and_v1_refuse(ref_dir, tmp_path):
+    """A corrupted array refuses by its sha256, in a v2 directory and in a
+    v1 one: integrity is checked before the v1 upgrade."""
     bad = tmp_path / "bad"
     shutil.copytree(ref_dir, bad)
     man = json.loads((bad / "manifest.json").read_text())
@@ -129,10 +192,40 @@ def test_bad_sha256_and_v1_refuse(ref_dir, tmp_path):
     (bad / "manifest.json").write_text(json.dumps(man))
     with pytest.raises(ValueError, match="sha256"):
         tart.QuantArtifact.load(bad, device="cpu")
-    man["schema_version"] = 1
-    (bad / "manifest.json").write_text(json.dumps(man))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tart.QuantArtifact.load(bad, device="cpu")
+    v1 = _write_v1_dir(jart.QuantArtifact.load(ref_dir), tmp_path / "v1")
+    man = json.loads((v1 / "manifest.json").read_text())
+    man["arrays"]["occ"]["sha256"] = "0" * 16
+    (v1 / "manifest.json").write_text(json.dumps(man))
+    with pytest.raises(ValueError, match="sha256"):
+        tart.QuantArtifact.load(v1, device="cpu")
+
+
+def test_v1_directory_upgrades_to_schema_2_and_serves_the_v2_colours(
+        ref_dir, request_rays, tmp_path):
+    """A v1 directory loads as schema 2, re-packed from its params into the
+    words the v2 directory stores, with `model_bytes` re-measured; it
+    serves the v2 load's colours byte for byte and re-saves as v2."""
+    v1 = _write_v1_dir(jart.QuantArtifact.load(ref_dir), tmp_path / "v1")
+    up = tart.QuantArtifact.load(v1, device="cpu")
+    v2 = tart.QuantArtifact.load(ref_dir, device="cpu")
+    assert up.schema_version == 2
+    assert up.metrics["model_bytes"] == up.stored_model_bytes() \
+        == v2.stored_model_bytes()
+    want = jart.QuantArtifact.load(v1)
+    assert up.metrics == want.metrics
+    assert up.pack.modes == v2.pack.modes
+    for name, lyr in v2.pack.layers.items():
+        assert torch.equal(up.pack.layers[name]["wq"].words, lyr["wq"].words)
+    frames = []
+    for art in (up, v2):
+        svc = tsvc.RenderService(art, tsvc.ServeConfig(slot_rays=SLOT_RAYS),
+                                 device="cpu")
+        frames.append([svc.render(ro, rd) for ro, rd in request_rays])
+    for a, b in zip(*frames):
+        np.testing.assert_array_equal(a, b)
+    up.save(tmp_path / "resaved")
+    man = json.loads((tmp_path / "resaved" / "manifest.json").read_text())
+    assert man["schema_version"] == 2
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +304,110 @@ def test_engine_render_frame_matches_reference(ref_dir, request_rays):
     want = np.asarray(ja.engine(chunk=128).render_frame(ro, rd))
     got = ta.engine(chunk=128).render_frame(ro, rd).numpy()
     assert _psnr(got, want) >= 60.0
+
+
+# ---------------------------------------------------------------------------
+# The pose-cache tiers: hit / warp / march, against the reference engine
+# ---------------------------------------------------------------------------
+def _view(i: int):
+    """(rays_o, rays_d) numpy of held-out camera view `i` of four (16x16
+    rays: 4 items at slot_rays=64), the reference's camera rays (both
+    engines get the same floats)."""
+    sc = jscenes.SceneConfig(image_hw=16, n_test_views=4)
+    _, test = jscenes.camera_poses(sc)
+    ro, rd = jscenes.camera_rays(jnp.asarray(test[i]), 16,
+                                 sc.focal_mult * 16)
+    return np.asarray(ro).reshape(-1, 3), np.asarray(rd).reshape(-1, 3)
+
+
+def _tier_engines(ref_dir, **over):
+    """(port engine, reference engine, port engine without the pose
+    cache) over the same artifact directory."""
+    kw = dict(slots=4, slot_rays=SLOT_RAYS, **over)
+    ta = tart.QuantArtifact.load(ref_dir, device="cpu")
+    ja = jart.QuantArtifact.load(ref_dir)
+    return (teng.ServeEngine({ta.scene: ta}, tsched.EngineConfig(**kw),
+                             device="cpu"),
+            jeng.ServeEngine({ja.scene: ja}, jsched.EngineConfig(**kw)),
+            teng.ServeEngine({ta.scene: ta}, tsched.EngineConfig(
+                pose_cache=False, **kw), device="cpu"))
+
+
+def test_engine_tiers_follow_the_reference_and_keep_the_bits(ref_dir):
+    """One pose revisited: miss -> miss + build -> hit, then in-cell
+    jitter -> warp. `pose_stats()` equals the reference engine's after
+    every request; hit, warp and march colours equal the engine without
+    the pose cache byte for byte."""
+    assert tsched.EngineConfig().pose_cache is True
+    eng, ref, plain = _tier_engines(ref_dir)
+    ro, rd = _view(0)
+    occ = tart.QuantArtifact.load(ref_dir, device="cpu").occ
+    assert tocc.sample_active_mask(occ, ro, rd, RCFG)[0].sum() > 50
+
+    def visit(o, d):
+        got = eng.render(o, d, scene="chair")
+        ref.render(o, d, scene="chair")
+        st = eng.stats()["pose_cache"]
+        assert st == ref.stats()["pose_cache"]
+        assert eng.stats()["cache"]["resident_bytes"] \
+            == ref.stats()["cache"]["resident_bytes"]
+        return got, st
+
+    want = plain.render(ro, rd, scene="chair")
+    march, st = visit(ro, rd)
+    assert (st["misses"], st["builds"], st["cells"]) == (4, 0, 1)
+    again, st = visit(ro, rd)
+    assert (st["builds"], st["hits"]) == (4, 0) and st["bytes"] > 0
+    hit, st = visit(ro, rd)
+    assert (st["hits"], st["builds"]) == (4, 4)
+    for got in (march, again, hit):
+        np.testing.assert_array_equal(got, want)
+    assert plain.stats()["pose_cache"] is None
+
+    stepper = eng._stepper
+    key0 = stepper.pose_key("chair", ro, rd)
+    warped = None
+    for eps in (1e-4, -1e-4, 5e-5, -5e-5):
+        ro_j = ro + np.float32(eps)
+        if stepper.pose_key("chair", ro_j, rd) != key0:
+            continue
+        before = stepper.pose_stats()["warps"]
+        got, st = visit(ro_j, rd)
+        if st["warps"] > before:
+            warped = (ro_j, got)
+            break
+    assert warped is not None, "no jitter landed in the warp tier"
+    ro_j, warp = warped
+    assert st["warps"] == 4
+    np.testing.assert_array_equal(warp, plain.render(ro_j, rd, scene="chair"))
+
+
+def test_engine_plan_bytes_charged_to_resident(ref_dir):
+    eng, ref, _ = _tier_engines(ref_dir)
+    ro, rd = _view(1)
+    base = eng.stats()["cache"]["resident_bytes"]
+    for _ in range(2):  # the second visit bakes the plans
+        eng.render(ro, rd, scene="chair")
+        ref.render(ro, rd, scene="chair")
+    st = eng.stats()
+    assert st["pose_cache"]["bytes"] > 0
+    assert st["pose_cache"]["bytes"] == eng._stepper.plan_bytes() \
+        == ref.stats()["pose_cache"]["bytes"]
+    assert st["cache"]["resident_bytes"] == base + st["pose_cache"]["bytes"]
+
+
+def test_engine_fresh_poses_build_nothing_and_scatter_has_no_tiers(ref_dir):
+    eng, ref, _ = _tier_engines(ref_dir)
+    for i in range(4):
+        for e in (eng, ref):
+            e.render(*_view(i), scene="chair")
+    st = eng.stats()["pose_cache"]
+    assert st == ref.stats()["pose_cache"]
+    assert st["builds"] == 0 and st["bytes"] == 0 and st["hits"] == 0
+    assert st["cells"] == 4 and st["misses"] == 16
+    scatter, _, _ = _tier_engines(ref_dir, compaction="scatter")
+    scatter.render(*_view(2), scene="chair")
+    assert scatter.stats()["pose_cache"] is None
 
 
 # ---------------------------------------------------------------------------
