@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's NeRF training and its two serving paths
+on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -30,17 +31,33 @@ Phases, each of which raises on failure:
    calls. Decode attention is also timed cold, each call on one of 8
    caches (69 MB against the 50 MB L2), beside the library call on the
    same caches.
-3. The NeRF path at ``paper()`` width: random weights from a seed,
-   activation ranges calibrated from the field's taps, occupancy baked,
-   a mixed int policy packed into a ``QuantArtifact``, saved, loaded
-   (``tile:128``) and served by ``RenderService`` with the pose cache on
-   (8 requests of 64x64 camera rays from 8 poses: all misses). Every
-   kernel's launch count is zeroed just before the requests and read just
-   after; each render kernel must have risen, the fused encode and the
-   gather-composite once a slot (as often as the march), no plan may have
-   been built or hit, and no kernel off the render path (the bare gather
-   and the unfused composite among them) may have run. One request of a
-   fresh pose is then profiled: wall and device time, and its launches.
+3. Training and the PSNR half of the reward at ``paper()`` width: the
+   chair scene's dataset (64x64, 12 train and 3 test views) rendered on
+   the card, ``train_ngp`` with ``TrainConfig()`` (400 steps of 512 rays;
+   the median ms a step by CUDA events, the first and last loss),
+   ``evaluate_psnr`` in reference mode, the episode's activation-range
+   calibration and occupancy bake (32^3 at 1e-2; its occupied fraction),
+   the 40-step QAT finetune under a mixed int policy (6-bit hash, 4-bit
+   weights, 8-bit activations), then the finetuned field's PSNR in
+   reference mode and in fused mode under the test set's cull plan and
+   under an explicit budget (the march), each within 0.1 dB of reference
+   mode, with wall and device ms, launches counted around each (the plan
+   path must launch the packed matmul, the bare gather and the
+   gather-composite; the march path the packed matmul, the fused encode,
+   the gather-composite and the march). Then five train steps at a
+   4-level config on the card and on the CPU: loss within 1e-5 relative,
+   every leaf within 5e-5. The finetuned field, its ranges and its grid
+   are packed into a ``QuantArtifact``, saved, loaded (``tile:128``) and
+   served by ``RenderService`` with the pose cache on (8 requests of
+   64x64 camera rays from 8 poses: all misses). Every kernel's launch
+   count is zeroed just before the requests and read just after; each
+   render kernel must have risen, the fused encode and the
+   gather-composite once a slot render (as often as the march; a slot
+   that outgrows its sample budget renders again), no plan may have been
+   built or hit, and no kernel off the render path (the bare gather and
+   the unfused composite among them) may have run. One request of a fresh
+   pose is then profiled: wall and device time, and its launches; the
+   per-slot sample budget is printed against its 16,384 cap.
 4. One request served again on the CPU from the same directory (the plain
    versions) must match the card's colours to 1e-5.
 5. The revisit stream: two more poses, each visited three times (miss;
@@ -60,7 +77,9 @@ Phases, each of which raises on failure:
    logits and caches within 1e-3.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
-stream and the LM serve, ``launches_revisit`` from the revisit stream),
+stream and the LM serve, ``launches_revisit`` from the revisit stream,
+``launches_psnr_plan`` and ``launches_psnr_march`` from the two fused
+PSNR evaluations),
 the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -845,24 +864,56 @@ def phase_decode_attention(dev):
 # ---------------------------------------------------------------------------
 # The main path.
 # ---------------------------------------------------------------------------
-def build_artifact(cfg, device, seed: int = 0, occ_resolution: int = 32):
-    """Random `cfg`-width weights from `seed`, activation ranges from the
-    field's taps on camera-ray samples, a baked occupancy grid, and a mixed
-    policy (6-bit hash, 4-bit weights, 8-bit activations: every linear in
-    the `int` mode) packed into a `QuantArtifact`."""
+# The mixed policy every served artifact carries: 6-bit hash levels,
+# 4-bit weights, 8-bit activations (every linear in the `int` mode).
+KIND_BITS = {"HASH_LEVEL": 6, "WEIGHT": 4, "ACTIVATION": 8}
+# The episode's defaults (`EnvConfig` of the reference's `core/env.py`):
+# trace rays drawn before the calibration rays, calibration points, the
+# occupancy grid's resolution and threshold, the QAT finetune's steps.
+TRACE_RAYS, CALIB_POINTS = 1024, 2048
+OCC_RESOLUTION, OCC_THRESHOLD, FINETUNE_STEPS = 32, 1e-2, 40
+# The reference's acceptance band of fused against reference-mode PSNR.
+PSNR_BAND_DB = 0.1
+
+
+def mixed_spec(cfg, act_ranges):
+    """(bits in unit walk order, spec) of the mixed policy."""
+    from repro_torch.nerf.ngp import make_quant_units, spec_from_policy
+    from repro_torch.quant.policy import QuantPolicy
+
+    units = make_quant_units(cfg)
+    bits = [KIND_BITS[u.kind.name] for u in units]
+    return bits, spec_from_policy(
+        cfg, QuantPolicy.uniform(units, 8).with_bits(bits), act_ranges)
+
+
+def pack_artifact(params, act_ranges, occ, cfg, metrics=None,
+                  name="random-weights"):
+    """A `QuantArtifact` of the chair scene's `params` under the mixed
+    policy."""
     from repro_torch.hero.artifact import QuantArtifact
     from repro_torch.nerf.fast_render import build_fused_pack
-    from repro_torch.nerf.ngp import (
-        init_ngp,
-        make_quant_units,
-        ngp_apply,
-        ngp_linear_names,
-        spec_from_policy,
-    )
-    from repro_torch.nerf.occupancy import bake_occupancy
+    from repro_torch.nerf.ngp import ngp_linear_names
     from repro_torch.nerf.render import RenderConfig
     from repro_torch.nerf.scenes import SceneConfig
-    from repro_torch.quant.policy import QuantPolicy, UnitKind
+
+    bits, spec = mixed_spec(cfg, act_ranges)
+    pack = build_fused_pack(params, cfg, spec)
+    if pack.modes != ("int",) * len(ngp_linear_names(cfg)):
+        raise AssertionError(f"expected every linear in int mode: {pack.modes}")
+    return QuantArtifact(
+        scene="chair", bits=bits, cfg=cfg, rcfg=RenderConfig(),
+        scene_cfg=dataclasses.asdict(SceneConfig()), params=params,
+        act_ranges=act_ranges, pack=pack, occ=occ, hardware={"name": name},
+        metrics=metrics or {})
+
+
+def build_artifact(cfg, device, seed: int = 0, occ_resolution: int = 32):
+    """Random `cfg`-width weights from `seed`, activation ranges from the
+    field's taps on camera-ray samples, a baked occupancy grid (full: every
+    random density is near 1), packed under the mixed policy."""
+    from repro_torch.nerf.ngp import init_ngp, ngp_apply, ngp_linear_names
+    from repro_torch.nerf.occupancy import bake_occupancy
 
     params = init_ngp(torch.Generator().manual_seed(seed), cfg, device=device)
     pts, dirs, _, _ = serve_points(4096, device)
@@ -873,25 +924,253 @@ def build_artifact(cfg, device, seed: int = 0, occ_resolution: int = 32):
     with torch.no_grad():
         _, _, taps = ngp_apply(params, pts[sel], dirs[sel], cfg,
                                return_taps=True)
-    names = ngp_linear_names(cfg)
     act_ranges = torch.tensor(
-        [[float(taps[n].min()), float(taps[n].max())] for n in names],
-        dtype=torch.float32, device=device)
+        [[float(taps[n].min()), float(taps[n].max())]
+         for n in ngp_linear_names(cfg)], dtype=torch.float32, device=device)
     occ = bake_occupancy(params, cfg, resolution=occ_resolution)
-    units = make_quant_units(cfg)
-    kind_bits = {UnitKind.HASH_LEVEL: 6, UnitKind.WEIGHT: 4,
-                 UnitKind.ACTIVATION: 8}
-    bits = [kind_bits[u.kind] for u in units]
-    spec = spec_from_policy(cfg, QuantPolicy.uniform(units, 8).with_bits(bits),
-                            act_ranges)
-    pack = build_fused_pack(params, cfg, spec)
-    if pack.modes != ("int",) * len(names):
-        raise AssertionError(f"expected every linear in int mode: {pack.modes}")
-    return QuantArtifact(
-        scene="chair", bits=bits, cfg=cfg, rcfg=RenderConfig(),
-        scene_cfg=dataclasses.asdict(SceneConfig()), params=params,
-        act_ranges=act_ranges, pack=pack, occ=occ,
-        hardware={"name": "random-weights"}, metrics={})
+    return pack_artifact(params, act_ranges, occ, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Training and the PSNR half of the reward.
+# ---------------------------------------------------------------------------
+def calibrate_ranges(params, ds, cfg, rcfg, seed: int = 0):
+    """Activation ranges as the episode calibrates them: from the seed's
+    stream, the trace rays' draw, then 64 train rays sampled at the
+    render's `linspace` depths, clipped into the unit cube; the field's
+    taps on the first `CALIB_POINTS` points give each linear (min, max)."""
+    from repro_torch.nerf.ngp import ngp_apply, ngp_linear_names
+
+    dev = params["sigma/0"]["w"].device
+    rng = np.random.RandomState(seed)
+    n = ds.train_rays_o.shape[0]
+    rng.randint(0, n, size=TRACE_RAYS)
+    idx = rng.randint(0, n, size=64)
+    t = np.linspace(rcfg.near, rcfg.far, rcfg.n_samples)
+    pts = ds.train_rays_o[idx][:, None, :] \
+        + ds.train_rays_d[idx][:, None, :] * t[None, :, None]
+    pts = np.clip(pts + 0.5, 0.0, 1.0).reshape(-1, 3)
+    dirs = np.broadcast_to(ds.train_rays_d[idx][:, None, :],
+                           (idx.size, t.size, 3)).reshape(-1, 3)
+    k = min(CALIB_POINTS, pts.shape[0])
+    with torch.no_grad():
+        _, _, taps = ngp_apply(
+            params, torch.from_numpy(pts[:k].astype(np.float32)).to(dev),
+            torch.from_numpy(dirs[:k].astype(np.float32)).to(dev), cfg,
+            None, return_taps=True)
+    return torch.tensor([[float(taps[nm].min()), float(taps[nm].max())]
+                         for nm in ngp_linear_names(cfg)],
+                        dtype=torch.float32, device=dev)
+
+
+class StepTimer:
+    """Wraps the train step of `repro_torch.nerf.train` while in use: each
+    step is bracketed by CUDA events and its loss kept, so `train_ngp` and
+    `finetune_ngp` run as a user calls them."""
+
+    def __init__(self, train_mod):
+        self.mod, self.events, self.losses = train_mod, [], []
+
+    def __enter__(self):
+        self.step = self.mod._train_step
+
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.step(*args, **kw)
+            b.record()
+            self.events.append((a, b))
+            self.losses.append(out[2])
+            return out
+        self.mod._train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._train_step = self.step
+
+    def summary(self):
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return (float(np.median(ms)), float(self.losses[0]),
+                float(self.losses[-1]))
+
+
+def psnr_eval(label, engine, ds, kern):
+    """One `evaluate_psnr` under the profiler, every kernel's count zeroed
+    just before and read just after: (psnr, launches, profile)."""
+    for fn in kern.values():
+        fn.launches = 0
+    out = {}
+    prof = profile(label, lambda: out.setdefault("psnr",
+                                                 engine.evaluate_psnr(ds)))
+    torch.cuda.synchronize()
+    return out["psnr"], {n: fn.launches for n, fn in kern.items()}, prof[2]
+
+
+def profile_train_step(train_mod, params, ds, cfg, rcfg, tcfg, dev):
+    """One more unquantized train step of `params` under the profiler:
+    where a step's time goes."""
+    from repro_torch.nerf.ngp import no_quant_spec
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    batch = [torch.from_numpy(a).to(dev)
+             for a in next(ds.ray_batches(tcfg.batch_rays, seed=1))]
+    jitter = torch.rand((tcfg.batch_rays, rcfg.n_samples), device=dev)
+    opt = AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay)
+    state, spec = adamw_init(params), no_quant_spec(cfg, dev)
+    profile(f"one train step ({tcfg.batch_rays} rays)",
+            lambda: train_mod._train_step(params, state, *batch, jitter,
+                                          spec, cfg, rcfg, opt))
+
+
+def train_and_score(cfg, dev, kern):
+    """The training phase at `cfg` width: the chair scene's dataset rendered
+    on the card, `train_ngp` (`TrainConfig()`), `evaluate_psnr` in reference
+    mode, the episode's calibration and occupancy bake, the QAT finetune
+    under the mixed policy, then the PSNR of the finetuned field in
+    reference mode and in fused mode under the test set's cull plan and
+    under an explicit budget (the march), each within `PSNR_BAND_DB` of
+    reference mode. Returns (the finetuned artifact, the two fused
+    evaluations' launches)."""
+    from repro_torch.nerf import train as train_mod
+    from repro_torch.nerf.dataset import make_dataset
+    from repro_torch.nerf.fast_render import FastRenderEngine
+    from repro_torch.nerf.occupancy import bake_occupancy
+    from repro_torch.nerf.render import RenderConfig
+    from repro_torch.nerf.scenes import SceneConfig
+
+    t0 = time.perf_counter()
+    ds = make_dataset(SceneConfig(), device=dev)
+    print(f"dataset: chair, {ds.train_rgb.shape[0]} train rays, "
+          f"{ds.test_rgb.shape[0]} test views of {ds.test_rgb.shape[1]} rays, "
+          f"rendered on the card in {time.perf_counter() - t0:.2f} s")
+    rcfg, tcfg = RenderConfig(), train_mod.TrainConfig()
+    t0 = time.perf_counter()
+    with StepTimer(train_mod) as timer:
+        params, last = train_mod.train_ngp(ds, cfg, rcfg, tcfg, device=dev)
+    ms, first, last_rec = timer.summary()
+    wall = time.perf_counter() - t0
+    if not (np.isfinite(last) and last == last_rec and last < first):
+        raise AssertionError(f"training did not lower the loss: {first} -> "
+                             f"{last} ({last_rec} recorded)")
+    print(f"train_ngp: {tcfg.steps} steps of {tcfg.batch_rays} rays in "
+          f"{wall:.2f} s, median {ms:.3f} ms a step (CUDA events), loss "
+          f"{first:.6f} -> {last:.6f}")
+    profile_train_step(train_mod, params, ds, cfg, rcfg, tcfg, dev)
+    p_trained = train_mod.evaluate_psnr(params, ds, cfg, rcfg, device=dev)
+    act_ranges = calibrate_ranges(params, ds, cfg, rcfg)
+    occ = bake_occupancy(params, cfg, resolution=OCC_RESOLUTION,
+                         threshold=OCC_THRESHOLD)
+    print(f"reference-mode PSNR of the trained field {p_trained:.4f} dB; "
+          f"occupancy grid {OCC_RESOLUTION}^3 at {OCC_THRESHOLD}: occupied "
+          f"fraction {occ.occupied_fraction:.4f}")
+    _, spec = mixed_spec(cfg, act_ranges)
+    with StepTimer(train_mod) as timer:
+        ft, ft_loss = train_mod.finetune_ngp(params, ds, cfg, rcfg, tcfg,
+                                             spec, FINETUNE_STEPS, device=dev)
+    ft_ms, ft_first, _ = timer.summary()
+    print(f"finetune_ngp (6-bit hash, 4-bit weights, 8-bit activations): "
+          f"{FINETUNE_STEPS} steps, median {ft_ms:.3f} ms a step, loss "
+          f"{ft_first:.6f} -> {ft_loss:.6f}")
+
+    ref = train_mod.evaluate_psnr(ft, ds, cfg, rcfg, spec, device=dev)
+    plan_eng = FastRenderEngine(ft, cfg, rcfg, spec=spec, occ=occ,
+                                mode="fused", device=dev)
+    t0 = time.perf_counter()
+    budget = plan_eng.test_views_budget(ds)  # builds the plan, once
+    plan_s = time.perf_counter() - t0
+    p_plan, l_plan, prof_plan = psnr_eval(
+        "fused evaluate_psnr, plan path", plan_eng, ds, kern)
+    march_eng = FastRenderEngine(ft, cfg, rcfg, spec=spec, occ=occ,
+                                 mode="fused", budget=budget, device=dev)
+    p_march, l_march, prof_march = psnr_eval(
+        "fused evaluate_psnr, march path (explicit budget)", march_eng, ds,
+        kern)
+    cap = min(tcfg.eval_ray_chunk, ds.test_rgb.shape[0]
+              * ds.test_rgb.shape[1]) * rcfg.n_samples
+    print(f"finetuned field PSNR: reference mode {ref:.4f} dB, fused plan "
+          f"{p_plan:.4f} dB, fused march {p_march:.4f} dB; plan budget "
+          f"{budget} of {cap} samples a chunk (built in {plan_s:.2f} s)")
+    for name, p, prof in (("plan", p_plan, prof_plan),
+                          ("march", p_march, prof_march)):
+        print(f"  {name}: {prof['wall_ms']:.2f} ms wall, "
+              f"{prof['device_ms']:.3f} ms device, {prof['events']} events")
+        if not abs(p - ref) < PSNR_BAND_DB:
+            raise AssertionError(f"fused {name} PSNR {p} is not within "
+                                 f"{PSNR_BAND_DB} dB of reference mode {ref}")
+    print(f"  launches, plan path: {l_plan}; march path: {l_march}")
+    for name, launched, want in (
+            ("plan", l_plan, ("quant_matmul_packed", "hash_gather",
+                              "gather_composite")),
+            ("march", l_march, ("quant_matmul_packed", "hash_encode",
+                                "gather_composite", "ray_march"))):
+        if min(launched[k] for k in want) <= 0:
+            raise AssertionError(f"the {name} path did not launch each of "
+                                 f"{want}: {launched}")
+    metrics = {"psnr_reference": ref, "psnr_fused": p_plan,
+               "psnr_trained": p_trained}
+    art = pack_artifact(ft, act_ranges, occ, cfg, metrics=metrics,
+                        name="trained")
+    return art, {"psnr_plan": l_plan, "psnr_march": l_march}
+
+
+def train_card_vs_cpu(dev, steps: int = 5, loss_rtol: float = 1e-5,
+                      leaf_atol: float = 5e-5):
+    """`steps` train steps at the 4-level test config on the card and on
+    the CPU from the same initial parameters, batches and jitter. The
+    card sums the tables' gradients in another order (sorted index
+    reductions), and its matmuls and transcendentals round otherwise, so
+    the two agree to a tolerance: the loss within `loss_rtol`, every leaf
+    within `leaf_atol`
+    (1 % of one step of lr 5e-3; AdamW's first updates m / sqrt(v) are
+    most sensitive where a gradient is near zero). Returns the gaps."""
+    from repro_torch.nerf import train as train_mod
+    from repro_torch.nerf.dataset import make_dataset
+    from repro_torch.nerf.hash_encoding import HashEncodingConfig
+    from repro_torch.nerf.ngp import NGPConfig, init_ngp, no_quant_spec
+    from repro_torch.nerf.render import RenderConfig
+    from repro_torch.nerf.scenes import SceneConfig
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree_util import leaves_with_path
+
+    cfg = NGPConfig(hash=HashEncodingConfig(n_levels=4, log2_table_size=9,
+                                            base_resolution=4,
+                                            max_resolution=32),
+                    hidden_dim=16, color_hidden_dim=16, geo_feat_dim=7,
+                    sh_degree=2)
+    rcfg, opt = RenderConfig(n_samples=16), AdamWConfig(lr=5e-3,
+                                                       weight_decay=1e-6)
+    cpu = torch.device("cpu")
+    ds = make_dataset(SceneConfig(image_hw=16, n_train_views=4,
+                                  n_test_views=2), device=cpu)
+    p0 = init_ngp(torch.Generator().manual_seed(0), cfg, device=cpu)
+    gen = torch.Generator().manual_seed(0)
+    batches = ds.ray_batches(64, seed=0)
+    inputs = [tuple(torch.from_numpy(a) for a in next(batches))
+              + (torch.rand((64, 16), generator=gen),)
+              for _ in range(steps)]
+    runs = {}
+    for d in (dev, cpu):
+        params = to_device(p0, d)
+        state, losses = adamw_init(params), []
+        for batch in inputs:
+            params, state, loss = train_mod._train_step(
+                params, state, *(a.to(d) for a in batch),
+                no_quant_spec(cfg, d), cfg, rcfg, opt)
+            losses.append(float(loss))
+        runs[d.type] = (losses, dict(leaves_with_path(params)))
+    (l_dev, p_dev), (l_cpu, p_cpu) = runs[dev.type], runs["cpu"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+    leaf_gap = max((p_dev[k].cpu() - v).abs().max().item()
+                   for k, v in p_cpu.items())
+    print(f"train card vs CPU ({steps} steps, 4-level config): loss max "
+          f"relative gap {loss_gap:.3g} (tolerance {loss_rtol}), leaves max "
+          f"|diff| {leaf_gap:.3g} (tolerance {leaf_atol})")
+    if not (loss_gap <= loss_rtol and leaf_gap <= leaf_atol):
+        raise AssertionError(f"train card vs CPU: loss {loss_gap}, leaves "
+                             f"{leaf_gap}")
+    return loss_gap, leaf_gap
 
 
 def request_rays(n_requests: int, hw: int, held_out: bool = False):
@@ -1055,10 +1334,11 @@ def revisit_stream(path, dev, kern):
     if st["cache"]["resident_bytes"] != art.resident_bytes() + pc["bytes"]:
         raise AssertionError("plan bytes are not charged to resident_bytes")
     slots = pc["hits"] + pc["warps"] + pc["misses"]
-    want = {"gather_composite": slots, "hash_gather": pc["hits"],
-            "hash_encode": pc["warps"] + pc["misses"],
-            "ray_march": pc["warps"] + pc["misses"],
-            "quant_matmul_packed": 5 * slots, "alpha_composite": 0}
+    grown = st["budget_retraces"]  # a march slot rendered again, grown
+    want = {"gather_composite": slots + grown, "hash_gather": pc["hits"],
+            "hash_encode": pc["warps"] + pc["misses"] + grown,
+            "ray_march": pc["warps"] + pc["misses"] + grown,
+            "quant_matmul_packed": 5 * (slots + grown), "alpha_composite": 0}
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"revisit stream: {name} launched "
@@ -1319,8 +1599,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.configs.ngp import paper
+    from repro_torch.hero.service import ServeConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.backend import power_limit
+    from repro_torch.nerf.render import RenderConfig
 
     card = power_limit()
     if card is None:
@@ -1356,16 +1638,19 @@ def main() -> int:
               f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library "
               f"{e['library_ms']}")
 
+    kern = counters()
     t0 = time.perf_counter()
-    art = build_artifact(cfg, dev)
+    art, psnr_launches = train_and_score(cfg, dev, kern)
+    print(f"training phase: {time.perf_counter() - t0:.2f} s")
+    train_card_vs_cpu(dev)
+    t0 = time.perf_counter()
     requests = request_rays(8, 64)
     fresh = request_rays(3, 64, held_out=True)[0]
     with tempfile.TemporaryDirectory() as tmp:
         art.save(tmp)
         svc, loaded = serve(tmp, dev)
-        print(f"main path set-up (init, calibrate, bake, pack, save, load, "
-              f"warm-up): {time.perf_counter() - t0:.2f} s")
-        kern = counters()
+        print(f"main path set-up (save, load, warm-up): "
+              f"{time.perf_counter() - t0:.2f} s")
         for fn in kern.values():
             fn.launches = 0
         colors = answer(svc, requests)
@@ -1386,11 +1671,14 @@ def main() -> int:
             raise AssertionError(f"kernels off the render path (the bare "
                                  f"gather, the unfused composite among "
                                  f"them) were launched: {off_path}")
+        # A slot that overflows its sample budget grows it and renders
+        # again: once a slot, and once more a growth.
+        slots = pc["misses"] + stats["budget_retraces"]
         if not (launches["hash_encode"] == launches["ray_march"]
-                == launches["gather_composite"] == pc["misses"]):
+                == launches["gather_composite"] == slots):
             raise AssertionError("the fused encode and the gather-composite "
-                                 "did not run once a slot (one march a "
-                                 f"slot): {launches}")
+                                 "did not run once a slot render (one march "
+                                 f"a slot render): {launches}, {slots}")
         if pc["builds"] or pc["hits"] or pc["warps"] or pc["bytes"]:
             raise AssertionError(f"fresh poses built or hit plans: {pc}")
 
@@ -1416,7 +1704,8 @@ def main() -> int:
           f"({stats['rays_rendered']} rays) in {stats['wall_seconds']} s: "
           f"{stats['requests_per_sec']} req/s, {stats['rays_per_sec']} rays/s, "
           f"latency p50 {lat['p50']} ms p95 {lat['p95']} ms")
-    print(f"sample budget {stats['sample_budget']}, grows "
+    print(f"sample budget {stats['sample_budget']} of "
+          f"{ServeConfig().slot_rays * RenderConfig().n_samples} a slot, grows "
           f"{stats['budget_retraces']}, resident_bytes "
           f"{loaded.resident_bytes()}, stored_model_bytes "
           f"{loaded.stored_model_bytes()}, occupied fraction "
@@ -1432,6 +1721,8 @@ def main() -> int:
         # quant_matmul lies on no path: 0 launches in every run.
         e["launches"] = launches.get(e["name"], 0)
         e["launches_revisit"] = revisit_launches[e["name"]]
+        for k, v in psnr_launches.items():
+            e[f"launches_{k}"] = v[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,22 +3,28 @@
 The JAX package's NGP parameters are `{top: {sub: array}}` dicts, its
 packed tensors carry `words`/`scale`/`offset` arrays beside static
 `bits`, `shape` and `layout`, its `FusedPack` holds `layers`,
-`hash_tables`, `modes` and `layout`, and its LM parameters are a nested
-dict whose block leaves are stacked over periods. These functions read
-any such object through `np.asarray` (numpy arrays, or anything that
-converts to one, bfloat16 included) and build the port's counterparts on
-`device`, so both packages can compute on the same weights. Nothing here
-imports the JAX package.
+`hash_tables`, `modes` and `layout`, its AdamW state `step`, `mu` and
+`nu`, its `NGPDataset` numpy arrays beside a `SceneConfig`, and its LM
+parameters are a nested dict whose block leaves are stacked over
+periods. These functions read any such object through `np.asarray`
+(numpy arrays, or anything that converts to one, bfloat16 included) and
+build the port's counterparts on `device`, so both packages can compute
+on the same weights, optimizer state and data. Nothing here imports the
+JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.backend import DeviceLike, resolve_device
+from repro_torch.nerf.dataset import NGPDataset
 from repro_torch.nerf.fast_render import FusedPack, repack_fused_pack
+from repro_torch.nerf.scenes import SceneConfig
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.quant.packing import PackedTensor
 
 
@@ -42,6 +48,30 @@ def params_from_numpy(tree: Dict, device: DeviceLike = None) -> Dict:
     """NGP parameters `{top: {sub: array}}` -> the same dict of tensors on
     `device` (the card unless `device="cpu"`)."""
     return _tree(tree, resolve_device(device))
+
+
+def adamw_state_from_numpy(state, device: DeviceLike = None) -> AdamWState:
+    """An AdamW state (`step`, moment trees `mu` and `nu` in the
+    parameters' dtype) -> the port's `AdamWState` on `device`."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        mu=_tree(state.mu, dev), nu=_tree(state.nu, dev))
+
+
+_DATASET_ARRAYS = ("train_rays_o", "train_rays_d", "train_rgb",
+                   "test_rays_o", "test_rays_d", "test_rgb")
+
+
+def dataset_from_numpy(ds) -> NGPDataset:
+    """An `NGPDataset` (scene name, `SceneConfig` fields, numpy arrays) ->
+    the port's, with the arrays as they are: the same batches are drawn
+    from both."""
+    cfg = SceneConfig(**{f.name: getattr(ds.cfg, f.name)
+                         for f in dataclasses.fields(SceneConfig)})
+    return NGPDataset(ds.scene_name, cfg,
+                      *(np.asarray(getattr(ds, a)) for a in _DATASET_ARRAYS))
 
 
 def packed_from_numpy(pt, device: DeviceLike = None) -> PackedTensor:

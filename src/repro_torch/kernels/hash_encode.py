@@ -107,14 +107,7 @@ def _fma_f32(a64: torch.Tensor, b64: torch.Tensor,
     return s.to(torch.float32)
 
 
-def trilinear_sum(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum_c vals[..., c, :] * w[..., c] over the 8 corners as a chain of
-    fused multiply-adds from 0: acc = fma(vals[c], w[c], acc), c = 0..7.
-    That is what XLA compiles the reference's
-    `jnp.sum(vals * w[..., None], axis=-2)` to under `jit`, so the
-    encodings, and the activation codes rounded from them, are bit-equal
-    to the jitted reference's at the paper's widths (at some narrower
-    shapes XLA vectorizes the sum in another order)."""
+def _fma_chain(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     v64 = vals.to(torch.float64)
     w64 = w.to(torch.float64)[..., None]
     acc = torch.zeros(vals[..., 0, :].shape, dtype=torch.float32,
@@ -122,6 +115,39 @@ def trilinear_sum(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for c in range(vals.shape[-2]):
         acc = _fma_f32(v64[..., c, :], w64[..., c, :], acc)
     return acc
+
+
+class _TrilinearSum(torch.autograd.Function):
+    """The FMA chain forward; the gradient of the plain product-sum
+    `sum(vals * w[..., None], -2)` backward, as `jax.grad` takes it of
+    the reference (the chain's bit-reinterpretation has no gradient)."""
+
+    @staticmethod
+    def forward(ctx, vals, w):
+        ctx.save_for_backward(vals, w)
+        return _fma_chain(vals, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, w = ctx.saved_tensors
+        dvals = dw = None
+        if ctx.needs_input_grad[0]:
+            dvals = g[..., None, :] * w[..., :, None]
+        if ctx.needs_input_grad[1]:
+            dw = torch.sum(g[..., None, :] * vals, dim=-1)
+        return dvals, dw
+
+
+def trilinear_sum(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_c vals[..., c, :] * w[..., c] over the 8 corners as a chain of
+    fused multiply-adds from 0: acc = fma(vals[c], w[c], acc), c = 0..7.
+    That is what XLA compiles the reference's
+    `jnp.sum(vals * w[..., None], axis=-2)` to under `jit`, so the
+    encodings, and the activation codes rounded from them, are bit-equal
+    to the jitted reference's at the paper's widths (at some narrower
+    shapes XLA vectorizes the sum in another order). Differentiable in
+    both operands: dvals = g * w, dw = sum_F g * vals."""
+    return _TrilinearSum.apply(vals, w)
 
 
 def quantize_codes(x: torch.Tensor, act: Dict) -> torch.Tensor:

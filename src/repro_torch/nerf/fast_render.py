@@ -654,19 +654,67 @@ def _effective_chunk(n_rays: int, chunk: int) -> int:
     return min(chunk, -(-n_rays // 128) * 128)
 
 
-def _pad_frame(rays_o, rays_d, chunk: int, device: torch.device):
-    """-> (ro (C, chunk, 3), rd) on `device`, zero-padded."""
-    ro = np.asarray(rays_o, np.float32).reshape(-1, 3)
-    rd = np.asarray(rays_d, np.float32).reshape(-1, 3)
-    n = ro.shape[0]
+def _pad_frame(chunk: int, device: torch.device, *arrays):
+    """(N, k) arrays -> (each as (C, chunk, k), mask (C, chunk, 1): 1.0 on
+    a real row) on `device`, zero-padded."""
+    n = np.asarray(arrays[0]).reshape(-1, 3).shape[0]
     c = _effective_chunk(n, chunk)
     n_chunks = -(-n // c)
     pad = ((0, n_chunks * c - n), (0, 0))
 
     def _p(a):
-        return torch.from_numpy(np.pad(a, pad)).reshape(n_chunks, c, 3) \
+        a = np.asarray(a, np.float32).reshape(n, -1)
+        return torch.from_numpy(np.pad(a, pad)).reshape(n_chunks, c, -1) \
             .to(device)
-    return _p(ro), _p(rd)
+    return tuple(_p(a) for a in arrays) + (_p(np.ones((n, 1))),)
+
+
+# Device-staged held-out test sets (and their cull plans), keyed by array
+# identity (and device). An episode loop evaluates the SAME views once per
+# episode: staging once keeps every later evaluation free of host->device
+# ray copies and plan rebuilds. Cached entries pin their source arrays so
+# ids cannot be recycled; both caches are bounded (oldest out).
+_TEST_STAGE_CACHE: Dict[Tuple, Tuple] = {}
+_PLAN_CACHE: Dict[Tuple, Tuple] = {}
+_CACHE_CAP = 8
+
+
+def _cache_put(cache: Dict, key, value) -> None:
+    if key not in cache and len(cache) >= _CACHE_CAP:
+        cache.pop(next(iter(cache)))  # dicts iterate in insertion order
+    cache[key] = value
+
+
+def _stage_test_set(dataset, chunk: int, device: torch.device):
+    """(ro, rd, gt (C, chunk, 3), mask (C, chunk, 1), pixel values) of the
+    test views staged FLAT on `device`: views are independent rays, so a
+    small test set is a single chunk."""
+    key = (id(dataset.test_rays_o), chunk, device)
+    hit = _TEST_STAGE_CACHE.get(key)
+    if hit is not None and hit[0] is dataset.test_rays_o:
+        return hit[1]
+    staged = _pad_frame(chunk, device, dataset.test_rays_o.reshape(-1, 3),
+                        dataset.test_rays_d.reshape(-1, 3),
+                        dataset.test_rgb.reshape(-1, 3))
+    staged = staged + (int(dataset.test_rgb.size),)
+    _cache_put(_TEST_STAGE_CACHE, key, (dataset.test_rays_o, staged))
+    return staged
+
+
+def _test_set_plan(dataset, occ: OccupancyGrid, rcfg, chunk: int,
+                   cfg: NGPConfig) -> CullPlan:
+    """The cull plan of the staged test set, baked on the grid's device."""
+    key = (id(dataset.test_rays_o), id(occ.occ), rcfg, chunk, cfg)
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None and hit[0] is dataset.test_rays_o \
+            and hit[1] is occ.occ:
+        return hit[2]
+    ro, rd, mask = (a.numpy() for a in _pad_frame(
+        chunk, torch.device("cpu"), dataset.test_rays_o.reshape(-1, 3),
+        dataset.test_rays_d.reshape(-1, 3)))
+    plan = build_cull_plan(occ, ro, rd, mask, rcfg, cfg)
+    _cache_put(_PLAN_CACHE, key, (dataset.test_rays_o, occ.occ, plan))
+    return plan
 
 
 class FastRenderEngine:
@@ -739,9 +787,63 @@ class FastRenderEngine:
         """Full frame -> (N, 3) colors, chunk by chunk."""
         n = np.asarray(rays_o).reshape(-1, 3).shape[0]
         budget = self._resolve_budget(rays_o, rays_d)
-        ro, rd = _pad_frame(rays_o, rays_d, self.chunk, self.device)
+        ro, rd, _ = _pad_frame(self.chunk, self.device, rays_o, rays_d)
         colors = frame_colors(
             self.params, self.pack, self.spec, self.occ, ro, rd, self.cfg,
             self.rcfg, self.mode, budget, self.early_stop,
         )
         return colors.reshape(-1, 3)[:n]
+
+    def _frame_se(self, plan: Optional[CullPlan], ro, rd, gt, mask,
+                  budget: Optional[int]) -> torch.Tensor:
+        """Masked squared error over staged chunks, one device scalar: each
+        chunk rendered under its plan row (with a plan) or the march under
+        `budget`."""
+        se = []
+        for c in range(ro.shape[0]):
+            color, _, _ = _chunk_color(
+                self.params, self.pack, self.spec, self.occ, ro[c], rd[c],
+                self.cfg, self.rcfg, self.mode, budget, self.early_stop,
+                plan_row=None if plan is None else plan.row(c))
+            se.append(torch.sum(((color - gt[c]) ** 2) * mask[c]))
+        return torch.stack(se).sum()
+
+    @torch.no_grad()
+    def frame_se(self, rays_o, rays_d, gt,
+                 budget: Optional[int] = None) -> torch.Tensor:
+        """Masked squared error of a full frame: ONE device scalar."""
+        if budget is None:
+            budget = self._resolve_budget(rays_o, rays_d)
+        ro, rd, g, m = _pad_frame(self.chunk, self.device, rays_o, rays_d,
+                                  gt)
+        return self._frame_se(None, ro, rd, g, m, budget)
+
+    def test_views_budget(self, dataset) -> Optional[int]:
+        """The exact per-chunk budget the staged test set renders under
+        (the cull plan's B), None without an occupancy grid."""
+        if self.occ is None:
+            return None
+        return _test_set_plan(dataset, self.occ, self.rcfg, self.chunk,
+                              self.cfg).budget
+
+    @torch.no_grad()
+    def evaluate_psnr(self, dataset) -> float:
+        """Mean PSNR over held-out views.
+
+        The test set (and its cull plan) is staged on the device once; the
+        squared error of every chunk is summed there and one scalar moves
+        to the host. An explicit engine `budget` overrides the plan: the
+        march renders under that cap instead."""
+        from repro_torch.nerf.train import psnr  # train imports this module
+
+        ro, rd, gt, mask, total_px = _stage_test_set(dataset, self.chunk,
+                                                     self.device)
+        plan, budget = None, None
+        if self.occ is not None:
+            if self._budget is not None:
+                budget = self._budget
+            else:
+                plan = _test_set_plan(dataset, self.occ, self.rcfg,
+                                      self.chunk, self.cfg)
+        se = self._frame_se(plan, ro, rd, gt, mask, budget)
+        return psnr(float(se) / total_px)

@@ -43,19 +43,19 @@ def composite(sigma: torch.Tensor, rgb: torch.Tensor, t: torch.Tensor,
 def render_rays(params: Dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 cfg: NGPConfig, rcfg: RenderConfig,
                 spec: Optional[NGPQuantSpec] = None,
-                generator: Optional[torch.Generator] = None
+                jitter: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a batch of rays -> (color (R,3), depth (R,)). The scene lives
     in [-0.5, 0.5]^3; samples are clipped into the unit cube for the field
-    query and get zero density outside the box. Stratified jitter is drawn
-    from `generator` when one is given."""
+    query and get zero density outside the box. `jitter` (R, S) uniforms
+    in [0, 1), on the rays' device, stratify the samples (the reference's
+    `jax.random.uniform(key, (R, S))`) when `rcfg.stratified`."""
     n_rays = rays_o.shape[0]
     t = torch.linspace(rcfg.near, rcfg.far, rcfg.n_samples,
                        device=rays_o.device)
     t = t.expand(n_rays, rcfg.n_samples)
-    if rcfg.stratified and generator is not None:
+    if rcfg.stratified and jitter is not None:
         dt = (rcfg.far - rcfg.near) / rcfg.n_samples
-        jitter = torch.rand(t.shape, generator=generator).to(t.device)
         t = t + jitter * dt
 
     pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]

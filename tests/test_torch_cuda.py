@@ -13,7 +13,11 @@ against its plain versions: 1e-4 in float32 (summation order), and in
 bfloat16 3e-2 (flash) and 2e-2 (decode), the bands of
 `tests/test_kernels.py` (p is rounded to bf16 at another maximum); the
 tile-edge and split-edge cases are held to 5e-3 in bfloat16, the limit
-`chip_smoke.py` holds both kernels to at the serve shapes."""
+`chip_smoke.py` holds both kernels to at the serve shapes. Training on
+the card against the CPU: the loss within 1e-5 relative and every leaf
+within 5e-5 after five steps (another summation order in the tables'
+backward and the matmuls);
+fused `evaluate_psnr` against its plain versions within 1e-4 dB."""
 import importlib.util
 from pathlib import Path
 
@@ -771,3 +775,68 @@ def test_serve_tiers_bit_equal_on_the_card(card):
                           plan.valid_cons, **kw)
     march_j, _ = fr.slot_march(*args, o_j, d, cfg, rcfg, "fused", None, True)
     assert torch.equal(warp_j, march_j)
+
+
+# ---------------------------------------------------------------------------
+# Training and the PSNR half of the reward on the card
+# ---------------------------------------------------------------------------
+def test_train_steps_card_against_cpu(card):
+    """Five train steps at the 4-level test config on the card and on the
+    CPU from the same parameters, batches and jitter: the loss within
+    1e-5 relative and every leaf within 5e-5 (`chip_smoke.py`'s
+    `train_card_vs_cpu`, which raises beyond them)."""
+    loss_gap, leaf_gap = CS.train_card_vs_cpu(card)
+    assert loss_gap <= 1e-5 and leaf_gap <= 5e-5
+
+
+def test_fused_evaluate_psnr_card_against_plain_versions(card):
+    """A briefly trained 4-level field, a culling grid and the mixed
+    policy: fused `evaluate_psnr` on the card (plan path and march path)
+    against the same evaluation on the CPU (the plain versions), within
+    1e-4 dB; the plan path launches the bare gather and no march, the
+    march path the fused encode and the march."""
+    from repro_torch.kernels.hash_encode import hash_encode_points_cuda
+    from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
+    from repro_torch.kernels.ray_march import ray_march_cuda
+    from repro_torch.nerf import train as tt
+    from repro_torch.nerf.dataset import make_dataset
+    from repro_torch.nerf.hash_encoding import HashEncodingConfig
+    from repro_torch.nerf.ngp import NGPConfig
+    from repro_torch.nerf.scenes import SceneConfig
+
+    cfg = NGPConfig(hash=HashEncodingConfig(n_levels=4, log2_table_size=9,
+                                            base_resolution=4,
+                                            max_resolution=32),
+                    hidden_dim=16, color_hidden_dim=16, geo_feat_dim=7,
+                    sh_degree=2)
+    rcfg, cpu = RenderConfig(n_samples=16), torch.device("cpu")
+    ds = make_dataset(SceneConfig(image_hw=16, n_train_views=4,
+                                  n_test_views=2), device=cpu)
+    params, _ = tt.train_ngp(ds, cfg, rcfg,
+                             tt.TrainConfig(steps=60, batch_rays=256),
+                             device=cpu)
+    grid = occ_mod.bake_occupancy(params, cfg, resolution=16, threshold=1.0)
+    ranges = CS.calibrate_ranges(params, ds, cfg, rcfg)
+    _, spec = CS.mixed_spec(cfg, ranges)
+    dev_params = CS.to_device(params, card)
+    dev_grid = occ_mod.OccupancyGrid(
+        occ=grid.occ.to(card), resolution=grid.resolution,
+        threshold=grid.threshold, occupied_fraction=grid.occupied_fraction)
+    _, dev_spec = CS.mixed_spec(cfg, ranges.to(card))
+    budget = tt.FastRenderEngine(params, cfg, rcfg, spec=spec, occ=grid,
+                                 device=cpu).test_views_budget(ds)
+    for b in (None, budget):
+        want = tt.evaluate_psnr(params, ds, cfg, rcfg, spec, occ=grid,
+                                mode="fused", budget=b, device=cpu)
+        n = (hash_gather_cuda.launches, hash_encode_points_cuda.launches,
+             ray_march_cuda.launches)
+        got = tt.evaluate_psnr(dev_params, ds, cfg, rcfg, dev_spec,
+                               occ=dev_grid, mode="fused", budget=b,
+                               device=card)
+        torch.cuda.synchronize()
+        ran = tuple(c - m for c, m in zip(
+            (hash_gather_cuda.launches, hash_encode_points_cuda.launches,
+             ray_march_cuda.launches), n))
+        assert abs(got - want) <= 1e-4, (b, got, want)
+        assert (ran[0] > 0, ran[1] > 0, ran[2] > 0) == (
+            (True, False, False) if b is None else (False, True, True)), ran

@@ -86,6 +86,40 @@ def test_default_device_entry_points_raise_without_a_card(no_card, tmp_path):
     FastRenderEngine(params, cfg, RenderConfig(), device="cpu")
 
 
+def test_training_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs.ngp import cpu_scale
+    from repro_torch.nerf.dataset import make_dataset
+    from repro_torch.nerf.ngp import init_ngp, no_quant_spec
+    from repro_torch.nerf.render import RenderConfig
+    from repro_torch.nerf.scenes import SceneConfig
+    from repro_torch.nerf.train import (
+        TrainConfig,
+        evaluate_psnr,
+        finetune_ngp,
+        train_ngp,
+    )
+
+    cfg, rcfg = cpu_scale(), RenderConfig(n_samples=4)
+    scene = SceneConfig(image_hw=4, n_train_views=1, n_test_views=1)
+    tcfg = TrainConfig(steps=1, batch_rays=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_dataset(scene)
+    ds = make_dataset(scene, device="cpu")
+    params = init_ngp(torch.Generator().manual_seed(0), cfg, device="cpu")
+    spec = no_quant_spec(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_ngp(ds, cfg, rcfg, tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finetune_ngp(params, ds, cfg, rcfg, tcfg, spec, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_psnr(params, ds, cfg, rcfg)
+    # Asking for the CPU works.
+    trained, loss = train_ngp(ds, cfg, rcfg, tcfg, device="cpu")
+    finetune_ngp(trained, ds, cfg, rcfg, tcfg, spec, 1, device="cpu")
+    assert np.isfinite(loss)
+    assert np.isfinite(evaluate_psnr(trained, ds, cfg, rcfg, device="cpu"))
+
+
 def test_lm_entry_points_raise_without_a_card(no_card):
     from repro_torch.configs import get_arch
     from repro_torch.convert import lm_params_from_numpy
