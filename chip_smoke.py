@@ -23,8 +23,12 @@ Phases, each of which raises on failure:
    matmuls are bit-equal also at N = 8 and 200, K = 257 and on x views
    off 16-byte boundaries, and their five serve linears are also timed
    back to back in one bracket (``seq_ms``), as a slot runs them. The
-   fused hash encode is bit-equal on one slot's serve points and on the
-   grid's edges, both to f32 encodings and to int8 codes. The fused
+   fused hash encode from points is bit-equal on one slot's serve points
+   and on the grid's edges, and the encode from baked corners at one
+   hit-tier slot (16 levels x 16,384 points x 8 corners) and one
+   evaluation chunk (50,560 points), 1 % of its indices outside the
+   table, both to f32 encodings and to int8 codes; the points kernel is
+   timed on the same rows' points beside it. The fused
    gather-composite is within 1e-5 of its plain version on a real march's
    ranks (R = 512, S = 32, B = 16,384; a warp tier's int32 take with the
    march mask; S = 64), early stop off and on, and bit-stable across
@@ -42,9 +46,12 @@ Phases, each of which raises on failure:
    reference mode and in fused mode under the test set's cull plan and
    under an explicit budget (the march), each within 0.1 dB of reference
    mode, with wall and device ms, launches counted around each (the plan
-   path must launch the packed matmul, the bare gather and the
-   gather-composite; the march path the packed matmul, the fused encode,
-   the gather-composite and the march). Then five train steps at a
+   path must launch the packed matmul, the encode from baked corners once
+   a chunk and the gather-composite; the march path the packed matmul,
+   the fused encode, the gather-composite and the march; neither the bare
+   gather). Before them the encode from baked corners is held to its
+   plain version, and timed beside the points kernel, on the trained
+   plan's first chunk. Then five train steps at a
    4-level config on the card and on the CPU: loss within 1e-5 relative,
    every leaf within 5e-5. The finetuned field, its ranges and its grid
    are packed into a ``QuantArtifact``, saved, loaded (``tile:128``) and
@@ -63,8 +70,9 @@ Phases, each of which raises on failure:
 5. The revisit stream: two more poses, each visited three times (miss;
    miss and plan build; hit), then each jittered inside its pose cell
    (warp), counts zeroed around it: hits, warps and misses must each be
-   > 0, each kernel must have launched as its tiers dictate (the bare
-   gather once a hit slot), and every hit and warp request's colours must
+   > 0, each kernel must have launched as its tiers dictate (the encode
+   from baked corners once a hit slot, the bare gather never), and every
+   hit and warp request's colours must
    equal, bit for bit, the same rays served on the card without the pose
    cache. Plan bytes and ``resident_bytes`` are printed, and one hit and
    one warp request are profiled beside the march request.
@@ -104,6 +112,9 @@ PEAK_BF16_OPS = 989e12  # dense bf16 tensor-core rate
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
 QMM_SHAPES = ((32, 64), (64, 16), (40, 64), (64, 64), (64, 3))  # paper (K, N)
 SERVE_ROWS = 512 * 32  # slot_rays * n_samples: the M of one slot's linears
+# The test set's cull-plan budget a 4,096-ray chunk on the trained chair
+# (PERF.md section 4): the B of one plan-path evaluation chunk.
+EVAL_CHUNK_POINTS = 50_560
 # The LM serve path: qwen2-7b, 4 requests a batch, 1024 prompt tokens, 32
 # generated; attention shapes (B, Hkv, G, hd) and the cache length.
 LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS = 4, 1024, 32, 8
@@ -398,6 +409,99 @@ def phase_hash_encode(rng, dev, cfg):
                  "src/repro/kernels/hash_encoding_kernel.py:50", worst, t_k,
                  t_p, bound(nbytes, 0.0, PEAK_F32_OPS), None, t_c,
                  ms_f32_out=t_kf)
+
+
+def corner_case(rng, pts, hc, table, meta, bad_share: float = 0.01):
+    """The corner data a plan bakes for `pts`: (L, B, 8) indices within
+    each level's table and weights, and the (L,) level offsets, with
+    `bad_share` of the indices moved outside the table once their level's
+    offset is added (below 0, at T and past it, at 2^31 - 1)."""
+    from repro_torch.nerf.fast_render import corner_data_of
+
+    idx, w = corner_data_of(pts, hc)
+    off = meta[:, 3].contiguous()
+    T, n = table.shape[0], int(idx.numel() * bad_share)
+    pos = torch.from_numpy(rng.choice(idx.numel(), n, replace=False))
+    rows = torch.from_numpy(rng.choice([-1, -7, T, T + 5, 2 ** 31 - 1], n))
+    level = pos // (idx.shape[1] * idx.shape[2])
+    idx.view(-1)[pos.to(idx.device)] = (
+        rows - off.cpu().long()[level]).to(torch.int32).to(idx.device)
+    return idx, w, off
+
+
+def time_corners(what, idx, w, table, off, act, pts, meta):
+    """The corners kernel against its plain version on one set of baked
+    corners, f32 encodings and int8 codes bit for bit, then timed (codes,
+    as the path asks for them) beside the points kernel on the same rows'
+    points. Returns the numbers of one kernels-line entry."""
+    from repro_torch.kernels.hash_encode import (
+        hash_encode_corners_cuda as kernel,
+        hash_encode_corners_plain as plain,
+        hash_encode_points_cuda as points_kernel,
+    )
+
+    worst = 0.0
+    for a in (None, act):
+        got, want = kernel(idx, w, table, off, a), plain(idx, w, table, off, a)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"hash_encode_corners ({what}, {'codes' if a else 'f32'}): "
+                f"kernel != plain version, max |diff| {err}")
+        worst = max(worst, err)
+    t = dict(err=worst, ms=median_ms(lambda: kernel(idx, w, table, off, act)),
+             ms_f32_out=median_ms(lambda: kernel(idx, w, table, off)),
+             plain_ms=median_ms(lambda: plain(idx, w, table, off, act)),
+             call_ms=median_ms(lambda: kernel(idx, w, table, off, act),
+                               hide_host=False),
+             points_kernel_ms=median_ms(
+                 lambda: points_kernel(pts, table, meta, act)))
+    # Bytes: the corners (64 B a point and level), each table row they
+    # touch once, the codes; operations: 8 fused multiply-adds a feature.
+    L, B, _ = idx.shape
+    F = table.shape[1]
+    rows = idx.long() + off.long()[:, None, None]
+    uniq = int(torch.unique(rows[(rows >= 0) & (rows < table.shape[0])])
+               .numel())
+    t["bound"] = bound(L * B * 64 + uniq * F * 4 + B * L * F + L * 4 + 16,
+                       16.0 * F * L * B, PEAK_F32_OPS)
+    n_bad = int(((rows < 0) | (rows >= table.shape[0])).sum())
+    print(f"hash_encode_corners ({what}): exact, f32 encodings and int8 codes,"
+          f" L={L} B={B} ({n_bad} of {rows.numel()} corner rows outside the "
+          f"({table.shape[0]}, {F}) table, {uniq} distinct rows inside); "
+          f"codes {t['ms']:.4f} ms (one call {t['call_ms']:.4f} ms), f32 "
+          f"{t['ms_f32_out']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound'][0]:.4f} ms ({t['bound'][1]}); library: none (no single"
+          f" PyTorch call computes it); the points kernel on the same rows' "
+          f"points {t['points_kernel_ms']:.4f} ms (recorded, not routed)")
+    return t
+
+
+def phase_hash_encode_corners(rng, dev, cfg):
+    """The corners kernel at one hit-tier slot (16 levels x 16,384 points x
+    8 corners) and at one PSNR evaluation chunk (50,560 points: the test
+    set's plan budget a 4,096-ray chunk, PERF.md section 4), 1 % of the
+    indices out of the table."""
+    hc = cfg.hash
+    table, meta, act = encode_inputs(rng, hc, dev)
+    got = {}
+    for what, n_rays in (("slot", 512), ("chunk", EVAL_CHUNK_POINTS // 32)):
+        pts = serve_points(n_rays, dev)[0]
+        idx, w, off = corner_case(rng, pts, hc, table, meta)
+        got[what] = time_corners(f"{what}, {pts.shape[0]} serve points", idx,
+                                 w, table, off, act, pts, meta)
+    slot, chunk = got["slot"], got["chunk"]
+    return entry("hash_encode_corners", "src/repro_torch/csrc/hash_encode.cu",
+                 "src/repro/kernels/hash_encoding_kernel.py:50",
+                 max(slot["err"], chunk["err"]), slot["ms"], slot["plain_ms"],
+                 slot["bound"], None, slot["call_ms"],
+                 ms_f32_out=slot["ms_f32_out"],
+                 points_kernel_ms=slot["points_kernel_ms"],
+                 ms_chunk=chunk["ms"], plain_ms_chunk=chunk["plain_ms"],
+                 bound_ms_chunk=chunk["bound"][0],
+                 call_ms_chunk=chunk["call_ms"],
+                 points_kernel_ms_chunk=chunk["points_kernel_ms"])
 
 
 def phase_hash_gather(rng, dev, cfg):
@@ -1080,6 +1184,7 @@ def train_and_score(cfg, dev, kern):
     t0 = time.perf_counter()
     budget = plan_eng.test_views_budget(ds)  # builds the plan, once
     plan_s = time.perf_counter() - t0
+    plan_chunk = plan_row_corners(plan_eng, ds)
     p_plan, l_plan, prof_plan = psnr_eval(
         "fused evaluate_psnr, plan path", plan_eng, ds, kern)
     march_eng = FastRenderEngine(ft, cfg, rcfg, spec=spec, occ=occ,
@@ -1101,18 +1206,42 @@ def train_and_score(cfg, dev, kern):
                                  f"{PSNR_BAND_DB} dB of reference mode {ref}")
     print(f"  launches, plan path: {l_plan}; march path: {l_march}")
     for name, launched, want in (
-            ("plan", l_plan, ("quant_matmul_packed", "hash_gather",
+            ("plan", l_plan, ("quant_matmul_packed", "hash_encode_corners",
                               "gather_composite")),
             ("march", l_march, ("quant_matmul_packed", "hash_encode",
                                 "gather_composite", "ray_march"))):
-        if min(launched[k] for k in want) <= 0:
+        if min(launched[k] for k in want) <= 0 or launched["hash_gather"]:
             raise AssertionError(f"the {name} path did not launch each of "
-                                 f"{want}: {launched}")
+                                 f"{want}, or launched the bare gather: "
+                                 f"{launched}")
+    if l_plan["hash_encode_corners"] != l_plan["gather_composite"]:
+        raise AssertionError(f"the plan path did not encode once a chunk: "
+                             f"{l_plan}")
     metrics = {"psnr_reference": ref, "psnr_fused": p_plan,
                "psnr_trained": p_trained}
     art = pack_artifact(ft, act_ranges, occ, cfg, metrics=metrics,
                         name="trained")
-    return art, {"psnr_plan": l_plan, "psnr_march": l_march}
+    return art, {"psnr_plan": l_plan, "psnr_march": l_march}, plan_chunk
+
+
+def plan_row_corners(engine, ds):
+    """The corners kernel on the first chunk of the test set's cull plan,
+    the trained field's table and its first linear's activation grid:
+    bit-equal to its plain version, timed beside the points kernel on the
+    row's `buf_pts` (the plan is cached: the evaluation reuses it)."""
+    from repro_torch.nerf.fast_render import _test_set_plan
+    from repro_torch.nerf.hash_encoding import level_meta
+    from repro_torch.nerf.ngp import ngp_linear_names
+
+    plan = _test_set_plan(ds, engine.occ, engine.rcfg, engine.chunk,
+                          engine.cfg)
+    pts, _, _, _, idx, w, _ = plan.row(0)
+    pack = engine.pack
+    act = pack.layers[ngp_linear_names(engine.cfg)[0]]
+    return time_corners(f"the trained plan's chunk 0 of "
+                        f"{plan.buf_pts.shape[0]}", idx, w,
+                        pack.compute["table_cat"], pack.compute["table_off"],
+                        act, pts, level_meta(engine.cfg.hash, pts.device))
 
 
 def train_card_vs_cpu(dev, steps: int = 5, loss_rtol: float = 1e-5,
@@ -1246,7 +1375,10 @@ def counters():
     )
     from repro_torch.kernels.flash_attention_kernel import flash_attention_cuda
     from repro_torch.kernels.gather_composite import gather_composite_cuda
-    from repro_torch.kernels.hash_encode import hash_encode_points_cuda
+    from repro_torch.kernels.hash_encode import (
+        hash_encode_corners_cuda,
+        hash_encode_points_cuda,
+    )
     from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
     from repro_torch.kernels.quant_matmul import (
         quant_matmul_cuda,
@@ -1256,6 +1388,7 @@ def counters():
 
     return {"quant_matmul_packed": quant_matmul_packed_cuda,
             "hash_gather": hash_gather_cuda,
+            "hash_encode_corners": hash_encode_corners_cuda,
             "hash_encode": hash_encode_points_cuda,
             "alpha_composite": alpha_composite_cuda,
             "gather_composite": gather_composite_cuda,
@@ -1335,7 +1468,8 @@ def revisit_stream(path, dev, kern):
         raise AssertionError("plan bytes are not charged to resident_bytes")
     slots = pc["hits"] + pc["warps"] + pc["misses"]
     grown = st["budget_retraces"]  # a march slot rendered again, grown
-    want = {"gather_composite": slots + grown, "hash_gather": pc["hits"],
+    want = {"gather_composite": slots + grown, "hash_gather": 0,
+            "hash_encode_corners": pc["hits"],
             "hash_encode": pc["warps"] + pc["misses"] + grown,
             "ray_march": pc["warps"] + pc["misses"] + grown,
             "quant_matmul_packed": 5 * (slots + grown), "alpha_composite": 0}
@@ -1626,6 +1760,7 @@ def main() -> int:
     floor = launch_floor(dev)
     entries = [phase_quant_matmul(rng, dev, floor),
                phase_hash_gather(rng, dev, cfg),
+               phase_hash_encode_corners(rng, dev, cfg),
                phase_hash_encode(rng, dev, cfg),
                phase_gather_composite(rng, dev),
                phase_alpha_composite(rng, dev), phase_ray_march(rng, dev),
@@ -1640,7 +1775,12 @@ def main() -> int:
 
     kern = counters()
     t0 = time.perf_counter()
-    art, psnr_launches = train_and_score(cfg, dev, kern)
+    art, psnr_launches, plan_chunk = train_and_score(cfg, dev, kern)
+    corners = next(e for e in entries if e["name"] == "hash_encode_corners")
+    corners.update(ms_plan_chunk=plan_chunk["ms"],
+                   plain_ms_plan_chunk=plan_chunk["plain_ms"],
+                   bound_ms_plan_chunk=plan_chunk["bound"][0],
+                   points_kernel_ms_plan_chunk=plan_chunk["points_kernel_ms"])
     print(f"training phase: {time.perf_counter() - t0:.2f} s")
     train_card_vs_cpu(dev)
     t0 = time.perf_counter()

@@ -1,10 +1,18 @@
-// Fused multi-resolution hash encode for Hopper (sm_90a).
+// Fused multi-resolution hash encode for Hopper (sm_90a): two kernels, one
+// for each form the encode's input takes.
 //
 // Replaces: src/repro/kernels/hash_encoding_kernel.py:hash_gather (the
-// Pallas gather) together with the composition around it on the serve
-// path: src/repro/kernels/ops.py:hash_encode (one gather over the
-// concatenated level tables, then the trilinear 8-corner sum) and the
-// corner math of src/repro/nerf/hash_encoding.py:level_corner_data.
+// Pallas gather) together with the composition around it:
+// src/repro/kernels/ops.py:hash_encode (one gather over the concatenated
+// level tables, then the trilinear 8-corner sum) and fused_field_query
+// (then the first linear's activation codes), and for the points form also
+// the corner math of src/repro/nerf/hash_encoding.py:level_corner_data.
+//
+// - hash_encode_kernel: from sample points (the march and warp tiers, the
+//   PSNR march path); it derives each level's corners itself.
+// - hash_encode_corners_kernel: from baked corner data, the (L, B, 8)
+//   indices and weights a cull plan carries (the hit tier, the PSNR plan
+//   path); it skips the corner math and reads 64 B a (point, level).
 //
 // Computes, for point b (3 floats in [0, 1]) and level l, with the level's
 // resolution res, direct flag, entries and row offset from meta[l]:
@@ -15,10 +23,13 @@
 //   weight w_c = (t0 * t1) * t2, t_a = bit ? frac_a : 1 - frac_a;
 //   enc[b, l*F + f] = fma(v_7, w_7, ... fma(v_0, w_0, 0)), v_c the table
 //   row at offset + index (a zero row outside the table).
-// With `codes`, out[b, l*F + f] = int8(clip(rint(enc / sx + zx_f), 0,
-// qmax) - off) instead, the first linear's activation codes. The kernel is
-// a template over F in {1, 2, 4, 8}, the feature counts the Instant-NGP
-// paper (Mueller et al., 2022) sweeps; F = 2 is every configuration's.
+// The corners kernel takes index and w_c from corner_idx[l, b, c] and
+// corner_w[l, b, c], the offset from level_offsets[l], and sums the same
+// chain. With `codes`, out[b, l*F + f] = int8(clip(rint(enc / sx + zx_f),
+// 0, qmax) - off) instead, the first linear's activation codes. Both
+// kernels are templates over F in {1, 2, 4, 8}, the feature counts the
+// Instant-NGP paper (Mueller et al., 2022) sweeps; F = 2 is every
+// configuration's.
 //
 // Exactness: the encodings must be bit-equal to the plain PyTorch
 // composition, which reproduces the jitted reference's roundings, so that
@@ -30,16 +41,19 @@
 // --use_fast_math nor flush-to-zero: the products in the chain can be
 // subnormal.
 //
-// What bounds it on this card: bytes. HBM sees the points (12 B each),
-// the table rows touched (8 B each; the 46.5 MiB paper table sits
-// in the 50 MB L2 across calls) and the encodings (4 B a feature) or codes
-// (1 B). The corner indices, weights and corner values stay in registers:
-// the composition this replaces wrote each of them to device memory and
-// read it back, over ~570 launches a slot. One thread per (point, level),
-// point-major, so a warp covers 32 / L points x L levels: its loads of a
-// point's 3 floats and its level rows of meta are broadcasts, each thread
-// loads a corner row as one vector (a float2 at F = 2), and the warp's
-// stores are one contiguous run (256 B at L = 16, F = 2).
+// What bounds them on this card: bytes. HBM sees the points (12 B each)
+// or the baked corners (64 B a point and level), the table rows touched
+// (8 B each at F = 2; the 46.5 MiB paper table sits in the 50 MB L2
+// across calls) and the encodings (4 B a feature) or codes (1 B). The
+// corner indices, weights and corner values stay in registers: the
+// compositions these replace wrote each of them to device memory and read
+// it back (~570 launches a slot from points; from baked corners a gather
+// of every corner value and ~110 launches of a float64 sum a chunk). One
+// thread per (point, level), point-major, so a warp covers 32 / L points x
+// L levels: its loads of a point's 3 floats and of the per-level metadata
+// are broadcasts, each thread loads a corner row as one vector (a float2
+// at F = 2), and the warp's stores are one contiguous run (256 B at
+// L = 16, F = 2).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +97,44 @@ __device__ __forceinline__ void load_row(const float* __restrict__ table,
       v[4 * q + 1] = t.y;
       v[4 * q + 2] = t.z;
       v[4 * q + 3] = t.w;
+    }
+  }
+}
+
+// Writes one (point, level)'s F encodings at out + i * F: the f32 sums,
+// or with CODES the first linear's int8 codes clip(rint(e / sx + zx_f), 0,
+// qmax) - off, rounded as torch rounds them (half-even, no contraction).
+template <int F, bool CODES>
+__device__ __forceinline__ void store_encoding(const float (&acc)[F],
+                                               ActGrid act, void* out,
+                                               long long i) {
+  if constexpr (CODES) {
+    const float sx = __ldg(act.sx), zx_f = __ldg(act.zx_f);
+    const float qmax = __ldg(act.qmax), off = __ldg(act.off);
+    auto code = [&](float e) {
+      const float q = rintf(__fadd_rn(__fdiv_rn(e, sx), zx_f));
+      return (signed char)__float2int_rz(
+          __fsub_rn(fminf(fmaxf(q, 0.0f), qmax), off));
+    };
+    signed char* o = static_cast<signed char*>(out) + i * F;
+    if constexpr (F == 2) {
+      *reinterpret_cast<char2*>(o) = make_char2(code(acc[0]), code(acc[1]));
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) o[f] = code(acc[f]);
+    }
+  } else {
+    float* o = static_cast<float*>(out) + i * F;
+    if constexpr (F == 1) {
+      o[0] = acc[0];
+    } else if constexpr (F == 2) {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q) {
+        reinterpret_cast<float4*>(o)[q] = make_float4(
+            acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+      }
     }
   }
 }
@@ -136,35 +188,7 @@ hash_encode_kernel(const float* __restrict__ points,
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = __fmaf_rn(v[f], w, acc[f]);
   }
-  if constexpr (CODES) {
-    const float sx = __ldg(act.sx), zx_f = __ldg(act.zx_f);
-    const float qmax = __ldg(act.qmax), off = __ldg(act.off);
-    auto code = [&](float e) {
-      const float q = rintf(__fadd_rn(__fdiv_rn(e, sx), zx_f));
-      return (signed char)__float2int_rz(
-          __fsub_rn(fminf(fmaxf(q, 0.0f), qmax), off));
-    };
-    signed char* o = static_cast<signed char*>(out) + i * F;
-    if constexpr (F == 2) {
-      *reinterpret_cast<char2*>(o) = make_char2(code(acc[0]), code(acc[1]));
-    } else {
-#pragma unroll
-      for (int f = 0; f < F; ++f) o[f] = code(acc[f]);
-    }
-  } else {
-    float* o = static_cast<float*>(out) + i * F;
-    if constexpr (F == 1) {
-      o[0] = acc[0];
-    } else if constexpr (F == 2) {
-      *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < F / 4; ++q) {
-        reinterpret_cast<float4*>(o)[q] = make_float4(
-            acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-      }
-    }
-  }
+  store_encoding<F, CODES>(acc, act, out, i);
 }
 
 template <int F>
@@ -178,6 +202,77 @@ void launch_encode(const float* p, const float* tab, const int4* m,
   } else {
     hash_encode_kernel<F, false><<<blocks, THREADS, 0, s>>>(p, tab, m, act,
                                                             out, total, L, T);
+  }
+}
+
+// The same encode from baked corner data, as a cull plan carries it: the
+// (L, B, 8) corner indices (each within its level's table) and trilinear
+// weights. A block takes PB = THREADS / L points. Their corner data lie
+// in L runs of PB x 32 B, one a level (512 B at L = 16), which the block
+// first copies into shared memory with coalesced 16-byte loads (streamed
+// and marked evict-first: each is read once, and the table should keep
+// L2), each level's run padded by 16 B so that the reads below meet no
+// bank conflict. Then one thread per (point, level), point-major as
+// above, reads its 8 indices and 8 weights there, adds its level's row
+// offset in 32 bits with wrap-around, as the plain version's int32 sum
+// does, and loads the 8 corner rows, a zero row outside [0, T). Against
+// per-thread 16-byte loads of the same data straight from device memory,
+// staging took chip_smoke.py's paper slot from 0.0248 to 0.0233 ms and an
+// evaluation chunk from 0.0682 to 0.0549 ms on an H100 SXM (PERF.md).
+template <int F, bool CODES>
+__global__ void __launch_bounds__(THREADS)
+hash_encode_corners_kernel(const int4* __restrict__ idx,
+                           const float4* __restrict__ wts,
+                           const float* __restrict__ table,
+                           const int* __restrict__ offsets,
+                           ActGrid act, void* __restrict__ out, int B, int L,
+                           long long T) {
+  // L runs of 2 PB + 1 vectors: at most 2 THREADS + L <= 3 THREADS.
+  __shared__ int4 s_idx[3 * THREADS];
+  __shared__ float4 s_w[3 * THREADS];
+  const int PB = THREADS / L, RUN = 2 * PB + 1;
+  const long long b0 = (long long)blockIdx.x * PB;
+  const int nb = (int)((long long)B - b0 < PB ? (long long)B - b0 : PB);
+  for (int e = threadIdx.x; e < L * 2 * nb; e += THREADS) {
+    const int l = e / (2 * nb), r = e - l * 2 * nb;
+    const long long g = ((long long)l * B + b0) * 2 + r;
+    s_idx[l * RUN + r] = __ldcs(idx + g);
+    s_w[l * RUN + r] = __ldcs(wts + g);
+  }
+  __syncthreads();
+  const int bl = threadIdx.x / L, l = threadIdx.x - bl * L;
+  if (bl >= nb) return;
+  const int s = l * RUN + 2 * bl;
+  const int4 i0 = s_idx[s], i1 = s_idx[s + 1];
+  const float4 w0 = s_w[s], w1 = s_w[s + 1];
+  const int ci[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
+  const float cw[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  const uint32_t off = (uint32_t)__ldg(offsets + l);
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float v[F];
+    load_row<F>(table, (long long)(int32_t)((uint32_t)ci[c] + off), T, v);
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = __fmaf_rn(v[f], cw[c], acc[f]);
+  }
+  store_encoding<F, CODES>(acc, act, out, (b0 + bl) * L + l);
+}
+
+template <int F>
+void launch_corners(const int4* idx, const float4* w, const float* tab,
+                    const int* offsets, ActGrid act, void* out, int B, int L,
+                    int T, int codes, cudaStream_t s) {
+  const int PB = THREADS / L;
+  const unsigned blocks = (unsigned)((B + PB - 1) / PB);
+  if (codes) {
+    hash_encode_corners_kernel<F, true><<<blocks, THREADS, 0, s>>>(
+        idx, w, tab, offsets, act, out, B, L, T);
+  } else {
+    hash_encode_corners_kernel<F, false><<<blocks, THREADS, 0, s>>>(
+        idx, w, tab, offsets, act, out, B, L, T);
   }
 }
 
@@ -204,6 +299,38 @@ extern "C" int repro_hash_encode(const void* points, const void* table,
       case 4: launch_encode<4>(p, tab, m, act, out, total, L, T, codes, s);
         break;
       case 8: launch_encode<8>(p, tab, m, act, out, total, L, T, codes, s);
+        break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_hash_encode_corners(const void* corner_idx,
+                                         const void* corner_w,
+                                         const void* table,
+                                         const void* level_offsets,
+                                         const void* sx, const void* zx_f,
+                                         const void* qmax, const void* off,
+                                         void* out, int B, int L, int T,
+                                         int F, int codes, void* stream) {
+  if (B > 0 && L > 0) {
+    if (L > THREADS) return (int)cudaErrorInvalidValue;  // a point a block
+    const ActGrid act{(const float*)sx, (const float*)zx_f,
+                      (const float*)qmax, (const float*)off};
+    cudaStream_t s = (cudaStream_t)stream;
+    auto* ix = (const int4*)corner_idx;
+    auto* w = (const float4*)corner_w;
+    auto* tab = (const float*)table;
+    auto* o = (const int*)level_offsets;
+    switch (F) {
+      case 1: launch_corners<1>(ix, w, tab, o, act, out, B, L, T, codes, s);
+        break;
+      case 2: launch_corners<2>(ix, w, tab, o, act, out, B, L, T, codes, s);
+        break;
+      case 4: launch_corners<4>(ix, w, tab, o, act, out, B, L, T, codes, s);
+        break;
+      case 8: launch_corners<8>(ix, w, tab, o, act, out, B, L, T, codes, s);
         break;
       default: return (int)cudaErrorInvalidValue;
     }

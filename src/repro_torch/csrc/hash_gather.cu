@@ -14,7 +14,11 @@
 // 46.5 MiB f32 and barely fits the 50 MB L2, so repeated rows of nearby
 // samples mostly hit L2. The design keeps neighbouring threads on the
 // features of one row (coalesced within a row) and touches each output
-// once. Fusing the trilinear sum and the first matmul in is later work.
+// once. The encode does not come here: csrc/hash_encode.cu fuses the
+// gather with the trilinear sum and the first linear's codes, from sample
+// points or from a plan's baked corners. This kernel serves the bare
+// `ops.hash_gather` and the per-level gathers of a pack with no staged
+// table.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -60,6 +60,10 @@ SIGNATURES: Dict[str, List] = {
     # encodings), out, B, L, T, F, codes, stream
     "repro_hash_encode": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],
+    # corner_idx, corner_w, table, level_offsets, sx, zx_f, qmax, off (null
+    # for the f32 encodings), out, B, L, T, F, codes, stream
+    "repro_hash_encode_corners": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _P],
     # sigma, rgb, delta, color, acc, R, S, early_stop, t_eps, stream
     "repro_alpha_composite": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # sigma_b, rgb_b, take, valid, active (or null), delta, color, acc, R,

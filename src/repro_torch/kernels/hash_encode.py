@@ -1,24 +1,33 @@
-"""Fused multi-resolution hash encode: CUDA wrapper, plain version, counter.
+"""Fused multi-resolution hash encode: CUDA wrappers, plain versions,
+counters.
 
-points (B, 3) in [0, 1] -> enc (B, L*F) f32 in level-major column order.
-For each level: the point's voxel, its 8 corner indices (direct or
-hashed), their trilinear weights, the corner rows of the staged
-concatenated table (`table_cat`, each level at its row offset, an index
-outside the table giving a zero row) and the 8-corner sum as a chain of
-exactly rounded fused multiply-adds: what the jitted reference's
-`level_corner_data` + `hash_encode` compute, bit for bit. With `act` (a
-first linear's activation grid: sx, zx_f, qmax, off) the result is that
-layer's int8 activation codes instead, as `quantize_codes` gives them.
+Two forms of one encode, each one kernel of `csrc/hash_encode.cu`:
 
-The kernel is `csrc/hash_encode.cu`. It replaces the Pallas
-`repro/kernels/hash_encoding_kernel.py:hash_gather` together with the
-composition around it on the serve path (`repro/kernels/ops.py:
-hash_encode` and the corner math of `repro/nerf/hash_encoding.py:
-level_corner_data`). The plain version is that composition in PyTorch.
+- `hash_encode_points_*`: points (B, 3) in [0, 1] -> enc (B, L*F) f32 in
+  level-major column order. For each level: the point's voxel, its 8
+  corner indices (direct or hashed), their trilinear weights, the corner
+  rows of the staged concatenated table (`table_cat`, each level at its
+  row offset, an index outside the table giving a zero row) and the
+  8-corner sum as a chain of exactly rounded fused multiply-adds: what the
+  jitted reference's `level_corner_data` + `hash_encode` compute, bit for
+  bit. `meta` (L, 4) int32 describes the levels, one row each:
+  resolution, 1 if the level is direct-indexed (else hashed), entries,
+  row offset in `table_cat`.
+- `hash_encode_corners_*`: the same encode from baked corner data, the
+  (L, B, 8) corner indices (each within its level's table) and weights a
+  cull plan carries, with the (L,) level offsets: the reference's
+  `ops.hash_encode` under its signature.
 
-`meta` (L, 4) int32 describes the levels, one row each: resolution, 1 if
-the level is direct-indexed (else hashed), entries, row offset in
-`table_cat`.
+With `act` (a first linear's activation grid: sx, zx_f, qmax, off) either
+gives that layer's int8 activation codes instead, as `quantize_codes`
+gives them (the reference's `fused_field_query` before its matmul).
+
+The kernels replace the Pallas `repro/kernels/hash_encoding_kernel.py:
+hash_gather` together with the composition around it (`repro/kernels/
+ops.py:hash_encode`, and for points the corner math of `repro/nerf/
+hash_encoding.py:level_corner_data`). The plain versions are those
+compositions in PyTorch. Neither kernel has a backward: the corners
+wrapper refuses a table or weights that need a gradient.
 """
 from __future__ import annotations
 
@@ -33,9 +42,11 @@ from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
 
 PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
-# The feature counts F the kernel is built for: those the Instant-NGP paper
-# sweeps (2 is every configuration's).
+# The feature counts F the kernels are built for: those the Instant-NGP
+# paper sweeps (2 is every configuration's).
 KERNEL_FEATURES = (1, 2, 4, 8)
+# Threads a block of the corners kernel: it holds all of a point's levels.
+CORNERS_MAX_LEVELS = 256
 
 # The 8 binary corner offsets of a voxel, shape (8, 3): corner c takes
 # bits (c & 1, c >> 1 & 1, c >> 2 & 1).
@@ -158,59 +169,131 @@ def quantize_codes(x: torch.Tensor, act: Dict) -> torch.Tensor:
     return (codes - act["off"]).to(torch.int8)
 
 
-def hash_encode_points_plain(points: torch.Tensor, table_cat: torch.Tensor,
-                             meta: torch.Tensor,
-                             act: Optional[Dict] = None) -> torch.Tensor:
-    """The composition the kernel fuses: `corner_data` per level, one
-    gather over the concatenated table, the FMA-chain trilinear sum, and
-    with `act` the activation codes."""
-    per_level = [corner_data(points, res, bool(direct), entries)
-                 for res, direct, entries, _ in meta.tolist()]
-    idx = torch.stack([i for i, _ in per_level])  # (L, B, 8)
-    w = torch.stack([wl for _, wl in per_level])
-    L, B, C = idx.shape
-    flat = (idx + meta[:, 3, None, None]).reshape(-1)
-    vals = hash_gather_plain(flat, table_cat)
-    enc = trilinear_sum(vals.reshape(L, B, C, -1), w)  # (L, B, F)
+def hash_encode_corners_plain(corner_idx: torch.Tensor,
+                              corner_w: torch.Tensor,
+                              table_cat: torch.Tensor,
+                              level_offsets: torch.Tensor,
+                              act: Optional[Dict] = None) -> torch.Tensor:
+    """The composition the corners kernel fuses: one gather over the
+    concatenated table at each level's offset (an int32 sum), the
+    FMA-chain trilinear sum, and with `act` the activation codes."""
+    L, B, C = corner_idx.shape
+    flat = (corner_idx + level_offsets[:, None, None]).reshape(-1)
+    vals = hash_gather_plain(flat.to(torch.int32), table_cat)
+    enc = trilinear_sum(vals.reshape(L, B, C, -1), corner_w)  # (L, B, F)
     enc = enc.permute(1, 0, 2).reshape(B, -1)
     return enc if act is None else quantize_codes(enc, act)
 
 
-def hash_encode_points_cuda(points: torch.Tensor, table_cat: torch.Tensor,
-                            meta: torch.Tensor,
-                            act: Optional[Dict] = None) -> torch.Tensor:
-    """Launch the CUDA kernel: enc (B, L*F) f32, or with `act` int8 codes.
-    The activation grid is read from device memory (no host sync). Raises
-    on anything the kernel does not take."""
-    dev = points.device
-    require(points, "points", torch.float32, 2, dev)
-    require(table_cat, "table_cat", torch.float32, 2, dev)
-    require(meta, "meta", torch.int32, 2, dev)
-    B, L, (T, F) = points.shape[0], meta.shape[0], table_cat.shape
-    if points.shape[1] != 3 or meta.shape[1] != 4:
-        raise ValueError(f"shape mismatch: points {tuple(points.shape)}, "
-                         f"meta {tuple(meta.shape)}")
+def hash_encode_points_plain(points: torch.Tensor, table_cat: torch.Tensor,
+                             meta: torch.Tensor,
+                             act: Optional[Dict] = None) -> torch.Tensor:
+    """The composition the points kernel fuses: `corner_data` per level,
+    then `hash_encode_corners_plain`."""
+    per_level = [corner_data(points, res, bool(direct), entries)
+                 for res, direct, entries, _ in meta.tolist()]
+    idx = torch.stack([i for i, _ in per_level])  # (L, B, 8)
+    w = torch.stack([wl for _, wl in per_level])
+    return hash_encode_corners_plain(idx, w, table_cat, meta[:, 3], act)
+
+
+def _table_features(table_cat: torch.Tensor) -> int:
+    """F of a table the kernels take: F in `KERNEL_FEATURES`, each row on
+    a vector-load boundary."""
+    F = table_cat.shape[1]
     if F not in KERNEL_FEATURES:
         raise ValueError(f"the kernel takes F in {KERNEL_FEATURES}, got {F}")
     if table_cat.data_ptr() % min(4 * F, 16):
         raise ValueError(f"table_cat must start on a {min(4 * F, 16)}-byte "
                          "boundary (one row a vector load)")
+    return F
+
+
+def _output(B: int, width: int, act: Optional[Dict], dev: torch.device):
+    """(out, grid): f32 encodings and four Nones, or with `act` int8 codes
+    and its scalars (sx, zx_f, qmax, off), one-element tensors on `dev`
+    (no host copy, no sync)."""
+    if act is None:
+        out = torch.empty((B, width), dtype=torch.float32, device=dev)
+        return out, (None,) * 4
+    out = torch.empty((B, width), dtype=torch.int8, device=dev)
+    return out, tuple(device_scalar(act[k], k, torch.float32, dev)
+                      for k in ("sx", "zx_f", "qmax", "off"))
+
+
+def _pointers(grid) -> Tuple:
+    return tuple(None if t is None else t.data_ptr() for t in grid)
+
+
+def hash_encode_points_cuda(points: torch.Tensor, table_cat: torch.Tensor,
+                            meta: torch.Tensor,
+                            act: Optional[Dict] = None) -> torch.Tensor:
+    """Launch the points kernel: enc (B, L*F) f32, or with `act` int8
+    codes. The activation grid is read from device memory (no host sync).
+    Raises on anything the kernel does not take."""
+    dev = points.device
+    require(points, "points", torch.float32, 2, dev)
+    require(table_cat, "table_cat", torch.float32, 2, dev)
+    require(meta, "meta", torch.int32, 2, dev)
+    B, L, T = points.shape[0], meta.shape[0], table_cat.shape[0]
+    if points.shape[1] != 3 or meta.shape[1] != 4:
+        raise ValueError(f"shape mismatch: points {tuple(points.shape)}, "
+                         f"meta {tuple(meta.shape)}")
+    F = _table_features(table_cat)
     if meta.data_ptr() % 16:
         raise ValueError("meta must start on a 16-byte boundary (one level "
                          "a vector load)")
-    if act is None:
-        out = torch.empty((B, L * F), dtype=torch.float32, device=dev)
-        scal = (None,) * 4
-    else:
-        out = torch.empty((B, L * F), dtype=torch.int8, device=dev)
-        scal = tuple(device_scalar(act[k], k, torch.float32, dev)
-                     for k in ("sx", "zx_f", "qmax", "off"))
+    out, grid = _output(B, L * F, act, dev)
     launch("repro_hash_encode", dev, points.data_ptr(), table_cat.data_ptr(),
-           meta.data_ptr(), *(None if s is None else s.data_ptr()
-                              for s in scal),
-           out.data_ptr(), B, L, T, F, int(act is not None))
+           meta.data_ptr(), *_pointers(grid), out.data_ptr(), B, L, T, F,
+           int(act is not None))
     hash_encode_points_cuda.launches += 1
     return out
 
 
 hash_encode_points_cuda.launches = 0
+
+
+def hash_encode_corners_cuda(corner_idx: torch.Tensor,
+                             corner_w: torch.Tensor,
+                             table_cat: torch.Tensor,
+                             level_offsets: torch.Tensor,
+                             act: Optional[Dict] = None) -> torch.Tensor:
+    """Launch the corners kernel: enc (B, L*F) f32, or with `act` int8
+    codes. The activation grid is read from device memory (no host sync).
+    Raises on anything the kernel does not take, and on a `table_cat` or
+    `corner_w` that requires a gradient while grad mode is on: the kernel
+    has no backward, and would drop it without a word."""
+    if torch.is_grad_enabled() and (table_cat.requires_grad
+                                    or corner_w.requires_grad):
+        raise RuntimeError("hash_encode_corners has no backward: call it "
+                           "under torch.no_grad() or on detached tensors")
+    dev = corner_idx.device
+    require(corner_idx, "corner_idx", torch.int32, 3, dev)
+    require(corner_w, "corner_w", torch.float32, 3, dev)
+    require(table_cat, "table_cat", torch.float32, 2, dev)
+    require(level_offsets, "level_offsets", torch.int32, 1, dev)
+    L, B, C = corner_idx.shape
+    if C != 8 or corner_w.shape != corner_idx.shape \
+            or level_offsets.shape != (L,) or L > CORNERS_MAX_LEVELS:
+        raise ValueError(f"the kernel takes (L, B, 8) corners, matching "
+                         f"weights and (L,) offsets, L <= "
+                         f"{CORNERS_MAX_LEVELS}: got corner_idx "
+                         f"{tuple(corner_idx.shape)}, corner_w "
+                         f"{tuple(corner_w.shape)}, level_offsets "
+                         f"{tuple(level_offsets.shape)}")
+    for t, name in ((corner_idx, "corner_idx"), (corner_w, "corner_w")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (a "
+                             "point's 8 corners are two vector loads)")
+    T, F = table_cat.shape[0], _table_features(table_cat)
+    out, grid = _output(B, L * F, act, dev)
+    launch("repro_hash_encode_corners", dev, corner_idx.data_ptr(),
+           corner_w.data_ptr(), table_cat.data_ptr(),
+           level_offsets.data_ptr(), *_pointers(grid), out.data_ptr(), B, L,
+           T, F, int(act is not None))
+    hash_encode_corners_cuda.launches += 1
+    return out
+
+
+hash_encode_corners_cuda.launches = 0

@@ -4,16 +4,15 @@ A CUDA tensor launches the hand-written kernel (`csrc/*.cu`) or raises; a
 CPU tensor takes the kernel's plain PyTorch version. Nothing here falls
 back: there is no flag to pick a path and no `try` around a launch.
 
-`hash_encode_points` is the fused renderer's whole encode, points to
-encodings or to the first linear's activation codes, in one kernel;
-`fused_field_query_points` follows it with the packed matmul.
-`hash_encode` is the composition over precomputed corner data: one
-gather over the concatenated table and the trilinear 8-corner sum (plain
-tensor code: a chain of exactly rounded fused multiply-adds, as the
-jitted reference computes it, identical on the CPU and the card);
-`fused_field_query` follows it with the activation codes and the packed
-matmul, under the reference's signature. `gather_composite` takes a
-chunk's compacted field outputs to its served colour in one kernel.
+The hash encode has two forms, one kernel each, both exact against the
+jitted reference (the trilinear 8-corner sum a chain of exactly rounded
+fused multiply-adds): `hash_encode_points` takes sample points (the march
+and warp tiers), `hash_encode` the corner data a cull plan bakes (the
+hit tier and the PSNR plan path), under the reference's signature. Each
+gives the encodings, or with an activation grid the first linear's int8
+codes; `fused_field_query_points` and `fused_field_query` follow the
+codes with the packed matmul. `gather_composite` takes a chunk's
+compacted field outputs to its served colour in one kernel.
 """
 from __future__ import annotations
 
@@ -38,6 +37,8 @@ from repro_torch.kernels.gather_composite import (
     gather_composite_plain,
 )
 from repro_torch.kernels.hash_encode import (  # noqa: F401 (re-exported)
+    hash_encode_corners_cuda,
+    hash_encode_corners_plain,
     hash_encode_points_cuda,
     hash_encode_points_plain,
     quantize_codes,
@@ -157,21 +158,31 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def hash_encode(corner_idx: torch.Tensor, corner_w: torch.Tensor,
                 table_cat: torch.Tensor,
                 level_offsets: torch.Tensor) -> torch.Tensor:
-    """Multi-level hash-grid encode: one gather over the concatenated
-    table + trilinear interpolation.
+    """Multi-level hash-grid encode from precomputed corner data, in one
+    kernel: the gather over the concatenated table and the trilinear
+    8-corner sum.
 
     corner_idx    (L, B, 8) int32 — per-level in-table corner indices
     corner_w      (L, B, 8) f32   — matching trilinear weights
     table_cat     (T, F)    f32   — all level tables stacked row-wise
     level_offsets (L,)      int32 — row offset of each level in table_cat
 
-    Returns (B, L*F) features in level-major column order.
-    """
-    L, B, C = corner_idx.shape
-    flat = (corner_idx + level_offsets[:, None, None]).reshape(-1)
-    vals = hash_gather(flat.to(torch.int32).contiguous(), table_cat)
-    feats = trilinear_sum(vals.reshape(L, B, C, -1), corner_w)  # (L, B, F)
-    return feats.permute(1, 0, 2).reshape(B, -1)
+    Returns (B, L*F) features in level-major column order; a row outside
+    the table reads as zeros."""
+    return hash_encode_corners(corner_idx, corner_w, table_cat,
+                               level_offsets)
+
+
+def hash_encode_corners(corner_idx: torch.Tensor, corner_w: torch.Tensor,
+                        table_cat: torch.Tensor, level_offsets: torch.Tensor,
+                        act: Optional[Dict] = None) -> torch.Tensor:
+    """`hash_encode`, and with `act` (a linear's activation grid) that
+    layer's int8 codes instead, as `quantize_codes` gives them."""
+    if _on_card(corner_idx):
+        return hash_encode_corners_cuda(corner_idx, corner_w, table_cat,
+                                        level_offsets, act)
+    return hash_encode_corners_plain(corner_idx, corner_w, table_cat,
+                                     level_offsets, act)
 
 
 def hash_encode_points(points: torch.Tensor, table_cat: torch.Tensor,
@@ -196,14 +207,15 @@ def hash_encode_points(points: torch.Tensor, table_cat: torch.Tensor,
 def fused_field_query(corner_idx: torch.Tensor, corner_w: torch.Tensor,
                       table_cat: torch.Tensor, level_offsets: torch.Tensor,
                       wq: PackedTensor, act: Dict) -> torch.Tensor:
-    """`hash_encode` over precomputed corner data, the first linear's
-    activation codes, then the quantized matmul: the first-layer field
-    query of the fused integer renderer, under the reference's signature.
-    `act` carries the layer's activation grid (sx, zx, zx_f, qmax, off);
-    returns the f32 pre-activation (B, N) without the bias."""
-    enc = hash_encode(corner_idx, corner_w, table_cat, level_offsets)
-    return quant_matmul_packed(quantize_codes(enc, act), wq, act["sx"],
-                               wq.scale, act["zx"])
+    """`hash_encode` over precomputed corner data straight to the first
+    linear's activation codes in one kernel, then the quantized matmul:
+    the first-layer field query of the fused integer renderer, under the
+    reference's signature. `act` carries the layer's activation grid (sx,
+    zx, zx_f, qmax, off); returns the f32 pre-activation (B, N) without
+    the bias."""
+    codes = hash_encode_corners(corner_idx, corner_w, table_cat,
+                                level_offsets, act)
+    return quant_matmul_packed(codes, wq, act["sx"], wq.scale, act["zx"])
 
 
 def fused_field_query_points(points: torch.Tensor, table_cat: torch.Tensor,

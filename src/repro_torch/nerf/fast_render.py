@@ -13,10 +13,12 @@ The serving subset of the JAX package's `nerf/fast_render.py`:
    sub-byte packed weight codes per linear layer and packed integer
    hash-table codes (`repro_torch.quant.packing.PackedTensor`). Activations
    are quantized to integer codes on the fly and the NGP linears run
-   through `kernels.ops.quant_matmul_packed`, the hash encode (points to
-   the first linear's codes) through `kernels.ops.hash_encode_points`, and
-   the gathers from the compacted buffer, the compositing and the white
-   background through `kernels.ops.gather_composite`. The `int` mode is
+   through `kernels.ops.quant_matmul_packed`, the hash encode (to the
+   first linear's codes) through `kernels.ops.fused_field_query_points`
+   from sample points or `kernels.ops.fused_field_query` from a plan
+   row's baked corners, and the gathers from the compacted buffer, the
+   compositing and the white background through
+   `kernels.ops.gather_composite`. The `int` mode is
    the integer path everywhere: the CUDA kernels on the card, their exact
    plain versions on the CPU. There is no float carrier.
    `mode="reference"` queries the fake-quant `ngp_apply` oracle inside
@@ -283,20 +285,19 @@ def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
                     dirs: torch.Tensor, cfg: NGPConfig, corner_data=None,
                     sh: Optional[torch.Tensor] = None):
     """Integer-mode field query, mirroring `ngp_apply`'s fake-quant
-    forward. With a repacked pack the encode runs from the points in one
-    fused kernel over the staged concatenated table, and in `int` mode
-    straight to the first linear's codes (`ops.fused_field_query_points`);
-    the kernel takes F in `KERNEL_FEATURES` features a level, and a table
-    of any other width takes the corner-data path. `corner_data` (idx
-    (L,P,8), w (L,P,8)) takes precomputed corner work instead, through one
-    gather and the trilinear sum (`ops.fused_field_query` in `int` mode:
-    the same bits); `sh` the precomputed direction encoding."""
+    forward. With a repacked pack whose table has F in `KERNEL_FEATURES`
+    features a level, the encode runs in one kernel over the staged
+    concatenated table, and in `int` mode straight to the first linear's
+    codes: from the points (`ops.fused_field_query_points`), or from
+    precomputed `corner_data` (idx (L,P,8), w (L,P,8); a plan row's baked
+    corners) through `ops.fused_field_query` (the same bits). A table of
+    any other width, or a storage-only pack, takes per-level gathers and
+    the trilinear sum. `sh` is the precomputed direction encoding."""
     names = ngp_linear_names(cfg)
     L = cfg.hash.n_levels
-    staged = "table_cat" in pack.compute
-    fused = (staged and corner_data is None
-             and pack.compute["table_cat"].shape[1] in KERNEL_FEATURES)
-    if fused:
+    staged = ("table_cat" in pack.compute
+              and pack.compute["table_cat"].shape[1] in KERNEL_FEATURES)
+    if staged and corner_data is None:
         cat = pack.compute["table_cat"]
         *_, (_, _, n, off) = level_rows(cfg.hash)
         if cat.shape[0] != off + n:
@@ -326,7 +327,7 @@ def fused_ngp_apply(pack: FusedPack, points: torch.Tensor,
                 h = _fused_linear(pack, 0, names[0],
                                   ops.hash_encode(idx, w, cat, off))
         else:
-            # Storage-only pack: per-level gathers over tables dequantized
+            # Per-level gathers over the storage tables, dequantized
             # inside the call.
             feats = []
             for l in range(L):

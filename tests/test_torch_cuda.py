@@ -5,10 +5,11 @@ import), run them with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the matmuls, gather, fused encode (F in {1, 2, 4, 8}) and
-march are exact, and so are the three serve tiers against each other;
-compositing, unfused and fused with the gathers, is within 1e-5 (the
-early exit drops less than t_eps per channel) and bit-stable. Attention
+Tolerances: the matmuls, gather, fused encode from points and from baked
+corners (F in {1, 2, 4, 8}) and march are exact, and so are the three
+serve tiers against each other; compositing, unfused and fused with the
+gathers, is within 1e-5 (the early exit drops less than t_eps per
+channel) and bit-stable. Attention
 against its plain versions: 1e-4 in float32 (summation order), and in
 bfloat16 3e-2 (flash) and 2e-2 (decode), the bands of
 `tests/test_kernels.py` (p is rounded to bf16 at another maximum); the
@@ -37,7 +38,10 @@ from repro_torch.kernels.flash_attention_kernel import (
     flash_attention_cuda,
     flash_attention_plain,
 )
-from repro_torch.kernels.hash_encode import hash_encode_points_plain
+from repro_torch.kernels.hash_encode import (
+    hash_encode_corners_plain,
+    hash_encode_points_plain,
+)
 from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
 from repro_torch.kernels.quant_matmul import (
     quant_matmul_packed_plain,
@@ -553,6 +557,106 @@ def test_hash_encode_wrapper_refuses_what_the_kernel_does_not_take(card):
 
 
 # ---------------------------------------------------------------------------
+# The encode from baked corners: bit-equal to its plain version
+# ---------------------------------------------------------------------------
+def _corner_inputs(card, hc, seed, subnormal=True):
+    """A table at `hc`'s widths (every 97th row subnormal-scale, so corner
+    products go subnormal), its offsets and activation grid, and the baked
+    corners of random and grid-edge points with 1 % of the indices
+    outside the table."""
+    rng = np.random.default_rng(seed)
+    table, meta, act = CS.encode_inputs(rng, hc, card, subnormal)
+    pts = torch.from_numpy(np.concatenate([
+        rng.uniform(size=(5000, 3)), CS.encode_edge_points(hc, 256)])
+        .astype(np.float32)).to(card)
+    idx, w, off = CS.corner_case(rng, pts, hc, table, meta)
+    return idx, w, table, off, act
+
+
+@pytest.mark.parametrize("codes", [False, True])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_hash_encode_corners_kernel_exact(card, F, codes):
+    """16 levels (direct and hashed) on a 2^14-row table of F features a
+    level: bit-equal to the plain version, out-of-table rows and
+    subnormal corner products included."""
+    hc = he.HashEncodingConfig(n_levels=16, n_features=F,
+                               log2_table_size=14, base_resolution=16,
+                               max_resolution=2048)
+    idx, w, table, off, act = _corner_inputs(card, hc, 50 + F)
+    a = act if codes else None
+    got = ops.hash_encode_corners(idx, w, table, off, a)
+    want = hash_encode_corners_plain(idx, w, table, off, a)
+    assert got.dtype == (torch.int8 if codes else torch.float32)
+    assert got.shape == (idx.shape[1], 16 * F)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L", [1, 5, 6])
+def test_hash_encode_corners_kernel_exact_levels_off_the_block(card, L):
+    """Level counts that do not divide the 256-thread block (its last
+    threads idle), a ragged last block, offsets that are not multiples of
+    32, and a table cut short so that corner rows fall past its end."""
+    hc = he.HashEncodingConfig(n_levels=L, log2_table_size=10,
+                               base_resolution=5, max_resolution=90)
+    rng = np.random.default_rng(54 + L)
+    table, meta, act = CS.encode_inputs(rng, hc, card)
+    pts = torch.from_numpy(rng.uniform(size=(1001, 3)).astype(np.float32))
+    idx, w, off = CS.corner_case(rng, pts.to(card), hc, table, meta)
+    for t in (table, table[:-50]):
+        for a in (None, act):
+            assert torch.equal(ops.hash_encode_corners(idx, w, t, off, a),
+                               hash_encode_corners_plain(idx, w, t, off, a))
+
+
+def test_hash_encode_corners_kernel_exact_paper(card):
+    """Paper width (the 6,098,925-row table) on one slot's serve points:
+    f32 encodings and codes, and the same bits as the points kernel on
+    the in-table corners."""
+    from repro_torch.configs.ngp import paper
+
+    hc = paper().hash
+    table, meta, act = CS.encode_inputs(np.random.default_rng(51), hc, card)
+    pts = CS.serve_points(512, card)[0]
+    idx, w = CS.corner_case(np.random.default_rng(52), pts, hc, table, meta,
+                            bad_share=0.0)[:2]
+    off = meta[:, 3].contiguous()
+    for a in (None, act):
+        got = ops.hash_encode_corners(idx, w, table, off, a)
+        assert torch.equal(got, hash_encode_corners_plain(idx, w, table,
+                                                          off, a))
+        assert torch.equal(got, ops.hash_encode_points(pts, table, meta, a))
+
+
+def test_hash_encode_corners_wrapper_refuses_what_the_kernel_does_not_take(
+        card):
+    hc = he.HashEncodingConfig(n_levels=4, log2_table_size=9,
+                               base_resolution=4, max_resolution=32)
+    idx, w, table, off, _ = _corner_inputs(card, hc, 53, subnormal=False)
+    L, B, _ = idx.shape
+    n = idx.numel()
+    shifted_idx = torch.zeros(n + 1, dtype=torch.int32, device=card)
+    shifted_w = torch.zeros(n + 1, device=card)
+    with pytest.raises(ValueError):  # 4 bytes off the 16-byte boundary
+        ops.hash_encode(shifted_idx[1:].view(L, B, 8), w, table, off)
+    with pytest.raises(ValueError):
+        ops.hash_encode(idx, shifted_w[1:].view(L, B, 8), table, off)
+    with pytest.raises(ValueError):  # not contiguous
+        ops.hash_encode(idx.transpose(0, 1).contiguous().transpose(0, 1), w,
+                        table, off)
+    with pytest.raises(ValueError):  # one offset short
+        ops.hash_encode(idx, w, table, off[:-1])
+    with pytest.raises(ValueError):  # F = 3
+        ops.hash_encode(idx, w, torch.zeros((table.shape[0], 3),
+                                            device=card), off)
+    with pytest.raises(ValueError):  # rows off their 8-byte boundary
+        ops.hash_encode(idx, w, table.view(-1)[1:-1].view(-1, 2), off)
+    with pytest.raises(TypeError):
+        ops.hash_encode(idx, w, table, off.to(torch.int64))
+    with pytest.raises(RuntimeError):  # no backward
+        ops.hash_encode(idx, w, table.clone().requires_grad_(True), off)
+
+
+# ---------------------------------------------------------------------------
 # The warp-per-ray march: bit-equal to its plain version and the host oracle
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("R", [200, 512])
@@ -738,10 +842,12 @@ def test_hash_encode_kernel_exact_other_feature_counts(card, F, codes):
 # ---------------------------------------------------------------------------
 def test_serve_tiers_bit_equal_on_the_card(card):
     """A paper-width field (random weights) on one 512-ray slot: the plan
-    hit (baked corners through the bare gather), the warp (a nearby pose's
-    conservative indices) and the march give the same colours, bit for
-    bit, and the hit tier launches the gather and no march."""
+    hit (baked corners through the corners kernel), the warp (a nearby
+    pose's conservative indices) and the march give the same colours, bit
+    for bit, and the hit tier launches the corners kernel once, and no
+    bare gather and no march."""
     from repro_torch.configs.ngp import paper
+    from repro_torch.kernels.hash_encode import hash_encode_corners_cuda
     from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
     from repro_torch.kernels.ray_march import ray_march_cuda
     from repro_torch.nerf import fast_render as fr
@@ -760,9 +866,11 @@ def test_serve_tiers_bit_equal_on_the_card(card):
     o, d = torch.from_numpy(ro).to(card), torch.from_numpy(rd).to(card)
     march, need = fr.slot_march(*args, o, d, cfg, rcfg, "fused", None, True)
     n_gather, n_march = hash_gather_cuda.launches, ray_march_cuda.launches
+    n_corners = hash_encode_corners_cuda.launches
     hit = fr.slot_plan(*args, o, d, plan.plan_row, **kw)
     torch.cuda.synchronize()
-    assert hash_gather_cuda.launches == n_gather + 1
+    assert hash_encode_corners_cuda.launches == n_corners + 1
+    assert hash_gather_cuda.launches == n_gather
     assert ray_march_cuda.launches == n_march
     warp = fr.slot_warp(*args, o, d, plan.inv_take, plan.take,
                         plan.valid_cons, **kw)
@@ -793,9 +901,13 @@ def test_fused_evaluate_psnr_card_against_plain_versions(card):
     """A briefly trained 4-level field, a culling grid and the mixed
     policy: fused `evaluate_psnr` on the card (plan path and march path)
     against the same evaluation on the CPU (the plain versions), within
-    1e-4 dB; the plan path launches the bare gather and no march, the
-    march path the fused encode and the march."""
-    from repro_torch.kernels.hash_encode import hash_encode_points_cuda
+    1e-4 dB; the plan path launches the corners kernel and no march, the
+    march path the fused encode and the march, and neither the bare
+    gather."""
+    from repro_torch.kernels.hash_encode import (
+        hash_encode_corners_cuda,
+        hash_encode_points_cuda,
+    )
     from repro_torch.kernels.hash_encoding_kernel import hash_gather_cuda
     from repro_torch.kernels.ray_march import ray_march_cuda
     from repro_torch.nerf import train as tt
@@ -828,15 +940,15 @@ def test_fused_evaluate_psnr_card_against_plain_versions(card):
     for b in (None, budget):
         want = tt.evaluate_psnr(params, ds, cfg, rcfg, spec, occ=grid,
                                 mode="fused", budget=b, device=cpu)
-        n = (hash_gather_cuda.launches, hash_encode_points_cuda.launches,
-             ray_march_cuda.launches)
+        counters = (hash_encode_corners_cuda, hash_encode_points_cuda,
+                    ray_march_cuda, hash_gather_cuda)
+        n = tuple(c.launches for c in counters)
         got = tt.evaluate_psnr(dev_params, ds, cfg, rcfg, dev_spec,
                                occ=dev_grid, mode="fused", budget=b,
                                device=card)
         torch.cuda.synchronize()
-        ran = tuple(c - m for c, m in zip(
-            (hash_gather_cuda.launches, hash_encode_points_cuda.launches,
-             ray_march_cuda.launches), n))
+        ran = tuple(c.launches - m for c, m in zip(counters, n))
         assert abs(got - want) <= 1e-4, (b, got, want)
-        assert (ran[0] > 0, ran[1] > 0, ran[2] > 0) == (
-            (True, False, False) if b is None else (False, True, True)), ran
+        assert tuple(r > 0 for r in ran) == (
+            (True, False, False, False) if b is None
+            else (False, True, True, False)), ran
