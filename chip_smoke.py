@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's NeRF training and its two serving paths
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's NeRF training, the HERO search and its two
+serving paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -65,9 +65,29 @@ Phases, each of which raises on failure:
    the unfused composite among them) may have run. One request of a fresh
    pose is then profiled: wall and device time, and its launches; the
    per-slot sample budget is printed against its 16,384 cap.
-4. One request served again on the CPU from the same directory (the plain
+4. The search (after phase 3's training, before its serving), on the
+   trained field and its dataset at full width
+   (``EnvConfig()``: 1,024 trace rays, the 40-step finetune, fused PSNR;
+   ``HWConfig()``; ``DDPGConfig()``): ``NGPQuantEnv`` built (its
+   seconds, the finetune's ms a step, ``psnr_org``, ``original_cost``),
+   its trace equal to the CPU's, the card's cache statistics equal to the
+   copied numpy oracle's on the 8-bit baseline, the 26 slope policies and
+   64 random ones (cycle terms within 1e-3, ``model_bytes`` equal),
+   ``simulate_batch`` at K = 64 cold and warm on the card and on the host
+   (policies per second, the device cache walk's ms), ``hero_search`` for
+   6 episodes (4 warm-up walks, 2 by the actor) with every count zeroed
+   around them (the packed matmul, the encode from baked corners and the
+   gather-composite must rise, the bare gather and the unfused composite
+   must not; the finetune's ms a step, the PSNR's and the simulation's
+   ms), the last episode's fused PSNR within 0.1 dB of reference mode
+   (then its pack build timed and profiled apart from the evaluation),
+   ``evaluate_population`` and 2 iterations of ``hero_population_search``
+   at K = 16 (one proxy render profiled, one ``act()`` timed), and a
+   4-level env's ``evaluate_bits`` on the card and on the CPU (misses
+   equal, cycles within 1e-6, PSNR within 1e-3 dB).
+5. One request served again on the CPU from the same directory (the plain
    versions) must match the card's colours to 1e-5.
-5. The revisit stream: two more poses, each visited three times (miss;
+6. The revisit stream: two more poses, each visited three times (miss;
    miss and plan build; hit), then each jittered inside its pose cell
    (warp), counts zeroed around it: hits, warps and misses must each be
    > 0, each kernel must have launched as its tiers dictate (the encode
@@ -76,18 +96,18 @@ Phases, each of which raises on failure:
    equal, bit for bit, the same rays served on the card without the pose
    cache. Plan bytes and ``resident_bytes`` are printed, and one hit and
    one warp request are profiled beside the march request.
-6. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
+7. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
    weights from a seed) served by ``repro_torch.launch.serve``: 8 requests
    of 1024 prompt tokens and 32 generated tokens, 4 at a time. Counts are
    zeroed just before and read just after: flash attention must launch
    once per layer per prefill, decode attention once per layer per step.
-7. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
+8. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
    logits and caches within 1e-3.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, ``launches_revisit`` from the revisit stream,
 ``launches_psnr_plan`` and ``launches_psnr_march`` from the two fused
-PSNR evaluations),
+PSNR evaluations, ``launches_search`` from the search's episodes),
 the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1136,7 +1156,8 @@ def train_and_score(cfg, dev, kern):
     reference mode and in fused mode under the test set's cull plan and
     under an explicit budget (the march), each within `PSNR_BAND_DB` of
     reference mode. Returns (the finetuned artifact, the two fused
-    evaluations' launches)."""
+    evaluations' launches, the plan row's timings, (the trained params,
+    the dataset))."""
     from repro_torch.nerf import train as train_mod
     from repro_torch.nerf.dataset import make_dataset
     from repro_torch.nerf.fast_render import FastRenderEngine
@@ -1221,7 +1242,8 @@ def train_and_score(cfg, dev, kern):
                "psnr_trained": p_trained}
     art = pack_artifact(ft, act_ranges, occ, cfg, metrics=metrics,
                         name="trained")
-    return art, {"psnr_plan": l_plan, "psnr_march": l_march}, plan_chunk
+    return (art, {"psnr_plan": l_plan, "psnr_march": l_march}, plan_chunk,
+            (params, ds))
 
 
 def plan_row_corners(engine, ds):
@@ -1300,6 +1322,376 @@ def train_card_vs_cpu(dev, steps: int = 5, loss_rtol: float = 1e-5,
         raise AssertionError(f"train card vs CPU: loss {loss_gap}, leaves "
                              f"{leaf_gap}")
     return loss_gap, leaf_gap
+
+
+# ---------------------------------------------------------------------------
+# The search: the cost half of the reward, the env, DDPG and the population.
+# ---------------------------------------------------------------------------
+# Depth cuts of the search phase (PERF.md section 4): 6 episodes of the
+# reference's 40, 2 population iterations of its 12 (K = 16 as there).
+SEARCH_EPISODES, POP_ITERATIONS, POP_K = 6, 2, 16
+SIM_K = 64  # policies a simulator timing scores in one call
+ORACLE_RTOL = 1e-3  # every cycle term against the float64 numpy oracle
+CARD_CPU_RTOL, CARD_CPU_PSNR_DB = 1e-6, 1e-3
+# Kernels an episode's fused PSNR on the test set's cull plan launches,
+# and kernels off that path.
+SEARCH_KERNELS = ("quant_matmul_packed", "hash_encode_corners",
+                  "gather_composite")
+SEARCH_OFF_PATH = ("hash_gather", "alpha_composite")
+
+
+def oracle_policies(env, n_random: int = 64, seed: int = 0):
+    """The 8-bit baseline, the env's 26 slope policies (one unit 8 -> 4)
+    and `n_random` random ones, in walk order."""
+    n = env.n_units
+    slopes = np.full((n, n), 8)
+    slopes[np.arange(n), np.arange(n)] = 4
+    rand = np.random.RandomState(seed).randint(1, 9, size=(n_random, n))
+    return np.concatenate([np.full((1, n), 8), slopes, rand])
+
+
+def cache_stats_vs_oracle(benv, bits, dev):
+    """A fresh card simulator on the env's trace scores every policy in
+    one call; the copied float64 numpy oracle walks each (threads: its
+    sorts release the interpreter lock). The cache statistics must be
+    equal, every cycle term within `ORACLE_RTOL`, `model_bytes` equal."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.hwsim import BatchedNeuRexSimulator, NeuRexSimulator
+
+    env = benv.env
+    hw, res = env.target.hw, env.cfg.hash.resolutions()
+    hb, wb, ab = benv.bits_to_arrays(bits)
+    sim = BatchedNeuRexSimulator(env.trace, hw, n_features=2,
+                                 resolutions=res, device=dev)
+    t0 = time.perf_counter()
+    got = sim.simulate_batch(hb, wb, ab)
+    card_s = time.perf_counter() - t0
+    oracle = NeuRexSimulator(hw, backend="numpy")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        want = list(ex.map(lambda i: oracle.simulate(
+            env.trace, hb[i], wb[i], ab[i], resolutions=res),
+            range(len(hb))))
+    oracle_s = time.perf_counter() - t0
+    worst = 0.0
+    for i, w in enumerate(want):
+        st = w.grid_cache
+        if (int(got["grid_hits"][i]), int(got["grid_misses"][i]),
+                int(got["grid_cold_misses"][i])) != (st.hits, st.misses,
+                                                     st.cold_misses):
+            raise AssertionError(f"policy {i}: card cache statistics "
+                                 f"{got['grid_misses'][i]} misses, oracle "
+                                 f"{st}")
+        if float(got["model_bytes"][i]) != w.model_bytes:
+            raise AssertionError(f"policy {i}: model_bytes "
+                                 f"{got['model_bytes'][i]} != {w.model_bytes}")
+        for key in ("lookup_cycles", "grid_miss_cycles",
+                    "subgrid_prefetch_cycles", "encode_cycles",
+                    "mlp_compute_cycles", "total_cycles", "dram_bytes"):
+            ref = getattr(w, key)
+            gap = abs(float(got[key][i]) - ref) / max(abs(ref), 1e-30)
+            worst = max(worst, gap)
+    if not worst <= ORACLE_RTOL:
+        raise AssertionError(f"a cycle term is {worst} off the oracle")
+    tc = sim.tc
+    distinct = len({tuple(r) for r in np.round(hb[:, :tc.n_coarse] * 2)})
+    print(f"cache statistics against the numpy oracle: {len(bits)} policies "
+          f"({distinct} coarse combinations, {tc.n_points * 8 * tc.n_coarse} "
+          f"accesses each) equal, "
+          f"cycle terms within {worst:.3g} (tolerance {ORACLE_RTOL}), "
+          f"model_bytes equal; card {card_s:.3f} s in one call, oracle "
+          f"{oracle_s:.2f} s on 8 threads; misses "
+          f"{int(got['grid_misses'].min())}..{int(got['grid_misses'].max())}")
+
+
+def simulator_speed(benv, dev):
+    """`simulate_batch` at K = `SIM_K` random policies, cold (memo
+    cleared) and warm, on the card and on the host, their results equal;
+    and the device sort of the K streams alone, timed by CUDA events."""
+    from repro_torch.hwsim import BatchedNeuRexSimulator
+    from repro_torch.hwsim.batched import grid_cache_stats
+
+    env = benv.env
+    hw, res = env.target.hw, env.cfg.hash.resolutions()
+    bits = np.random.RandomState(1).randint(1, 9, size=(SIM_K, env.n_units))
+    hb, wb, ab = benv.bits_to_arrays(bits)
+    out, rates = [], []  # the card's, then the host's
+    for where in (dev, torch.device("cpu")):
+        sim = BatchedNeuRexSimulator(env.trace, hw, n_features=2,
+                                     resolutions=res, device=where)
+        times = []
+        for memo in ("cold", "warm"):
+            if memo == "cold":
+                sim.clear_stats_memo()
+            t0 = time.perf_counter()
+            got = sim.simulate_batch(hb, wb, ab)
+            times.append(time.perf_counter() - t0)
+        out.append(got)
+        rates.append([SIM_K / t for t in times])
+    (card, host), (card_rate, host_rate) = out, rates
+    for key in ("grid_hits", "grid_misses", "grid_cold_misses",
+                "model_bytes"):
+        if not np.array_equal(card[key], host[key]):
+            raise AssertionError(f"card and host simulators differ in {key}")
+    gap = float(np.max(np.abs(card["total_cycles"].astype(np.float64)
+                              - host["total_cycles"])
+                       / host["total_cycles"]))
+    if not gap <= CARD_CPU_RTOL:
+        raise AssertionError(f"card and host cycles differ by {gap}")
+    tc = sim.tc
+    eb8 = torch.from_numpy(np.round(hb[:, :tc.n_coarse] * 2)
+                           .astype(np.int64)).to(dev)
+    coarse = torch.from_numpy(tc.coarse_indices).to(dev)
+    sort_ms = median_ms(lambda: grid_cache_stats(eb8, tc, hw, coarse),
+                        iters=5, warmup=1)
+    n_acc = tc.n_points * 8 * tc.n_coarse
+    speedup = card_rate[0] / host_rate[0]
+    print(f"simulate_batch K={SIM_K}: card {card_rate[0]:.1f} policies/s "
+          f"cold, {card_rate[1]:.1f} warm; host "
+          f"{host_rate[0]:.2f} cold, {host_rate[1]:.1f} warm (cold: "
+          f"card {speedup:.1f}x the host); the device cache walk of "
+          f"{SIM_K} x {n_acc} accesses {sort_ms:.3f} ms "
+          f"({sort_ms / SIM_K:.4f} ms a policy); card and host equal "
+          f"(cycles within {gap:.3g})")
+
+
+class EpisodeTimer:
+    """Times an env's PSNR scores and simulator calls (CUDA-synchronised
+    host clock) while in use."""
+
+    def __init__(self, env):
+        self.env, self.ms = env, {"psnr": [], "simulate": []}
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def __enter__(self):
+        self.env.eval_psnr = self._wrap("psnr", self.env.eval_psnr)
+        self.env.simulate_policy = self._wrap("simulate",
+                                              self.env.simulate_policy)
+        return self
+
+    def __exit__(self, *exc):
+        del self.env.eval_psnr, self.env.simulate_policy
+
+
+def act_ms(dev, n_units: int) -> float:
+    """Median host ms of one `DDPGAgent.act()` past warm-up on the card
+    (one actor forward and one scalar copy to the host)."""
+    from repro_torch.core import DDPGAgent
+
+    agent = DDPGAgent(device=dev)
+    agent._episodes_seen = agent.cfg.warmup_episodes
+    obs = np.random.RandomState(0).rand(n_units, 7).astype(np.float32)
+    ms = []
+    for o in np.concatenate([obs, obs]):
+        t0 = time.perf_counter()
+        agent.act(o)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[n_units:]))
+
+
+def search_card_vs_cpu(dev, bits_seed: int = 3):
+    """A 4-level env on the card and on the CPU from the same briefly
+    trained field: `evaluate_bits(bits, finetune_steps=0)` of two policies
+    gives equal misses, cycles within `CARD_CPU_RTOL` relative and PSNR
+    within `CARD_CPU_PSNR_DB`."""
+    from repro_torch.core import EnvConfig, NGPQuantEnv
+    from repro_torch.hwsim import HWConfig
+    from repro_torch.nerf import train as train_mod
+    from repro_torch.nerf.dataset import make_dataset
+    from repro_torch.nerf.hash_encoding import HashEncodingConfig
+    from repro_torch.nerf.ngp import NGPConfig
+    from repro_torch.nerf.render import RenderConfig
+    from repro_torch.nerf.scenes import SceneConfig
+
+    cfg = NGPConfig(hash=HashEncodingConfig(n_levels=4, log2_table_size=9,
+                                            base_resolution=4,
+                                            max_resolution=32),
+                    hidden_dim=16, color_hidden_dim=16, geo_feat_dim=7,
+                    sh_degree=2)
+    rcfg, cpu = RenderConfig(n_samples=16), torch.device("cpu")
+    tcfg = train_mod.TrainConfig(steps=20, batch_rays=64)
+    ds = make_dataset(SceneConfig(image_hw=16, n_train_views=4,
+                                  n_test_views=2), device=cpu)
+    params, _ = train_mod.train_ngp(ds, cfg, rcfg, tcfg, device=cpu)
+    ecfg = EnvConfig(finetune_steps=0, trace_rays=64, calib_points=256)
+    envs = [NGPQuantEnv(to_device(params, d), ds, cfg, rcfg, tcfg, ecfg,
+                        HWConfig(coarse_levels=2), device=d)
+            for d in (dev, cpu)]
+    rng = np.random.RandomState(bits_seed)
+    worst = [0.0, 0.0]
+    for bits in ([8] * 14, [int(b) for b in rng.randint(1, 9, size=14)]):
+        card, host = (e.evaluate_bits(bits, finetune_steps=0) for e in envs)
+        m = [e.simulate_policy(r.policy).grid_cache.misses
+             for e, r in zip(envs, (card, host))]
+        cyc = abs(card.latency_cycles - host.latency_cycles) \
+            / host.latency_cycles
+        dpsnr = abs(card.psnr - host.psnr)
+        worst = [max(worst[0], cyc), max(worst[1], dpsnr)]
+        if m[0] != m[1] or not cyc <= CARD_CPU_RTOL \
+                or not dpsnr <= CARD_CPU_PSNR_DB:
+            raise AssertionError(f"search card vs CPU, bits {bits}: misses "
+                                 f"{m}, cycles {cyc}, PSNR {dpsnr}")
+    print(f"search card vs CPU (4-level env, 2 policies): misses equal, "
+          f"cycles within {worst[0]:.3g} (tolerance {CARD_CPU_RTOL}), PSNR "
+          f"within {worst[1]:.3g} dB (tolerance {CARD_CPU_PSNR_DB})")
+
+
+def search_phase(cfg, params, ds, dev, kern):
+    """The HERO search at `cfg` width on the trained chair: the env
+    (`EnvConfig()`, `HWConfig()`), its trace against the CPU's, the card's
+    cache statistics against the numpy oracle, the simulator's speed,
+    `hero_search` for `SEARCH_EPISODES` episodes with every kernel's count
+    zeroed around them, one episode's fused PSNR against reference mode,
+    the population (`evaluate_population` and `hero_population_search`),
+    and a 4-level env card against CPU. Returns the episodes' launches."""
+    from repro_torch.core import (
+        BatchedEnvConfig,
+        BatchedQuantEnv,
+        EnvConfig,
+        NGPQuantEnv,
+        PopulationSearchConfig,
+        SearchConfig,
+        hero_population_search,
+        hero_search,
+    )
+    from repro_torch.hwsim import build_trace
+    from repro_torch.nerf import train as train_mod
+    from repro_torch.nerf.fast_render import FastRenderEngine, build_fused_pack
+    from repro_torch.nerf.ngp import spec_from_policy
+    from repro_torch.nerf.render import RenderConfig
+
+    t_phase = time.perf_counter()
+    rcfg, tcfg, ecfg = RenderConfig(), train_mod.TrainConfig(), EnvConfig()
+    t0 = time.perf_counter()
+    with StepTimer(train_mod) as timer:
+        env = NGPQuantEnv(params, ds, cfg, rcfg, tcfg, ecfg, device=dev)
+    env_s = time.perf_counter() - t0
+    print(f"NGPQuantEnv (EnvConfig(), HWConfig()): built in {env_s:.2f} s "
+          f"(trace, calibration, bake, {ecfg.finetune_steps}-step 8-bit "
+          f"finetune at {timer.summary()[0]:.3f} ms a step, fused PSNR, "
+          f"{env.n_units} slopes); psnr_org {env.psnr_org:.4f} dB, "
+          f"original_cost {env.original_cost:.1f} cycles")
+
+    idx = np.random.RandomState(0).randint(0, ds.train_rays_o.shape[0],
+                                           size=ecfg.trace_rays)
+    t0 = time.perf_counter()
+    host = build_trace(cfg, rcfg, ds.train_rays_o[idx], ds.train_rays_d[idx],
+                       env.target.hw.subgrid_resolution, device="cpu")
+    host_s = time.perf_counter() - t0
+    for a, b in zip(env.trace.level_indices, host.level_indices):
+        if not np.array_equal(a, b):
+            raise AssertionError("the card's trace differs from the CPU's")
+    if not (np.array_equal(env.trace.subgrid_ids, host.subgrid_ids)
+            and env.trace.mlp_dims == host.mlp_dims
+            and env.trace.level_entries == host.level_entries):
+        raise AssertionError("the card's trace differs from the CPU's")
+    print(f"trace: {env.trace.n_points} points x {len(host.level_indices)} "
+          f"levels, card equal to CPU (CPU build {host_s:.2f} s)")
+
+    t0 = time.perf_counter()
+    benv = BatchedQuantEnv(env, BatchedEnvConfig(), device=dev)
+    benv_s = time.perf_counter() - t0
+    cache_stats_vs_oracle(benv, oracle_policies(env), dev)
+    simulator_speed(benv, dev)
+
+    for fn in kern.values():
+        fn.launches = 0
+    with StepTimer(train_mod) as timer, EpisodeTimer(env) as ep:
+        t0 = time.perf_counter()
+        res = hero_search(env, SearchConfig(n_episodes=SEARCH_EPISODES,
+                                            verbose=False), device=dev)
+        search_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kern.items()}
+    for i, h in enumerate(res.history):
+        if not (np.isfinite(h.psnr) and h.latency_cycles > 0):
+            raise AssertionError(f"episode {i}: {h}")
+        print(f"  episode {i} ({'warm-up' if i < 4 else 'actor'}): bits "
+              f"{''.join(map(str, h.bits))}, PSNR {h.psnr:.4f} dB, latency "
+              f"{h.latency_cycles:.1f} cycles, model {h.model_bytes:.0f} B, "
+              f"reward {h.reward:+.4f}, {h.wall_seconds:.2f} s")
+    ft_ms = timer.summary()[0]
+    print(f"hero_search: {SEARCH_EPISODES} episodes in {search_s:.2f} s; "
+          f"finetune median {ft_ms:.3f} ms a step, PSNR median "
+          f"{np.median(ep.ms['psnr']):.2f} ms, simulation median "
+          f"{np.median(ep.ms['simulate']):.2f} ms an episode; launches "
+          f"{launches}")
+    if min(launches[k] for k in SEARCH_KERNELS) <= 0 or any(
+            launches[k] for k in SEARCH_OFF_PATH):
+        raise AssertionError(f"the episodes did not launch each of "
+                             f"{SEARCH_KERNELS}, or launched one of "
+                             f"{SEARCH_OFF_PATH}: {launches}")
+
+    last = res.history[-1]
+    spec = spec_from_policy(cfg, last.policy, env.act_ranges)
+    ft, _ = train_mod.finetune_ngp(dict(env.params), ds, cfg, rcfg, tcfg,
+                                   spec, ecfg.finetune_steps, device=dev)
+    fused = env.eval_psnr(ft, spec)
+    ref = train_mod.evaluate_psnr(ft, ds, cfg, rcfg, spec, device=dev)
+    print(f"episode {len(res.history) - 1} again: fused PSNR {fused:.4f} dB "
+          f"(the episode read {last.psnr:.4f}), reference mode {ref:.4f} dB")
+    if not abs(fused - ref) < PSNR_BAND_DB:
+        raise AssertionError(f"the episode's fused PSNR {fused} is not "
+                             f"within {PSNR_BAND_DB} dB of reference mode")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pack = build_fused_pack(ft, cfg, spec)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    engine = FastRenderEngine(ft, cfg, rcfg, spec=spec, occ=env.occ,
+                              mode="fused", pack=pack, device=dev)
+    t0 = time.perf_counter()
+    engine.evaluate_psnr(ds)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    print(f"an episode's fused PSNR: the pack build {pack_ms:.1f} ms, the "
+          f"evaluation on the built pack {eval_ms:.1f} ms")
+    profile("the fused pack build of an episode's policy",
+            lambda: build_fused_pack(ft, cfg, spec))
+
+    bits = np.random.RandomState(2).randint(1, 9, size=(POP_K, env.n_units))
+    t0 = time.perf_counter()
+    ev = benv.evaluate_population(bits)
+    pop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    benv.simulate_batch(bits)
+    sim_s = time.perf_counter() - t0
+    if not (np.all(np.isfinite(ev.psnr)) and ev.k == POP_K
+            and np.all(ev.latency_cycles > 0)):
+        raise AssertionError(f"evaluate_population: {ev}")
+    t0 = time.perf_counter()
+    pres = hero_population_search(
+        benv, PopulationSearchConfig(n_iterations=POP_ITERATIONS,
+                                     population=POP_K, verbose=False),
+        device=dev)
+    psearch_s = time.perf_counter() - t0
+    if pres.policies_evaluated != POP_ITERATIONS * POP_K \
+            or not np.isfinite(pres.best_reward):
+        raise AssertionError(f"hero_population_search: {pres}")
+    act = act_ms(dev, env.n_units)
+    profile("one proxy render (K = 1, 512 rays, reference mode)",
+            lambda: benv.evaluate_population(bits[:1]))
+    print(f"BatchedQuantEnv built in {benv_s:.2f} s (proxy PSNR of the 8-bit "
+          f"policy {benv.psnr_org_proxy:.4f} dB); evaluate_population K="
+          f"{POP_K}: {pop_s:.3f} s ({POP_K / pop_s:.1f} policies/s; its "
+          f"simulator alone {sim_s * 1e3:.1f} ms), proxy PSNR "
+          f"{ev.psnr.min():.3f}..{ev.psnr.max():.3f} dB; "
+          f"hero_population_search {POP_ITERATIONS} x {POP_K}: "
+          f"{psearch_s:.2f} s ({pres.policies_evaluated / psearch_s:.1f} "
+          f"policies/s), best reward {pres.best_reward:+.4f}; one act() "
+          f"{act:.3f} ms ({env.n_units} a walk)")
+    search_card_vs_cpu(dev)
+    print(f"search phase: {time.perf_counter() - t_phase:.2f} s")
+    return launches
 
 
 def request_rays(n_requests: int, hw: int, held_out: bool = False):
@@ -1775,7 +2167,8 @@ def main() -> int:
 
     kern = counters()
     t0 = time.perf_counter()
-    art, psnr_launches, plan_chunk = train_and_score(cfg, dev, kern)
+    art, psnr_launches, plan_chunk, (trained, ds) = train_and_score(
+        cfg, dev, kern)
     corners = next(e for e in entries if e["name"] == "hash_encode_corners")
     corners.update(ms_plan_chunk=plan_chunk["ms"],
                    plain_ms_plan_chunk=plan_chunk["plain_ms"],
@@ -1783,6 +2176,8 @@ def main() -> int:
                    points_kernel_ms_plan_chunk=plan_chunk["points_kernel_ms"])
     print(f"training phase: {time.perf_counter() - t0:.2f} s")
     train_card_vs_cpu(dev)
+    psnr_launches["search"] = search_phase(cfg, trained, ds, dev, kern)
+    del trained, ds
     t0 = time.perf_counter()
     requests = request_rays(8, 64)
     fresh = request_rays(3, 64, held_out=True)[0]

@@ -4,9 +4,10 @@ The JAX package's NGP parameters are `{top: {sub: array}}` dicts, its
 packed tensors carry `words`/`scale`/`offset` arrays beside static
 `bits`, `shape` and `layout`, its `FusedPack` holds `layers`,
 `hash_tables`, `modes` and `layout`, its AdamW state `step`, `mu` and
-`nu`, its `NGPDataset` numpy arrays beside a `SceneConfig`, and its LM
-parameters are a nested dict whose block leaves are stacked over
-periods. These functions read any such object through `np.asarray`
+`nu`, its `NGPDataset` numpy arrays beside a `SceneConfig`, its DDPG
+train state actor, critic and target dicts beside two AdamW states, its
+`NGPTrace` numpy index arrays, and its LM parameters are a nested dict
+whose block leaves are stacked over periods. These functions read any such object through `np.asarray`
 (numpy arrays, or anything that converts to one, bfloat16 included) and
 build the port's counterparts on `device`, so both packages can compute
 on the same weights, optimizer state and data. Nothing here imports the
@@ -20,6 +21,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.core.ddpg import _TrainState
+from repro_torch.hwsim.trace import NGPTrace
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.nerf.dataset import NGPDataset
 from repro_torch.nerf.fast_render import FusedPack, repack_fused_pack
@@ -72,6 +75,31 @@ def dataset_from_numpy(ds) -> NGPDataset:
                          for f in dataclasses.fields(SceneConfig)})
     return NGPDataset(ds.scene_name, cfg,
                       *(np.asarray(getattr(ds, a)) for a in _DATASET_ARRAYS))
+
+
+def ddpg_state_from_numpy(state, device: DeviceLike = None):
+    """A DDPG train state (`actor`, `critic`, `target_actor`,
+    `target_critic` dicts of arrays, `actor_opt` and `critic_opt` AdamW
+    states) -> the port's `_TrainState` on `device`."""
+    dev = resolve_device(device)
+    return _TrainState(
+        actor=_tree(state.actor, dev), critic=_tree(state.critic, dev),
+        target_actor=_tree(state.target_actor, dev),
+        target_critic=_tree(state.target_critic, dev),
+        actor_opt=adamw_state_from_numpy(state.actor_opt, dev),
+        critic_opt=adamw_state_from_numpy(state.critic_opt, dev))
+
+
+def trace_from_numpy(trace):
+    """An `NGPTrace` (index arrays, entries, subgrid ids, layer dims and
+    names) -> the port's, with the arrays as they are."""
+    return NGPTrace(
+        n_rays=int(trace.n_rays), n_samples=int(trace.n_samples),
+        level_indices=[np.asarray(a) for a in trace.level_indices],
+        level_entries=[int(e) for e in trace.level_entries],
+        subgrid_ids=np.asarray(trace.subgrid_ids),
+        mlp_dims=[tuple(int(v) for v in d) for d in trace.mlp_dims],
+        mlp_names=list(trace.mlp_names))
 
 
 def packed_from_numpy(pt, device: DeviceLike = None) -> PackedTensor:

@@ -18,7 +18,12 @@ tile-edge and split-edge cases are held to 5e-3 in bfloat16, the limit
 the card against the CPU: the loss within 1e-5 relative and every leaf
 within 5e-5 after five steps (another summation order in the tables'
 backward and the matmuls);
-fused `evaluate_psnr` against its plain versions within 1e-4 dB."""
+fused `evaluate_psnr` against its plain versions within 1e-4 dB. The
+search: the device cache walk equal to the host walk and the numpy
+oracle at the paper trace size, a card simulator's cycles within 1e-6
+relative of a host one's, and a 4-level env's episode on the card
+against the CPU (misses equal, cycles within 1e-6, PSNR within 1e-3
+dB)."""
 import importlib.util
 from pathlib import Path
 
@@ -952,3 +957,66 @@ def test_fused_evaluate_psnr_card_against_plain_versions(card):
         assert tuple(r > 0 for r in ran) == (
             (True, False, False, False) if b is None
             else (False, True, True, False)), ran
+
+
+# ---------------------------------------------------------------------------
+# The search on the card
+# ---------------------------------------------------------------------------
+def test_device_cache_stats_equal_the_oracle_at_the_paper_trace(card):
+    """The paper config's trace of 1,024 rays (2.1 M grid-cache accesses a
+    policy, `EnvConfig()`'s size): the device form's statistics of 12
+    coarse-bit combinations in one call equal the host form's, and the
+    copied float64 oracle's walk for three of them; a card simulator
+    equals a host one on 12 whole policies."""
+    from repro_torch.configs.ngp import paper
+    from repro_torch.hwsim import (
+        BatchedNeuRexSimulator,
+        HWConfig,
+        NeuRexSimulator,
+        build_trace,
+    )
+    from repro_torch.hwsim.batched import (
+        build_trace_constants,
+        grid_cache_stats,
+        grid_cache_stats_host,
+    )
+
+    cfg, hw = paper(), HWConfig()
+    rng = np.random.RandomState(0)
+    ro = rng.randn(1024, 3).astype(np.float32) * 0.3
+    rd = rng.randn(1024, 3).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    trace = build_trace(cfg, RenderConfig(), ro, rd, device=card)
+    tc = build_trace_constants(trace, hw, 2, cfg.hash.resolutions())
+    assert tc.n_points * 8 * tc.n_coarse == 2 ** 21
+    bits = rng.randint(1, 9, (12, 16)).astype(np.float32)
+    bits[0] = 8.0
+    eb8 = (bits[:, :8] * 2).astype(np.int64)
+    hits, misses, cold = grid_cache_stats(torch.from_numpy(eb8).to(card),
+                                          tc, hw)
+    got = torch.stack([hits, misses, cold], dim=-1).cpu().tolist()
+    for i in range(12):
+        assert tuple(got[i]) == grid_cache_stats_host(eb8[i], tc, hw)
+    oracle = NeuRexSimulator(hw, backend="numpy")
+    eight = [8.0] * 5
+    for i in range(3):
+        st = oracle.simulate(trace, bits[i], eight, eight,
+                             resolutions=cfg.hash.resolutions()).grid_cache
+        assert tuple(got[i]) == (st.hits, st.misses, st.cold_misses)
+    wb = rng.randint(1, 9, (12, 5)).astype(np.float32)
+    sims = [BatchedNeuRexSimulator(trace, hw, resolutions=cfg.hash
+                                   .resolutions(), device=d)
+            for d in (card, torch.device("cpu"))]
+    a, b = (s.simulate_batch(bits, wb, wb) for s in sims)
+    np.testing.assert_array_equal(a["grid_misses"], b["grid_misses"])
+    np.testing.assert_array_equal(a["model_bytes"], b["model_bytes"])
+    np.testing.assert_allclose(a["total_cycles"], b["total_cycles"],
+                               rtol=1e-6)
+
+
+def test_search_env_card_against_cpu(card):
+    """A 4-level env on the card and on the CPU from the same field:
+    `evaluate_bits(bits, finetune_steps=0)` gives equal misses, cycles
+    within 1e-6 relative and PSNR within 1e-3 dB (`chip_smoke.py`'s
+    `search_card_vs_cpu`, which raises beyond them)."""
+    CS.search_card_vs_cpu(card)

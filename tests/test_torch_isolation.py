@@ -86,6 +86,57 @@ def test_default_device_entry_points_raise_without_a_card(no_card, tmp_path):
     FastRenderEngine(params, cfg, RenderConfig(), device="cpu")
 
 
+def test_search_entry_points_raise_without_a_card(no_card):
+    """The simulator, the targets, the envs, the agent and both searches
+    run on the card by default and raise without one, before any work."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs.ngp import cpu_scale
+    from repro_torch.core import (
+        BatchedQuantEnv,
+        DDPGAgent,
+        NGPQuantEnv,
+        hero_population_search,
+        hero_search,
+    )
+    from repro_torch.hero.targets import (
+        NeuRexTarget,
+        RooflineTarget,
+        make_target,
+    )
+    from repro_torch.hwsim import (
+        BatchedNeuRexSimulator,
+        NeuRexSimulator,
+        build_trace,
+    )
+    from repro_torch.nerf.render import RenderConfig
+
+    cfg, rcfg = cpu_scale(), RenderConfig(n_samples=4)
+    rays = np.zeros((2, 3), np.float32)
+    calls = [
+        lambda: build_trace(cfg, rcfg, rays, rays),
+        lambda: BatchedNeuRexSimulator(object()),
+        lambda: NeuRexSimulator(),
+        lambda: NeuRexTarget(),
+        lambda: RooflineTarget(),
+        lambda: make_target("neurex-edge"),
+        lambda: NGPQuantEnv({}, None, cfg, rcfg, None),
+        lambda: BatchedQuantEnv(object()),
+        lambda: DDPGAgent(),
+        lambda: hero_search(object()),
+        lambda: hero_population_search(SimpleNamespace(env=object())),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # Asking for the CPU works; the numpy oracle needs no device.
+    assert NeuRexSimulator(backend="numpy").device is None
+    trace = make_target("neurex", device="cpu").build_workload(
+        cfg, rcfg, rays, rays)
+    BatchedNeuRexSimulator(trace, device="cpu").baseline_batch()
+    DDPGAgent(device="cpu")
+
+
 def test_training_entry_points_raise_without_a_card(no_card):
     from repro_torch.configs.ngp import cpu_scale
     from repro_torch.nerf.dataset import make_dataset
