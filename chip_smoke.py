@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's NeRF training, the HERO search and its two
-serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's NeRF training, the HERO search, its
+search -> compile -> serve pipeline and its two serving paths on one NVIDIA
+GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -85,9 +86,30 @@ Phases, each of which raises on failure:
    at K = 16 (one proxy render profiled, one ``act()`` timed), and a
    4-level env's ``evaluate_bits`` on the card and on the CPU (misses
    equal, cycles within 1e-6, PSNR within 1e-3 dB).
-5. One request served again on the CPU from the same directory (the plain
-   versions) must match the card's colours to 1e-5.
-6. The revisit stream: two more poses, each visited three times (miss;
+5. The pipeline (after the search), through the public entry points on
+   the same env and batched env wrapped in a ``WorkloadBundle``:
+   ``HeroSearchRun`` over budgets 1.0 and 0.85, 2 iterations at K = 16 a
+   cell, every count zeroed around it (policies/s, the frontier's size
+   and hypervolume, ``seconds_to_fixed_bit``; ``bench_report``'s
+   ``frontier_valid_vs_8bit`` must hold; the loop's time split into the
+   population's proxy renders and simulator, the budget enforcement, the
+   actor walks and the agent updates); the same run stopped after one
+   cell and resumed (its one cell profiled) must equal it (frontiers,
+   sizes, cells' bits); the
+   best policy compiled by ``hero.compile`` with counts zeroed around it
+   (the packed matmul, the encode from baked corners and the
+   gather-composite must rise, the bare gather and the unfused composite
+   must not; finetune, PSNR, pack build and simulation timed apart), its
+   ``model_bytes`` equal to the simulator's, its PSNR within 0.1 dB of
+   reference mode; saved, loaded and served by ``hero.serve`` (8 fresh
+   poses: the fused encode, the march and the gather-composite once a
+   slot render, nothing else but the packed matmul), one request matching
+   the CPU's colours to 1e-5; and ``hero-search-torch --quick`` (one
+   budget, one iteration of 8) returning 0 with a non-empty frontier.
+6. One request of phase 3's artifact served again on the CPU from the
+   same directory (the plain versions) must match the card's colours to
+   1e-5.
+7. The revisit stream: two more poses, each visited three times (miss;
    miss and plan build; hit), then each jittered inside its pose cell
    (warp), counts zeroed around it: hits, warps and misses must each be
    > 0, each kernel must have launched as its tiers dictate (the encode
@@ -96,18 +118,20 @@ Phases, each of which raises on failure:
    equal, bit for bit, the same rays served on the card without the pose
    cache. Plan bytes and ``resident_bytes`` are printed, and one hit and
    one warp request are profiled beside the march request.
-7. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
+8. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
    weights from a seed) served by ``repro_torch.launch.serve``: 8 requests
    of 1024 prompt tokens and 32 generated tokens, 4 at a time. Counts are
    zeroed just before and read just after: flash attention must launch
    once per layer per prefill, decode attention once per layer per step.
-8. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
+9. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
    logits and caches within 1e-3.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, ``launches_revisit`` from the revisit stream,
 ``launches_psnr_plan`` and ``launches_psnr_march`` from the two fused
-PSNR evaluations, ``launches_search`` from the search's episodes),
+PSNR evaluations, ``launches_search`` from the search's episodes,
+``launches_closed_loop``, ``launches_compile`` and
+``launches_pipeline_serve`` from the pipeline's three stages),
 the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1553,7 +1577,8 @@ def search_phase(cfg, params, ds, dev, kern):
     `hero_search` for `SEARCH_EPISODES` episodes with every kernel's count
     zeroed around them, one episode's fused PSNR against reference mode,
     the population (`evaluate_population` and `hero_population_search`),
-    and a 4-level env card against CPU. Returns the episodes' launches."""
+    and a 4-level env card against CPU. Returns (the episodes' launches,
+    the env, the batched env)."""
     from repro_torch.core import (
         BatchedEnvConfig,
         BatchedQuantEnv,
@@ -1691,7 +1716,249 @@ def search_phase(cfg, params, ds, dev, kern):
           f"{act:.3f} ms ({env.n_units} a walk)")
     search_card_vs_cpu(dev)
     print(f"search phase: {time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return launches, env, benv
+
+
+# ---------------------------------------------------------------------------
+# The pipeline: search -> compile -> serve through the public entry points.
+# ---------------------------------------------------------------------------
+# Depth cuts of the pipeline phase (PERF.md section 4): one scene, two
+# budgets, 2 population iterations at the reference's K = 16 a cell.
+PIPE_BUDGETS, PIPE_ITERATIONS, PIPE_K = (1.0, 0.85), 2, 16
+# Kernels the compile's fused PSNR (the plan path) launches, and kernels
+# the served compiled artifact's march tier launches; the rest are off
+# those paths.
+COMPILE_KERNELS = ("quant_matmul_packed", "hash_encode_corners",
+                   "gather_composite")
+
+
+def zeroed(kern):
+    for fn in kern.values():
+        fn.launches = 0
+
+
+def read(kern):
+    torch.cuda.synchronize()
+    return {n: fn.launches for n, fn in kern.items()}
+
+
+class CallTimer:
+    """Adds up the CUDA-synchronised host seconds of calls to the named
+    attributes of `owner` while in use."""
+
+    def __init__(self, owner, *names):
+        self.owner, self.names = owner, names
+        self.s = {n: 0.0 for n in names}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.owner, n) for n in self.names}
+        self.own = {n for n in self.names if n in vars(self.owner)}
+        for n, fn in self.saved.items():
+            def timed(*args, _n=n, _fn=fn, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.s[_n] += time.perf_counter() - t0
+                return out
+            setattr(self.owner, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            if n in self.own:
+                setattr(self.owner, n, fn)
+            else:  # an instance's method: drop the wrapper
+                delattr(self.owner, n)
+
+
+def same_results(a, b) -> bool:
+    """Equal joint and per-scene frontiers (objective sets and sizes) and
+    equal best bits per cell."""
+    return (a.frontier.objective_set() == b.frontier.objective_set()
+            and len(a.frontier) == len(b.frontier)
+            and set(a.scene_frontiers) == set(b.scene_frontiers)
+            and all(a.scene_frontiers[s].objective_set()
+                    == b.scene_frontiers[s].objective_set()
+                    and len(a.scene_frontiers[s]) == len(b.scene_frontiers[s])
+                    for s in a.scene_frontiers)
+            and [c.best_bits for c in a.cells]
+            == [c.best_bits for c in b.cells])
+
+
+def pipeline_phase(env, benv, dev, kern):
+    """HERO's main path through its public entry points, on the search
+    phase's `paper()`-width env and batched env: the closed loop over two
+    budgets (`HeroSearchRun`, launches counted), a stopped and resumed run
+    equal to it, the best policy compiled (`hero.compile`, launches
+    counted, `model_bytes` exact, PSNR within `PSNR_BAND_DB` of reference
+    mode), saved, loaded and served (`hero.serve`, 8 fresh poses, launches
+    counted, one request within 1e-5 of the CPU's), and the `--quick` CLI
+    search. Returns the launches of the loop, the compile and the
+    serving."""
+    import repro_torch.hero as hero
+    from repro_torch.core import search as search_mod
+    from repro_torch.core.closed_loop import (
+        ClosedLoopConfig,
+        HeroSearchRun,
+        bench_report,
+        scene_bundle,
+    )
+    from repro_torch.core.ddpg import DDPGAgent
+    from repro_torch.hero import artifact as artifact_mod
+    from repro_torch.hero import cli
+    from repro_torch.nerf import train as train_mod
+    from repro_torch.quant.policy import QuantPolicy
+
+    t_phase = time.perf_counter()
+    bundle = scene_bundle(env, benv)
+    cfg = ClosedLoopConfig(scenes=(bundle.scene,), budget_fracs=PIPE_BUDGETS,
+                           n_iterations=PIPE_ITERATIONS, population=PIPE_K,
+                           verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        full_cfg = dataclasses.replace(cfg, checkpoint_path=str(tmp / "a.json"))
+        zeroed(kern)
+        with CallTimer(benv, "evaluate_population", "_mse_batch",
+                       "simulate_batch") as pop_t, \
+                CallTimer(env, "enforce_latency_target") as enf_t, \
+                CallTimer(search_mod, "_agent_walk") as walk_t, \
+                CallTimer(DDPGAgent, "update") as upd_t:
+            t0 = time.perf_counter()
+            result = HeroSearchRun(full_cfg, {bundle.scene: bundle},
+                                   device=dev).run()
+            loop_s = time.perf_counter() - t0
+        loop = read(kern)
+        report = bench_report(result, full_cfg)
+        print(f"closed loop ({len(PIPE_BUDGETS)} budgets x "
+              f"{PIPE_ITERATIONS} iterations x K={PIPE_K}): {loop_s:.2f} s, "
+              f"{result.policies_evaluated} policies, "
+              f"{result.policies_per_sec:.2f} policies/s of search "
+              f"({result.search_seconds:.2f} s), frontier "
+              f"{len(result.frontier)} points, hypervolume "
+              f"{result.hypervolume():.6f}, seconds_to_fixed_bit "
+              f"{result.seconds_to_fixed_bit}; launches {loop}")
+        print(f"  where the loop's time went: evaluate_population "
+              f"{pop_t.s['evaluate_population']:.3f} s (its proxy renders "
+              f"{pop_t.s['_mse_batch']:.3f} s, its simulator "
+              f"{pop_t.s['simulate_batch']:.3f} s), budget enforcement "
+              f"{enf_t.s['enforce_latency_target']:.3f} s, actor walks "
+              f"{walk_t.s['_agent_walk']:.3f} s, agent updates "
+              f"{upd_t.s['update']:.3f} s")
+        for c in result.cells:
+            print(f"  cell {c.scene}@{c.budget_frac:g}: target "
+                  f"{c.latency_target:.1f} cycles, best reward "
+                  f"{c.best_reward:+.4f}, bits "
+                  f"{''.join(map(str, c.best_bits))}, "
+                  f"{c.admitted_to_frontier} admitted, "
+                  f"{c.search_seconds:.2f} s")
+        if not (report["frontier_valid_vs_8bit"] and len(result.cells) == 2
+                and result.policies_evaluated == 2 * PIPE_ITERATIONS * PIPE_K):
+            raise AssertionError(f"closed loop: {report}")
+
+        part_cfg = dataclasses.replace(cfg, checkpoint_path=str(tmp / "b.json"))
+        HeroSearchRun(part_cfg, {bundle.scene: bundle}, device=dev).run(
+            stop_after_cells=1)
+        out = {}
+        profile("the resumed run: one closed-loop cell (2 iterations x "
+                f"K={PIPE_K})", lambda: out.setdefault(
+                    "res", HeroSearchRun(part_cfg, {bundle.scene: bundle},
+                                         device=dev).run()))
+        resumed = out["res"]
+        if resumed.resumed_cells != 1 or not same_results(resumed, result):
+            raise AssertionError("the resumed closed loop differs from the "
+                                 "uninterrupted one")
+        print(f"stopped after 1 cell and resumed: equal to the uninterrupted "
+              f"run (frontier {len(resumed.frontier)} points, cells' bits "
+              f"equal)")
+
+        scene, bits = hero.best_bits(result)
+        zeroed(kern)
+        with CallTimer(train_mod, "finetune_ngp") as ft_t, \
+                CallTimer(artifact_mod, "build_fused_pack") as pack_t, \
+                CallTimer(env, "eval_psnr", "simulate_policy") as env_t:
+            t0 = time.perf_counter()
+            art = hero.compile(bundle, bits)
+            compile_s = time.perf_counter() - t0
+        comp = read(kern)
+        print(f"compile of {scene}'s best policy "
+              f"{''.join(map(str, bits))}: {compile_s:.2f} s (finetune "
+              f"{ft_t.s['finetune_ngp']:.2f} s, fused PSNR "
+              f"{env_t.s['eval_psnr']:.3f} s, pack build "
+              f"{pack_t.s['build_fused_pack']:.3f} s, simulation "
+              f"{env_t.s['simulate_policy'] * 1e3:.2f} ms); metrics "
+              f"{art.metrics}; launches {comp}")
+        if min(comp[k] for k in COMPILE_KERNELS) <= 0 or any(
+                comp[k] for k in SEARCH_OFF_PATH):
+            raise AssertionError(f"the compile did not launch each of "
+                                 f"{COMPILE_KERNELS}, or launched one of "
+                                 f"{SEARCH_OFF_PATH}: {comp}")
+        policy = QuantPolicy.uniform(env.units, 8).with_bits(bits)
+        sim_bytes = env.simulate_policy(policy).model_bytes
+        batch_bytes = float(benv.simulate_batch(np.asarray([bits]))[
+            "model_bytes"][0])
+        if not (art.metrics["model_bytes"] == sim_bytes == batch_bytes
+                == art.stored_model_bytes()):
+            raise AssertionError(f"model_bytes: artifact "
+                                 f"{art.metrics['model_bytes']}, simulator "
+                                 f"{sim_bytes}, batched {batch_bytes}")
+        ref = train_mod.evaluate_psnr(art.params, env.dataset, env.cfg,
+                                      env.rcfg, art.spec(), device=dev)
+        print(f"compiled artifact: model_bytes {art.metrics['model_bytes']:.0f}"
+              f" (the simulator's, exactly), PSNR {art.metrics['psnr']:.4f} "
+              f"dB against reference mode {ref:.4f} dB")
+        if not abs(art.metrics["psnr"] - ref) < PSNR_BAND_DB:
+            raise AssertionError(f"the compiled PSNR is not within "
+                                 f"{PSNR_BAND_DB} dB of reference mode")
+
+        art.save(tmp / "art")
+        loaded = hero.QuantArtifact.load(tmp / "art", device=dev)
+        svc = hero.serve(loaded, device=dev)
+        requests = request_rays(8, 64, held_out=True)
+        zeroed(kern)
+        t0 = time.perf_counter()
+        colors = answer(svc, requests)
+        serve_s = time.perf_counter() - t0
+        served = read(kern)
+        stats = svc.stats()
+        pc = stats["pose_cache"]
+        slots = pc["misses"] + stats["budget_retraces"]
+        print(f"served the compiled artifact: 8 requests in {serve_s:.3f} s "
+              f"({stats['requests_per_sec']} req/s), pose cache {pc}; "
+              f"launches {served}")
+        want = {n: 0 for n in kern}
+        want.update(quant_matmul_packed=5 * slots, hash_encode=slots,
+                    ray_march=slots, gather_composite=slots)
+        if served != want or pc["builds"] or pc["hits"] or pc["warps"]:
+            raise AssertionError(f"serving the compiled artifact launched "
+                                 f"{served}, want {want}; pose cache {pc}")
+        for (ro, _), c in zip(requests, colors):
+            if c.shape != (ro.shape[0], 3) or not np.isfinite(c).all():
+                raise AssertionError(f"bad result: shape {c.shape}")
+        cpu_svc, _ = serve(tmp / "art", "cpu")
+        diff = float(np.abs(answer(cpu_svc, requests[:1])[0]
+                            - colors[0]).max())
+        print(f"compiled artifact, card vs CPU plain versions, one request: "
+              f"max |diff| {diff:.3g}")
+        if not diff <= 1e-5:
+            raise AssertionError(f"served colours differ from the CPU by "
+                                 f"{diff}")
+        del svc, cpu_svc, loaded, art
+
+        t0 = time.perf_counter()
+        rc = cli.main(["search", "--quick", "--scenes", "chair", "--budgets",
+                       "1.0", "--iterations", "1", "--population", "8",
+                       "--device", "cuda", "--checkpoint", "", "--out",
+                       str(tmp / "search.json")])
+        cli_s = time.perf_counter() - t0
+        cli_report = json.loads((tmp / "search.json").read_text())
+        print(f"hero-search-torch --quick: rc {rc} in {cli_s:.2f} s, "
+              f"frontier {cli_report['frontier_size']} points, "
+              f"{cli_report['policies_per_sec']} policies/s")
+        if rc != 0 or not cli_report["frontier_size"]:
+            raise AssertionError(f"the CLI search failed: rc {rc}")
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.2f} s")
+    return {"closed_loop": loop, "compile": comp, "pipeline_serve": served}
 
 
 def request_rays(n_requests: int, hw: int, held_out: bool = False):
@@ -2176,8 +2443,10 @@ def main() -> int:
                    points_kernel_ms_plan_chunk=plan_chunk["points_kernel_ms"])
     print(f"training phase: {time.perf_counter() - t0:.2f} s")
     train_card_vs_cpu(dev)
-    psnr_launches["search"] = search_phase(cfg, trained, ds, dev, kern)
-    del trained, ds
+    psnr_launches["search"], env, benv = search_phase(cfg, trained, ds,
+                                                      dev, kern)
+    psnr_launches.update(pipeline_phase(env, benv, dev, kern))
+    del trained, ds, env, benv
     t0 = time.perf_counter()
     requests = request_rays(8, 64)
     fresh = request_rays(3, 64, held_out=True)[0]

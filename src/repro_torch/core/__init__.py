@@ -10,10 +10,14 @@
 - search:    the episodic HERO search loop + population mode (CEM + DDPG)
 - pareto:    constraint sets + dominated-policy pruning + frontier tracking
              (latency / PSNR / model size) with exact hypervolume
+- closed_loop: HeroSearchRun — the multi-scene x multi-budget closed loop
+             (shared scene bundles, cell-granular checkpoint/resume of the
+             frontier in the JAX package's schema v2)
 - baselines: PTQ / QAT / CAQ-proxy comparison methods
 
-The closed loop (`closed_loop`: several scenes and hardware budgets,
-checkpointed frontiers) is not ported yet (ROADMAP §1 item 5).
+The loop is workload-generic: `repro_torch.workloads` supplies the
+per-case bundles (the `nerf` scene adapter; `lm` is registered and not
+ported, ROADMAP §1 item 8).
 """
 from repro_torch.core.action import action_to_bits, bits_to_action
 from repro_torch.core.ddpg import DDPGAgent, DDPGConfig, ReplayBuffer
@@ -44,6 +48,15 @@ from repro_torch.core.pareto import (
     ParetoPoint,
     pareto_filter,
 )
+from repro_torch.core.closed_loop import (
+    ClosedLoopConfig,
+    ClosedLoopResult,
+    HeroSearchRun,
+    SceneBundle,
+    SceneScale,
+    build_scene_bundle,
+    build_scene_env,
+)
 
 __all__ = [
     "action_to_bits",
@@ -73,4 +86,11 @@ __all__ = [
     "ParetoFrontier",
     "ParetoPoint",
     "pareto_filter",
+    "ClosedLoopConfig",
+    "ClosedLoopResult",
+    "HeroSearchRun",
+    "SceneBundle",
+    "SceneScale",
+    "build_scene_bundle",
+    "build_scene_env",
 ]

@@ -14,7 +14,11 @@ v1 directory (the pre-packing layout: int8 weight codes, f32 carriers) is
 verified against its own manifest and then upgraded: the pack is rebuilt
 from the verified float parameters by the same deterministic
 `build_fused_pack` a v2 compile uses, and `model_bytes` re-measured from
-what schema v2 stores. `compile_artifact` waits for the training slice.
+what schema v2 stores.
+
+`compile_artifact` lowers a searched (env, policy bits) pair to an artifact
+on the env's device: the QAT finetune, the env's fused PSNR, the policy
+simulated on the env's hardware target, the pack, the occupancy grid.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import hashlib
 import json
 import os
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +48,7 @@ from repro_torch.nerf.ngp import (
     make_quant_units,
     spec_from_policy,
 )
-from repro_torch.nerf.occupancy import OccupancyGrid
+from repro_torch.nerf.occupancy import OccupancyGrid, bake_occupancy_cached
 from repro_torch.nerf.render import RenderConfig
 from repro_torch.quant.packing import PackedTensor
 from repro_torch.quant.policy import QuantPolicy
@@ -306,3 +310,65 @@ class QuantArtifact:
 
 def _sha(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# Compile: (env, policy bits) -> QuantArtifact
+# ---------------------------------------------------------------------------
+def compile_artifact(
+    env,  # NGPQuantEnv (typed loosely to avoid an import cycle)
+    bits: Optional[Sequence[int]] = None,
+    finetune_steps: Optional[int] = None,
+) -> QuantArtifact:
+    """Lower a searched policy to a deployable bundle, on the env's device.
+
+    Runs the same QAT finetune + fused PSNR evaluation the env's episode
+    path uses, simulates the policy on the env's hardware target, packs
+    the finetuned weights to integer inference form, and bundles the
+    occupancy grid. `bits=None` compiles the uniform 8-bit policy.
+    """
+    from repro_torch.nerf.train import finetune_ngp
+
+    if bits is None:
+        bits = [8] * env.n_units
+    bits = [int(b) for b in bits]
+    steps = env.ecfg.finetune_steps if finetune_steps is None else finetune_steps
+
+    policy = QuantPolicy.uniform(env.units, 8).with_bits(bits)
+    spec = spec_from_policy(env.cfg, policy, env.act_ranges)
+    ft_params, _ = finetune_ngp(
+        dict(env.params), env.dataset, env.cfg, env.rcfg, env.tcfg, spec,
+        steps, device=env.device,
+    )
+    psnr = env.eval_psnr(ft_params, spec)
+    lat = env.simulate_policy(policy)
+    occ = env.occ
+    if occ is None:  # reference-backend env: bake for the fused artifact
+        occ = bake_occupancy_cached(
+            env.params, env.cfg, resolution=env.ecfg.occ_resolution,
+            threshold=env.ecfg.occ_threshold,
+        )
+    pack = build_fused_pack(ft_params, env.cfg, spec)
+    # MEASURED payload bytes. The simulator's model_bytes goes through the
+    # same shared size function (`repro_torch.quant.packing`), so the two
+    # are equal, but the artifact records what it stores.
+    model_bytes = fused_pack_stored_bytes(pack)
+    return QuantArtifact(
+        scene=env.scene_name,
+        bits=bits,
+        cfg=env.cfg,
+        rcfg=env.rcfg,
+        scene_cfg=dataclasses.asdict(env.dataset.cfg),
+        params=ft_params,
+        act_ranges=env.act_ranges,
+        pack=pack,
+        occ=occ,
+        hardware=env.target.describe(),
+        metrics={
+            "psnr": float(psnr),
+            "latency_cycles": float(lat.total_cycles),
+            "model_bytes": float(model_bytes),
+            "fqr": float(policy.fqr()),
+            "finetune_steps": int(steps),
+        },
+    )

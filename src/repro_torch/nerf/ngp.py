@@ -92,8 +92,11 @@ def _f32(values, device=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(values, np.float32), device=device)
 
 
-def no_quant_spec(cfg: NGPConfig, device: DeviceLike = "cpu"
+def no_quant_spec(cfg: NGPConfig, device: DeviceLike = None
                   ) -> NGPQuantSpec:
+    """The unquantized spec (32 bits everywhere) on `device` (the card
+    unless "cpu")."""
+    device = resolve_device(device)
     n_lin = len(ngp_linear_names(cfg))
     return NGPQuantSpec(
         hash_bits=_f32([32.0] * cfg.hash.n_levels, device),
@@ -105,7 +108,9 @@ def no_quant_spec(cfg: NGPConfig, device: DeviceLike = "cpu"
 
 def uniform_quant_spec(cfg: NGPConfig, bits: int,
                        act_ranges: Optional[torch.Tensor] = None,
-                       device: DeviceLike = "cpu") -> NGPQuantSpec:
+                       device: DeviceLike = None) -> NGPQuantSpec:
+    """`bits` everywhere on `device` (the card unless "cpu")."""
+    device = resolve_device(device)
     n_lin = len(ngp_linear_names(cfg))
     if act_ranges is None:
         act_ranges = _f32([[0.0, 1.0]] * n_lin, device)

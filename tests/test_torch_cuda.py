@@ -21,9 +21,11 @@ backward and the matmuls);
 fused `evaluate_psnr` against its plain versions within 1e-4 dB. The
 search: the device cache walk equal to the host walk and the numpy
 oracle at the paper trace size, a card simulator's cycles within 1e-6
-relative of a host one's, and a 4-level env's episode on the card
+relative of a host one's, a 4-level env's episode on the card
 against the CPU (misses equal, cycles within 1e-6, PSNR within 1e-3
-dB)."""
+dB), and one tiny closed-loop cell on the card against the CPU (the
+same bits, rewards within 1e-4, PSNR within 1e-3 dB, latency within
+1e-6 relative)."""
 import importlib.util
 from pathlib import Path
 
@@ -1020,3 +1022,44 @@ def test_search_env_card_against_cpu(card):
     within 1e-6 relative and PSNR within 1e-3 dB (`chip_smoke.py`'s
     `search_card_vs_cpu`, which raises beyond them)."""
     CS.search_card_vs_cpu(card)
+
+
+def test_closed_loop_cell_card_against_cpu(card):
+    """One tiny closed-loop cell (2 iterations at K = 8) on the card and on
+    the CPU from the same trained field: the same proposals' bits,
+    rewards within 1e-4, proxy PSNR within 1e-3 dB and latency within
+    1e-6 relative (`tests/test_torch_search.py`'s bands)."""
+    from repro_torch.core.batched_env import BatchedEnvConfig, BatchedQuantEnv
+    from repro_torch.core.closed_loop import (
+        ClosedLoopConfig,
+        HeroSearchRun,
+        SceneScale,
+        build_scene_bundle,
+        scene_bundle,
+        scene_env,
+    )
+    from repro_torch.tree_util import tree_map
+
+    tiny = SceneScale.tiny()
+    cpu = build_scene_bundle("chair", tiny, seed=0, device="cpu")
+    env = scene_env(tree_map(lambda t: t.to(card), cpu.env.params),
+                    cpu.env.dataset, tiny, seed=0, device=card)
+    gpu = scene_bundle(env, BatchedQuantEnv(
+        env, BatchedEnvConfig(proxy_rays=tiny.proxy_rays, seed=0),
+        device=card))
+    cfg = ClosedLoopConfig(scenes=("chair",), budget_fracs=(0.8,), seed=7,
+                           scale=tiny, n_iterations=2, population=8,
+                           verbose=False)
+    outs = []
+    for bundle, dev in ((cpu, "cpu"), (gpu, card)):
+        run = HeroSearchRun(cfg, {"chair": bundle}, device=dev)
+        outs.append(run.run_cell(run.cell_specs()[0]))
+    want, got = outs
+    assert len(got.points) == len(want.points) == 16
+    for g, w in zip(got.points, want.points):
+        assert g["bits"] == w["bits"]
+        assert abs(g["reward"] - w["reward"]) <= 1e-4
+        assert abs(g["psnr"] - w["psnr"]) <= 1e-3
+        assert abs(g["latency"] - w["latency"]) <= 1e-6 * abs(w["latency"])
+        assert g["model_bytes"] == w["model_bytes"]
+    assert got.best_bits == want.best_bits

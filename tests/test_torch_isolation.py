@@ -63,12 +63,16 @@ def test_default_device_entry_points_raise_without_a_card(no_card, tmp_path):
     from repro_torch.hero.engine import ServeEngine
     from repro_torch.hero.service import RenderService, serve
     from repro_torch.nerf.fast_render import FastRenderEngine
-    from repro_torch.nerf.ngp import init_ngp
+    from repro_torch.nerf.ngp import init_ngp, no_quant_spec, uniform_quant_spec
     from repro_torch.nerf.render import RenderConfig
 
     cfg = cpu_scale()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_ngp(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        no_quant_spec(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        uniform_quant_spec(cfg, 8)
     params = init_ngp(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FastRenderEngine(params, cfg, RenderConfig())
@@ -84,6 +88,9 @@ def test_default_device_entry_points_raise_without_a_card(no_card, tmp_path):
         serve(object())
     # Asking for the CPU works.
     FastRenderEngine(params, cfg, RenderConfig(), device="cpu")
+    assert no_quant_spec(cfg, "cpu").hash_bits.device.type == "cpu"
+    assert uniform_quant_spec(cfg, 8, device="cpu").act_bits.device.type \
+        == "cpu"
 
 
 def test_search_entry_points_raise_without_a_card(no_card):
@@ -169,6 +176,41 @@ def test_training_entry_points_raise_without_a_card(no_card):
     finetune_ngp(trained, ds, cfg, rcfg, tcfg, spec, 1, device="cpu")
     assert np.isfinite(loss)
     assert np.isfinite(evaluate_psnr(trained, ds, cfg, rcfg, device="cpu"))
+
+
+def test_pipeline_entry_points_raise_without_a_card(no_card, tmp_path,
+                                                   monkeypatch):
+    """The closed loop, the facade and both CLIs run on the card by
+    default and raise without one, before training anything."""
+    import repro_torch.hero as hero
+    from repro_torch.core.closed_loop import (
+        ClosedLoopConfig,
+        HeroSearchRun,
+        build_scene_bundle,
+        build_scene_env,
+    )
+    from repro_torch.hero import cli
+    from repro_torch.workloads import get_workload
+
+    monkeypatch.chdir(tmp_path)
+    calls = [
+        lambda: build_scene_env("chair"),
+        lambda: build_scene_bundle("chair"),
+        lambda: get_workload("nerf").build_bundle("chair"),
+        lambda: HeroSearchRun(ClosedLoopConfig(verbose=False)).run(),
+        lambda: hero.search(verbose=False),
+        lambda: hero.compile_scene("chair"),
+        lambda: cli.main(["search", "--quick"]),
+        lambda: cli.main(["serve", "--quick"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.iterdir())  # nothing was written
+    # Asking for the CPU works (no work: every cell resumed or none).
+    run = HeroSearchRun(ClosedLoopConfig(scenes=(), verbose=False),
+                        device="cpu").run()
+    assert run.cells == [] and run.device == "cpu"
 
 
 def test_lm_entry_points_raise_without_a_card(no_card):

@@ -187,7 +187,8 @@ def test_fused_psnr_within_band_on_a_scene_the_port_trained():
                                   threshold=CULL_THRESHOLD)
     assert culling.occupied_fraction < 0.9
     for bits in (None, 8):
-        spec = None if bits is None else tngp.uniform_quant_spec(T_CFG, bits)
+        spec = None if bits is None else tngp.uniform_quant_spec(
+            T_CFG, bits, device="cpu")
         for ref_grid, grid in ((None, engine_grid), (culling, culling)):
             ref = tt.evaluate_psnr(params, ds, T_CFG, T_RCFG, spec,
                                    occ=ref_grid, device="cpu")

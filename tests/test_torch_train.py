@@ -174,7 +174,8 @@ def test_train_steps_match_reference(j_ds, steps):
     ts_ = adamw_state_from_numpy(_np(js_), device="cpu")
     jo = JAdamWConfig(lr=5e-3, weight_decay=1e-6)
     to = TAdamWConfig(lr=5e-3, weight_decay=1e-6)
-    jspec, tspec = jngp.no_quant_spec(J_CFG), tngp.no_quant_spec(T_CFG)
+    jspec = jngp.no_quant_spec(J_CFG)
+    tspec = tngp.no_quant_spec(T_CFG, device="cpu")
     key, batches = jax.random.PRNGKey(0), j_ds.ray_batches(64, seed=0)
     for _ in range(steps):
         ro, rd, c = next(batches)
