@@ -106,10 +106,24 @@ Phases, each of which raises on failure:
    slot render, nothing else but the packed matmul), one request matching
    the CPU's colours to 1e-5; and ``hero-search-torch --quick`` (one
    budget, one iteration of 8) returning 0 with a non-empty frontier.
-6. One request of phase 3's artifact served again on the CPU from the
+6. The distributed search (after the pipeline), on the same bundle, each
+   step held to phase 5's sequential closed loop: ``run_orchestrated``
+   over two thread workers on the one card, every count zeroed around it
+   (its frontier and cells' bits equal, its launches equal the loop's;
+   its s and policies/s beside the loop's); one inline worker (equal, the
+   cells done in canonical order); the chaos drill (``FaultPlan.seeded(3,
+   ...)`` over two thread workers with a checkpoint: the injected fault,
+   its retry and the pool's rescale printed, the result equal); the
+   population split (``BatchedQuantEnv(sharded=True)``: one shard a
+   card, ``evaluate_population`` of 16 policies equal to the plain env's
+   exactly, ``simulate_batch`` through ``policy_latency`` equal to the
+   memoized path); and one ``SubprocessWorker`` cell of a quick-scale
+   config (one budget, one iteration of 8) pinned to card 0, its points
+   compared with the same cell run here, no second kernel library built.
+7. One request of phase 3's artifact served again on the CPU from the
    same directory (the plain versions) must match the card's colours to
    1e-5.
-7. The revisit stream: two more poses, each visited three times (miss;
+8. The revisit stream: two more poses, each visited three times (miss;
    miss and plan build; hit), then each jittered inside its pose cell
    (warp), counts zeroed around it: hits, warps and misses must each be
    > 0, each kernel must have launched as its tiers dictate (the encode
@@ -118,12 +132,12 @@ Phases, each of which raises on failure:
    equal, bit for bit, the same rays served on the card without the pose
    cache. Plan bytes and ``resident_bytes`` are printed, and one hit and
    one warp request are profiled beside the march request.
-8. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
+9. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
    weights from a seed) served by ``repro_torch.launch.serve``: 8 requests
    of 1024 prompt tokens and 32 generated tokens, 4 at a time. Counts are
    zeroed just before and read just after: flash attention must launch
    once per layer per prefill, decode attention once per layer per step.
-9. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
+10. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
    logits and caches within 1e-3.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
@@ -131,7 +145,8 @@ stream and the LM serve, ``launches_revisit`` from the revisit stream,
 ``launches_psnr_plan`` and ``launches_psnr_march`` from the two fused
 PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_closed_loop``, ``launches_compile`` and
-``launches_pipeline_serve`` from the pipeline's three stages),
+``launches_pipeline_serve`` from the pipeline's three stages,
+``launches_distributed`` from the thread-pool sweep),
 the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1958,7 +1973,159 @@ def pipeline_phase(env, benv, dev, kern):
         if rc != 0 or not cli_report["frontier_size"]:
             raise AssertionError(f"the CLI search failed: rc {rc}")
     print(f"pipeline phase: {time.perf_counter() - t_phase:.2f} s")
-    return {"closed_loop": loop, "compile": comp, "pipeline_serve": served}
+    return ({"closed_loop": loop, "compile": comp, "pipeline_serve": served},
+            {"result": result, "seconds": loop_s, "launches": loop})
+
+
+# ---------------------------------------------------------------------------
+# The distributed search: the orchestrator and the population split.
+# ---------------------------------------------------------------------------
+def distributed_phase(env, benv, dev, kern, seq):
+    """The distributed HERO search on the pipeline phase's `paper()`-width
+    bundle, each step held to the pipeline's sequential closed loop `seq`
+    (its result, seconds and launches): `run_orchestrated` over two thread
+    workers (launches counted: the main path of this phase), one inline
+    worker, the seeded chaos drill with a checkpoint, the population split
+    over the visible cards (`sharded=True`), and one `SubprocessWorker`
+    cell of a quick-scale config pinned to card 0. Returns the
+    thread pool's launches."""
+    import repro_torch.distributed.orchestrator as orch_mod
+    from repro_torch.core.batched_env import BatchedQuantEnv
+    from repro_torch.core.closed_loop import (
+        ClosedLoopConfig,
+        HeroSearchRun,
+        SceneScale,
+        scene_bundle,
+    )
+    from repro_torch.distributed.chaos import FaultPlan
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    bundle = scene_bundle(env, benv)
+    bundles = {bundle.scene: bundle}
+    cfg = ClosedLoopConfig(scenes=(bundle.scene,), budget_fracs=PIPE_BUDGETS,
+                           n_iterations=PIPE_ITERATIONS, population=PIPE_K,
+                           verbose=False)
+    want, seq_res = seq["launches"], seq["result"]
+
+    zeroed(kern)
+    t0 = time.perf_counter()
+    pool = orch_mod.run_orchestrated(HeroSearchRun(cfg, bundles, device=dev),
+                                     workers=2, worker_kind="thread")
+    pool_s = time.perf_counter() - t0
+    launches = read(kern)
+    n = pool.policies_evaluated
+    print(f"run_orchestrated, 2 thread workers on one card: {pool_s:.2f} s, "
+          f"{n / pool_s:.2f} policies/s of wall time "
+          f"({pool.policies_per_sec:.2f} of the cells' summed search "
+          f"seconds); the sequential loop {seq['seconds']:.2f} s, "
+          f"{seq_res.policies_evaluated / seq['seconds']:.2f} policies/s "
+          f"({seq_res.policies_per_sec:.2f}); launches {launches}")
+    if not same_results(pool, seq_res) or n != seq_res.policies_evaluated:
+        raise AssertionError("the thread pool's result differs from the "
+                             "sequential closed loop")
+    if launches != want:
+        raise AssertionError(f"the thread pool launched {launches}, the "
+                             f"sequential loop {want}")
+
+    program = orch_mod.SearchCellProgram(HeroSearchRun(cfg, bundles,
+                                                       device=dev))
+    orch = orch_mod.ElasticOrchestrator(
+        program, orch_mod.OrchestratorConfig(workers=1, worker_kind="inline"))
+    t0 = time.perf_counter()
+    inline = orch.run()
+    inline_s = time.perf_counter() - t0
+    done = [e[1] for e in orch.events if e[0] == "done"]
+    canonical = [s.name for s in program.cell_specs()]
+    print(f"one inline worker: {inline_s:.2f} s, equal to the sequential "
+          f"loop {same_results(inline, seq_res)}, cells done in {done}")
+    if not same_results(inline, seq_res) or done != canonical:
+        raise AssertionError(f"one inline worker differs from the "
+                             f"sequential loop, or ran {done} out of "
+                             f"{canonical}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "chaos.json")
+        run = HeroSearchRun(dataclasses.replace(cfg, checkpoint_path=ck),
+                            bundles, device=dev)
+        # What `run_orchestrated(run, workers=2, chaos_seed=3)` builds,
+        # kept at hand for its event trail.
+        plan = FaultPlan.seeded(3, [s.name for s in run.cell_specs()])
+        drill = orch_mod.ElasticOrchestrator(
+            orch_mod.SearchCellProgram(run),
+            orch_mod.OrchestratorConfig(workers=2, worker_kind="thread"),
+            chaos=plan)
+        t0 = time.perf_counter()
+        chaos_res = drill.run()
+        chaos_s = time.perf_counter() - t0
+        completed = json.loads(Path(ck).read_text())["completed"]
+    faults = [(f.kind, f.cell) for f in plan.injected]
+    trail = [e for e in drill.events
+             if e[0] in ("crash", "error", "evict", "retry", "rescale")]
+    print(f"chaos drill (seed 3, 2 thread workers): injected {faults}; "
+          f"{trail}; {chaos_s:.2f} s; checkpoint holds {completed}")
+    if not (faults and trail and same_results(chaos_res, seq_res)
+            and sorted(completed) == sorted(canonical)):
+        raise AssertionError("the chaos drill did not inject and recover, "
+                             "or its result differs from the sequential "
+                             "loop")
+
+    split = BatchedQuantEnv(env, benv.bcfg, sharded=True, device=dev)
+    bits = np.random.RandomState(21).randint(
+        env.ecfg.b_min, env.ecfg.b_max + 1, size=(PIPE_K, env.n_units))
+    t0 = time.perf_counter()
+    got = split.evaluate_population(bits)
+    split_s = time.perf_counter() - t0
+    plain = benv.evaluate_population(bits)
+    same = {k: bool(np.array_equal(getattr(got, k), getattr(plain, k)))
+            for k in ("psnr", "latency_cycles", "model_bytes", "reward")}
+    fused, memo = split.simulate_batch(bits), benv.simulate_batch(bits)
+    sims_equal = fused.keys() == memo.keys() and all(
+        np.array_equal(fused[k], memo[k]) for k in memo)
+    print(f"sharded=True on {torch.cuda.device_count()} card(s): n_shards "
+          f"{split.n_shards}, evaluate_population of {PIPE_K} policies "
+          f"{split_s:.2f} s, equal to the plain env {same}; simulate_batch "
+          f"through policy_latency equal to the memoized path {sims_equal}")
+    if (split.n_shards != torch.cuda.device_count() or not all(same.values())
+            or not sims_equal):
+        raise AssertionError("the split population differs from the plain "
+                             "env")
+    del split
+
+    libs = sorted(p.name for p in build.build_dir().glob("*.so"))
+    quick = ClosedLoopConfig(scenes=("chair",), budget_fracs=(1.0,),
+                             scale=SceneScale.quick(), n_iterations=1,
+                             population=8, verbose=False)
+    qprog = orch_mod.SearchCellProgram(HeroSearchRun(quick, device=dev))
+    spec = qprog.cell_specs()[0]
+    worker = orch_mod.SubprocessWorker(qprog.job_payload, name="proc-0",
+                                       device=dev, index=0)
+    t0 = time.perf_counter()
+    worker.start(spec, 0)
+    try:
+        worker._proc.wait(timeout=300)
+        ev = worker.poll()
+    finally:
+        worker.close()
+    sub_s = time.perf_counter() - t0
+    if ev is None or ev[0] != "done" or ev[3].policies_evaluated != 8:
+        raise AssertionError(f"the subprocess worker failed: {ev}")
+    out = ev[3]
+    t0 = time.perf_counter()
+    inline_out = qprog.run_cell(spec)
+    here_s = time.perf_counter() - t0
+    timeless = lambda o: [dict(p, t_emit=None) for p in o.points]
+    print(f"SubprocessWorker on card {worker.card} (CUDA_VISIBLE_DEVICES): "
+          f"cell {out.cell}, {out.policies_evaluated} policies, "
+          f"{sub_s:.2f} s with its start-up and training (inline, with "
+          f"its training: {here_s:.2f} s); points equal to the same "
+          f"cell inline: {timeless(out) == timeless(inline_out)}, best bits "
+          f"equal: {out.best_bits == inline_out.best_bits}")
+    if sorted(p.name for p in build.build_dir().glob("*.so")) != libs:
+        raise AssertionError("the subprocess worker built another kernel "
+                             "library")
+    print(f"distributed phase: {time.perf_counter() - t_phase:.2f} s")
+    return launches
 
 
 def request_rays(n_requests: int, hw: int, held_out: bool = False):
@@ -2445,7 +2612,11 @@ def main() -> int:
     train_card_vs_cpu(dev)
     psnr_launches["search"], env, benv = search_phase(cfg, trained, ds,
                                                       dev, kern)
-    psnr_launches.update(pipeline_phase(env, benv, dev, kern))
+    pipe_launches, seq = pipeline_phase(env, benv, dev, kern)
+    psnr_launches.update(pipe_launches)
+    psnr_launches["distributed"] = distributed_phase(env, benv, dev, kern,
+                                                     seq)
+    del seq
     del trained, ds, env, benv
     t0 = time.perf_counter()
     requests = request_rays(8, 64)

@@ -2,7 +2,7 @@
 
 `get_arch(<id>)` returns an `ArchSpec` with the exact published config.
 The port's registry holds the architectures whose blocks it has ported;
-the reference's other ids raise a `KeyError` that names the ROADMAP slice
+the reference's other ids raise a `KeyError` that names the ROADMAP item
 that ports them.
 """
 import importlib
@@ -28,7 +28,7 @@ _CACHE: Dict[str, ArchSpec] = {}
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id in _LATER:
         raise KeyError(f"arch {arch_id!r} is not ported yet: it comes with "
-                       "ROADMAP §1 slice 10 (LM workload)")
+                       "ROADMAP §1 item 8 (LM workload)")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _CACHE:

@@ -30,6 +30,7 @@ baseline so the PSNR difference term compares like with like.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -38,6 +39,7 @@ import torch
 
 from repro_torch.core.env import NGPQuantEnv
 from repro_torch.core.reward import hero_reward
+from repro_torch.distributed import population
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.nerf.fast_render import build_cull_plan, fast_render_rays
 from repro_torch.nerf.ngp import NGPQuantSpec, spec_from_policy
@@ -96,18 +98,20 @@ class BatchedQuantEnv:
         device: DeviceLike = None,
     ):
         """Runs on the env's device, which `device` (the card unless
-        "cpu") must name. `sharded=None` means one device; the
-        device-sharded population (K policies split over the visible
-        cards) is not ported yet, and `sharded=True` raises."""
+        "cpu") must name. `sharded=True` splits the K policies of every
+        evaluation over the population devices (`repro_torch.distributed.
+        population`: the visible cards, or the CPU), each device rendering
+        and simulating its shard; `sharded=None` does so when the env is
+        on a card and the host has several (`auto_shard`), never on the
+        CPU. Split and single-device paths give identical metrics: each
+        policy's arithmetic is unchanged and the cache statistics are
+        integers. A target whose batched form has no `vmappable()` cannot
+        be split: `sharded=True` raises there, `None` stays on one
+        device."""
         self.device = resolve_device(device)
         if env.device.type != self.device.type:
             raise ValueError(f"the env runs on {env.device}, the batched "
                              f"env was asked for {self.device}")
-        if sharded:
-            raise NotImplementedError(
-                "device-sharded population scoring (distributed/population) "
-                "is not ported yet: ROADMAP §1 item 7")
-        self.sharded = False
         self.env = env
         self.bcfg = bcfg
         cfg = env.cfg
@@ -149,6 +153,30 @@ class BatchedQuantEnv:
             else None
         )
 
+        # --- single-device vs device-split evaluation -----------------------
+        lat_fn = getattr(self.bsim, "vmappable", lambda: None)()
+        if sharded and lat_fn is None:
+            raise ValueError(
+                f"the {type(self.bsim).__name__} of this env's target has "
+                "no vmappable() form, so its population cannot be split "
+                "over devices")
+        if sharded is None:
+            sharded = (self.device.type == "cuda" and lat_fn is not None
+                       and population.auto_shard())
+        self.sharded = bool(sharded)
+        if self.sharded:
+            devices = population.population_devices(kind=self.device.type)
+            self._mse_split = population.shard_population(
+                functools.partial(_proxy_mse, cfg=cfg, rcfg=self._rcfg),
+                devices, broadcast_argnums=(0, 1, 2, 3, 4))
+            # The fused latency model (no host memo), so the whole
+            # per-policy evaluation lives on its shard; its statistics are
+            # the memoized path's integers and its composition the same
+            # f32 arithmetic.
+            self._lat_split = population.shard_population(lat_fn, devices)
+        else:
+            self._mse_split = self._lat_split = None
+
         # Proxy-consistent Eq. 8 baseline: 8-bit PSNR through the SAME proxy
         # (no finetune) so psnr - psnr_org compares like with like.
         eight = np.full((1, env.n_units), 8.0, np.float32)
@@ -174,29 +202,29 @@ class BatchedQuantEnv:
             out.append(arr)
         return tuple(out)
 
+    @property
+    def n_shards(self) -> int:
+        """Devices each evaluation splits over (1 when not split)."""
+        return self._mse_split.n_shards if self.sharded else 1
+
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def _mse_batch(self, params, hb: np.ndarray, wb: np.ndarray,
-                   ab: np.ndarray) -> torch.Tensor:
-        """(K,) proxy MSE on the device, one render per policy; one copy
-        back for the batch."""
-        env, (ro, rd, gt) = self.env, self._proxy_rays
+                   ab: np.ndarray) -> np.ndarray:
+        """(K,) proxy MSE, one render per policy on the device that holds
+        it; one copy back for the batch (a shard)."""
+        # Everything a render reads besides the bits: the split path
+        # copies each to every population device once and keeps the copy.
+        shared = (params, self.env.occ, self._proxy_plan, self._proxy_rays,
+                  self.env.act_ranges)
+        if self._mse_split is not None:
+            return self._mse_split(*shared, hb, wb, ab)
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        hb, wb, ab = t(hb), t(wb), t(ab)
-        mse = []
-        for k in range(hb.shape[0]):
-            spec = NGPQuantSpec(hash_bits=hb[k], weight_bits=wb[k],
-                                act_bits=ab[k], act_ranges=env.act_ranges)
-            color, _ = fast_render_rays(
-                params, ro, rd, env.cfg, self._rcfg, spec, occ=env.occ,
-                mode="reference", plan=self._proxy_plan,
-            )
-            mse.append(torch.mean((color - gt) ** 2))
-        return torch.stack(mse)
+        return _proxy_mse(*shared, t(hb), t(wb), t(ab), cfg=self.env.cfg,
+                          rcfg=self._rcfg).cpu().numpy()
 
     def _psnr(self, params, bits_batch: np.ndarray) -> np.ndarray:
         hb, wb, ab = self.bits_to_arrays(bits_batch)
-        mse = self._mse_batch(params, hb, wb, ab).cpu().numpy()
+        mse = self._mse_batch(params, hb, wb, ab)
         mse = np.maximum(np.asarray(mse, np.float64), 1e-12)
         return -10.0 * np.log10(mse)
 
@@ -206,8 +234,11 @@ class BatchedQuantEnv:
         return self._psnr(params, bits_batch)
 
     def simulate_batch(self, bits_batch: np.ndarray) -> Dict[str, np.ndarray]:
-        """Latency/size metrics only ((K,) arrays), no rendering."""
+        """Latency/size metrics only ((K,) arrays), no rendering. Goes
+        through the device-split fused model when the env splits."""
         hb, wb, ab = self.bits_to_arrays(bits_batch)
+        if self._lat_split is not None:
+            return self._lat_split(hb, wb, ab)
         return self.bsim.simulate_batch(hb, wb, ab)
 
     # ------------------------------------------------------------------
@@ -273,3 +304,24 @@ class BatchedQuantEnv:
                 latency <= latency_target if latency_target is not None else None
             ),
         )
+
+
+@torch.no_grad()
+def _proxy_mse(params, occ, plan, rays, act_ranges, hb: torch.Tensor,
+               wb: torch.Tensor, ab: torch.Tensor, *, cfg, rcfg
+               ) -> torch.Tensor:
+    """(K,) proxy MSE of the (K, ·) bit tensors on their device: each
+    policy's fake-quant render of the proxy `rays` (rays_o, rays_d, rgb;
+    reference mode, under the cull `plan`) against their ground truth, one
+    after another. Every tensor argument lives on that device."""
+    ro, rd, gt = rays
+    mse = []
+    for k in range(hb.shape[0]):
+        spec = NGPQuantSpec(hash_bits=hb[k], weight_bits=wb[k],
+                            act_bits=ab[k], act_ranges=act_ranges)
+        color, _ = fast_render_rays(
+            params, ro, rd, cfg, rcfg, spec, occ=occ, mode="reference",
+            plan=plan,
+        )
+        mse.append(torch.mean((color - gt) ** 2))
+    return torch.stack(mse)

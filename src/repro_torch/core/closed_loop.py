@@ -52,6 +52,7 @@ from repro_torch.core.ddpg import DDPGConfig
 from repro_torch.core.env import EnvConfig, NGPQuantEnv
 from repro_torch.core.pareto import ConstraintSet, ParetoFrontier, ParetoPoint
 from repro_torch.core.search import PopulationSearchConfig, hero_population_search
+from repro_torch.distributed.population import auto_shard
 from repro_torch.hero.targets import HardwareTarget, resolve_target
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.workloads.base import Workload, WorkloadBundle
@@ -257,8 +258,8 @@ class ClosedLoopConfig:
     n_iterations: int = 4
     population: int = 8
     agent_fraction: float = 0.5
-    # None = one device. The device-sharded population is not ported:
-    # True raises (ROADMAP §1 item 7).
+    # None = split each population over the visible cards iff the run is
+    # on a card and the host has more than one (`auto_shard`).
     sharded: Optional[bool] = None
     checkpoint_path: Optional[str] = None
     verbose: bool = True
@@ -453,7 +454,8 @@ class ClosedLoopResult:
     seconds_to_fixed_bit: Optional[float]
     fixed_bit_reference: int
     # True iff every population evaluator that EXECUTED cells in this run
-    # sharded (never, on the port); None when the run was fully resumed.
+    # split its populations over devices; None when the run was fully
+    # resumed.
     sharded: Optional[bool] = None
     # The type of the torch device the run lived on ("cuda" or "cpu");
     # `bench_report` counts that kind's devices.
@@ -491,11 +493,6 @@ class HeroSearchRun:
         `workload=` likewise injects a `Workload` INSTANCE. The run lives
         on `device` (the card unless "cpu"): built bundles are built
         there, and injected ones must live there."""
-        if cfg.sharded:
-            raise NotImplementedError(
-                "a sharded closed loop (the device-sharded population, "
-                "distributed/population) is not ported yet: ROADMAP §1 "
-                "item 7")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._bundles: Dict[str, SceneBundle] = dict(bundles or {})
@@ -950,9 +947,10 @@ def bench_report(result: ClosedLoopResult, cfg: ClosedLoopConfig) -> Dict:
         "population": cfg.population,
         "n_devices": n_devices,
         # The evaluators' state when known; a fully resumed run reports
-        # the config's (the port's population runs on one device).
+        # the config's, or what `sharded=None` would have chosen there.
         "sharded": result.sharded if result.sharded is not None
-        else bool(cfg.sharded),
+        else (bool(cfg.sharded) if cfg.sharded is not None
+              else result.device == "cuda" and auto_shard()),
         "policies_evaluated": result.policies_evaluated,
         "search_seconds": round(result.search_seconds, 4),
         "wall_seconds": round(result.wall_seconds, 4),

@@ -9,9 +9,13 @@ unless given `--device cpu`, and raise where there is none.
 
 The reports default to `BENCH_search_torch.json` and
 `BENCH_serve_torch.json`; checkpoints and artifacts default to paths under
-`experiments/`. The cell-parallel orchestrator (`--workers N` for N > 1,
-`--chaos`, ROADMAP §1 item 7) and the LM workload (`--workload lm`, item
-8) are not ported: asking for them exits with code 2.
+`experiments/`. `--workers N` (N > 1) or `--chaos SEED` runs the sweep's
+cells through the elastic orchestrator (`repro_torch.distributed.
+orchestrator`): thread, inline or subprocess workers (`--worker-kind`),
+the same frontier as one worker. The LM workload (`--workload lm`, item
+8) is not ported: asking for it exits with code 2.
+
+    hero-search-torch --quick --workers 2 --worker-kind subprocess --chaos 3
 """
 from __future__ import annotations
 
@@ -80,20 +84,22 @@ def search_main(argv=None) -> int:
                          "changing flags starts fresh instead of clashing "
                          "with an old checkpoint)")
     ap.add_argument("--workers", type=int, default=1,
-                    help="cell-parallel worker pool size; only 1 runs here "
-                         "(the orchestrator is ROADMAP §1 item 7)")
+                    help="cell-parallel worker pool size (>1 routes the "
+                         "sweep through the elastic orchestrator; results "
+                         "are identical to the sequential run)")
+    ap.add_argument("--worker-kind", default="thread",
+                    choices=("thread", "inline", "subprocess"),
+                    help="worker isolation: threads share the process "
+                         "(default), subprocess survives crashing cells "
+                         "(one card each, round robin)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
-                    help="fault-injection drill of the orchestrator (not "
-                         "ported)")
+                    help="fault-injection drill: seed a FaultPlan over the "
+                         "sweep's cells (worker kills / transient errors) "
+                         "and prove the recovery paths on this very config")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.workers > 1 or args.chaos is not None:
-        print("[hero-search-torch] the cell-parallel orchestrator "
-              "(--workers > 1, --chaos) is not ported yet: ROADMAP §1 "
-              "item 7", file=sys.stderr)
-        return 2
     if args.workload != "nerf":
         print(f"[hero-search-torch] workload {args.workload!r} is not ported "
               "yet: ROADMAP §1 item 8", file=sys.stderr)
@@ -106,10 +112,11 @@ def search_main(argv=None) -> int:
     scale = SceneScale.quick() if args.quick else SceneScale.standard()
     n_iter = min(args.iterations, 3) if args.quick else args.iterations
 
+    n_dev = _n_devices(device)
     print(f"[hero-search-torch] {len(scenes)} scene(s) x {len(budgets)} "
           f"budget(s), {n_iter} iteration(s) x {args.population} policies "
           f"per cell, target={hardware}, on {device} "
-          f"({_n_devices(device)} device(s))")
+          f"({n_dev} device(s){' (sharded)' if n_dev > 1 else ''})")
 
     cfg = ClosedLoopConfig(
         scenes=scenes,
@@ -134,7 +141,16 @@ def search_main(argv=None) -> int:
     if cfg.checkpoint_path:
         Path(cfg.checkpoint_path).parent.mkdir(parents=True, exist_ok=True)
     try:
-        result = HeroSearchRun(cfg, device=device).run()
+        run = HeroSearchRun(cfg, device=device)
+        if args.workers > 1 or args.chaos is not None:
+            from repro_torch.distributed.orchestrator import run_orchestrated
+
+            result = run_orchestrated(
+                run, workers=args.workers, worker_kind=args.worker_kind,
+                chaos_seed=args.chaos, verbose=True,
+            )
+        else:
+            result = run.run()
     except ValueError as e:
         if "closed-loop config" not in str(e):
             raise

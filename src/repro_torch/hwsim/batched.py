@@ -26,6 +26,7 @@ Exactness notes:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -335,6 +336,9 @@ class BatchedNeuRexSimulator:
         self.tc = build_trace_constants(trace, cfg, n_features, resolutions)
         self._memo: Dict[Tuple[int, ...], Tuple[int, int, int]] = {}
         self._memo_cap = stats_memo_size
+        # Cells on several threads share one simulator: the memo's
+        # check, fill and read run under one lock.
+        self._memo_lock = threading.Lock()
         self._coarse = (torch.from_numpy(self.tc.coarse_indices)
                         .to(self.device)
                         if self.device.type == "cuda" else None)
@@ -360,7 +364,8 @@ class BatchedNeuRexSimulator:
 
     def clear_stats_memo(self) -> None:
         """Drop memoized cache stats (benchmarking cold-path behaviour)."""
-        self._memo.clear()
+        with self._memo_lock:
+            self._memo.clear()
 
     # ------------------------------------------------------------------
     def _missing_stats(self, missing):
@@ -392,12 +397,18 @@ class BatchedNeuRexSimulator:
         ).astype(np.int32)
         keys = [tuple(int(v) for v in row) for row in eb8]
 
-        missing = [k for k in dict.fromkeys(keys) if k not in self._memo]
-        if missing:
-            if len(self._memo) + len(missing) > self._memo_cap:
-                self._memo.clear()  # cheap full reset; stats recompute exactly
-            self._memo.update(zip(missing, self._missing_stats(missing)))
-        return np.asarray([self._memo[k] for k in keys], np.int64)
+        with self._memo_lock:
+            # The batch's stats are read before any reset: a reset that
+            # makes room for the new combos drops none this batch needs.
+            known = {k: self._memo[k] for k in dict.fromkeys(keys)
+                     if k in self._memo}
+            missing = [k for k in dict.fromkeys(keys) if k not in known]
+            if missing:
+                known.update(zip(missing, self._missing_stats(missing)))
+                if len(self._memo) + len(missing) > self._memo_cap:
+                    self._memo.clear()  # cheap reset; stats recompute exactly
+                self._memo.update((k, known[k]) for k in missing)
+        return np.asarray([known[k] for k in keys], np.int64)
 
     # ------------------------------------------------------------------
     def simulate_batch(

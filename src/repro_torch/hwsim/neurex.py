@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -83,8 +84,10 @@ class NeuRexSimulator:
         self.backend = backend
         self.device = resolve_device(device) if backend == "torch" else None
         # (key -> (trace, BatchedNeuRexSimulator)); identity-checked so a
-        # recycled id() can't alias a dead trace. Bounded FIFO.
+        # recycled id() can't alias a dead trace. Bounded FIFO, looked up
+        # and filled under a lock (cells on several threads share it).
         self._sims: Dict[tuple, tuple] = {}
+        self._sims_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def _entry_bytes(self, n_features: int, bits: float) -> float:
@@ -155,17 +158,18 @@ class NeuRexSimulator:
             n_features,
             tuple(resolutions) if resolutions is not None else None,
         )
-        hit = self._sims.get(key)
-        if hit is not None and hit[0] is trace:
-            return hit[1]
-        bsim = BatchedNeuRexSimulator(
-            trace, self.cfg, self.pipeline_overlap, n_features, resolutions,
-            device=self.device,
-        )
-        if len(self._sims) >= 8:  # bound the per-trace cache
-            self._sims.pop(next(iter(self._sims)))
-        self._sims[key] = (trace, bsim)
-        return bsim
+        with self._sims_lock:
+            hit = self._sims.get(key)
+            if hit is not None and hit[0] is trace:
+                return hit[1]
+            bsim = BatchedNeuRexSimulator(
+                trace, self.cfg, self.pipeline_overlap, n_features,
+                resolutions, device=self.device,
+            )
+            if len(self._sims) >= 8:  # bound the per-trace cache
+                self._sims.pop(next(iter(self._sims)))
+            self._sims[key] = (trace, bsim)
+            return bsim
 
     # ------------------------------------------------------------------
     def simulate(

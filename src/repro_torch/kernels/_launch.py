@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -77,3 +78,15 @@ def launch(entry: str, device: torch.device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, entry)(*args, stream)
     build.check(code, entry)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, the count of kernels that CUDA
+    wrapper launched. The read-add-store runs under a lock, so launches
+    from several host threads are all counted; reading the count and
+    setting it to 0 are single stores and need none."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._launch import launch, require
+from repro_torch.kernels._launch import count_launch, launch, require
 
 
 def alpha_composite_plain(sigma: torch.Tensor, rgb: torch.Tensor,
@@ -46,7 +46,7 @@ def alpha_composite_cuda(sigma: torch.Tensor, rgb: torch.Tensor,
     launch("repro_alpha_composite", dev, sigma.data_ptr(), rgb.data_ptr(),
            delta.data_ptr(), color.data_ptr(), acc.data_ptr(), R, S,
            int(bool(early_stop)), float(t_eps))
-    alpha_composite_cuda.launches += 1
+    count_launch(alpha_composite_cuda)
     return color, acc
 
 

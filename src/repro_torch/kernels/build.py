@@ -16,11 +16,11 @@ a non-zero code into an exception.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -164,16 +164,25 @@ def build(out_dir: Optional[Path] = None) -> BuildResult:
     return BuildResult(lib, time.perf_counter() - t0, log)
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY: Optional[ctypes.CDLL] = None
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with every entry
-    point's argtypes/restype declared."""
-    lib = ctypes.CDLL(str(build().path))
-    for fn, argtypes in SIGNATURES.items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    return lib
+    point's argtypes/restype declared. Threads that launch their first
+    kernels at the same time wait for one build and share its library."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LIBRARY_LOCK:
+            if _LIBRARY is None:
+                lib = ctypes.CDLL(str(build().path))
+                for fn, argtypes in SIGNATURES.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                _LIBRARY = lib
+    return _LIBRARY
 
 
 def check(code: int, what: str) -> None:

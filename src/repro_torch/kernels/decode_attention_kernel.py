@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels._launch import (
+    count_launch,
     device_scalar,
     launch,
     require_aligned,
@@ -140,7 +141,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *(k.stride(i) for i in range(3)),
            *(v.stride(i) for i in range(3)),
            split, 1.0 / math.sqrt(hd), _DTYPES[q.dtype])
-    decode_attention_cuda.launches += 1
+    count_launch(decode_attention_cuda)
     return out
 
 

@@ -16,7 +16,12 @@ import math
 
 import torch
 
-from repro_torch.kernels._launch import launch, require_aligned, require_rows
+from repro_torch.kernels._launch import (
+    count_launch,
+    launch,
+    require_aligned,
+    require_rows,
+)
 
 NEG_INF = -1e30
 HD_MAX = 128  # the kernel's largest head dim
@@ -73,7 +78,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *(v.stride(i) for i in range(3)),
            *(out.stride(i) for i in range(4)),
            int(bool(causal)), 1.0 / math.sqrt(hd), _DTYPES[q.dtype])
-    flash_attention_cuda.launches += 1
+    count_launch(flash_attention_cuda)
     return out
 
 

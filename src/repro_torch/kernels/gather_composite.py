@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import launch, require
+from repro_torch.kernels._launch import count_launch, launch, require
 from repro_torch.kernels.alpha_composite import alpha_composite_plain
 
 
@@ -93,7 +93,7 @@ def gather_composite_cuda(sigma_b: torch.Tensor, rgb_b: torch.Tensor,
            delta_row.shape[0], sigma_b.shape[0],
            int(take.dtype == torch.int64), int(bool(white_bg)),
            int(bool(early_stop)), float(t_eps))
-    gather_composite_cuda.launches += 1
+    count_launch(gather_composite_cuda)
     return color, acc
 
 

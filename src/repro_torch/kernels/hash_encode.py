@@ -37,7 +37,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels._launch import device_scalar, launch, require
+from repro_torch.kernels._launch import (
+    count_launch,
+    device_scalar,
+    launch,
+    require,
+)
 from repro_torch.kernels.hash_encoding_kernel import hash_gather_plain
 
 PRIMES = (1, 2654435761, 805459861)
@@ -247,7 +252,7 @@ def hash_encode_points_cuda(points: torch.Tensor, table_cat: torch.Tensor,
     launch("repro_hash_encode", dev, points.data_ptr(), table_cat.data_ptr(),
            meta.data_ptr(), *_pointers(grid), out.data_ptr(), B, L, T, F,
            int(act is not None))
-    hash_encode_points_cuda.launches += 1
+    count_launch(hash_encode_points_cuda)
     return out
 
 
@@ -292,7 +297,7 @@ def hash_encode_corners_cuda(corner_idx: torch.Tensor,
            corner_w.data_ptr(), table_cat.data_ptr(),
            level_offsets.data_ptr(), *_pointers(grid), out.data_ptr(), B, L,
            T, F, int(act is not None))
-    hash_encode_corners_cuda.launches += 1
+    count_launch(hash_encode_corners_cuda)
     return out
 
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import launch, require
+from repro_torch.kernels._launch import count_launch, launch, require
 
 
 def hash_gather_plain(indices: torch.Tensor,
@@ -30,7 +30,7 @@ def hash_gather_cuda(indices: torch.Tensor,
     out = torch.empty((P, F), dtype=torch.float32, device=dev)
     launch("repro_hash_gather", dev, indices.data_ptr(), table.data_ptr(),
            out.data_ptr(), P, T, F)
-    hash_gather_cuda.launches += 1
+    count_launch(hash_gather_cuda)
     return out
 
 

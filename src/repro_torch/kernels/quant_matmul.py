@@ -21,7 +21,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import device_scalar, launch, require, sm_count
+from repro_torch.kernels._launch import (
+    count_launch,
+    device_scalar,
+    launch,
+    require,
+    sm_count,
+)
 from repro_torch.quant.packing import PackedTensor, packed_groups, tile_layout_bk
 
 
@@ -56,7 +62,7 @@ def quant_matmul_cuda(x_codes: torch.Tensor, w_codes: torch.Tensor,
     launch("repro_quant_matmul", dev, x_codes.data_ptr(), w_codes.data_ptr(),
            sx_t.data_ptr(), sw_t.data_ptr(), zx_t.data_ptr(), out.data_ptr(),
            M, K, N, sm_count(dev.index))
-    quant_matmul_cuda.launches += 1
+    count_launch(quant_matmul_cuda)
     return out
 
 
@@ -98,7 +104,7 @@ def quant_matmul_packed_cuda(x_codes: torch.Tensor, wq: PackedTensor,
            x_codes.data_ptr(), wq.words.data_ptr(), off.data_ptr(),
            sx_t.data_ptr(), sw_t.data_ptr(), zx_t.data_ptr(), out.data_ptr(),
            M, K, N, bits, gpt, sm_count(dev.index))
-    quant_matmul_packed_cuda.launches += 1
+    count_launch(quant_matmul_packed_cuda)
     return out
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._launch import launch, require
+from repro_torch.kernels._launch import count_launch, launch, require
 
 
 def ray_march_plain(occ: torch.Tensor, rays_o: torch.Tensor,
@@ -45,7 +45,7 @@ def ray_march_cuda(occ: torch.Tensor, rays_o: torch.Tensor,
     launch("repro_ray_march", dev, occ.data_ptr(), rays_o.data_ptr(),
            rays_d.data_ptr(), t.data_ptr(), out.data_ptr(), R, S, G,
            int(bool(early_stop)))
-    ray_march_cuda.launches += 1
+    count_launch(ray_march_cuda)
     return out
 
 

@@ -1,7 +1,7 @@
 """Dense FFN blocks (GLU / gelu / squared-ReLU).
 
 The counterpart of the dense half of `repro/models/ffn.py`; the
-mixture-of-experts FFN comes with the MoE blocks (ROADMAP §1 slice 10).
+mixture-of-experts FFN comes with the MoE blocks (ROADMAP §1 item 8).
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ Python loop. The decode cache keeps the reference's layout,
 n_kv, hd)), so both compare leaf for leaf; a decode step updates it in
 place.
 
-Not ported yet (ROADMAP §1 slice 10, LM workload): the mamba, mLSTM,
+Not ported yet (ROADMAP §1 item 8, LM workload): the mamba, mLSTM,
 sLSTM, encoder-decoder and MoE blocks, non-token frontends, `forward`,
 `loss_fn`, `LMQuantSpec` and the quantization helpers. The serve path
 never quantizes the embedding (the reference's prefill passes no spec).
@@ -31,7 +31,7 @@ from repro_torch.models.common import (
     norm_init,
 )
 
-_LATER = "ROADMAP §1 slice 10 (LM workload)"
+_LATER = "ROADMAP §1 item 8 (LM workload)"
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -110,6 +111,9 @@ def bake_occupancy(params: Dict, cfg, resolution: int = 32,
 # a finetuned/retrained model (different weights) still gets its own bake.
 _BAKE_REGISTRY: Dict[tuple, OccupancyGrid] = {}
 _BAKE_REGISTRY_CAP = 64
+# Held around a lookup and its bake, so envs built on several threads at
+# once still share ONE grid per key.
+_BAKE_REGISTRY_LOCK = threading.Lock()
 
 
 def params_fingerprint(params: Dict) -> str:
@@ -151,16 +155,17 @@ def bake_occupancy_cached(params: Dict, cfg, resolution: int = 32,
         params_fingerprint(params), str(params["sigma/0"]["w"].device),
         repr(cfg), resolution, float(threshold), supersample, dilate,
     )
-    grid = _BAKE_REGISTRY.get(key)
-    if grid is None:
-        if len(_BAKE_REGISTRY) >= _BAKE_REGISTRY_CAP:
-            _BAKE_REGISTRY.clear()  # bakes recompute exactly; cheap reset
-        grid = bake_occupancy(
-            params, cfg, resolution=resolution, threshold=threshold,
-            supersample=supersample, dilate=dilate, chunk=chunk,
-        )
-        _BAKE_REGISTRY[key] = grid
-    return grid
+    with _BAKE_REGISTRY_LOCK:
+        grid = _BAKE_REGISTRY.get(key)
+        if grid is None:
+            if len(_BAKE_REGISTRY) >= _BAKE_REGISTRY_CAP:
+                _BAKE_REGISTRY.clear()  # bakes recompute exactly; cheap reset
+            grid = bake_occupancy(
+                params, cfg, resolution=resolution, threshold=threshold,
+                supersample=supersample, dilate=dilate, chunk=chunk,
+            )
+            _BAKE_REGISTRY[key] = grid
+        return grid
 
 
 def occupancy_lookup(grid: OccupancyGrid,

@@ -14,7 +14,14 @@ params and dataset carried across with `convert`):
   `test_torch_search.py`'s bands;
 - inside the port: determinism, resume equal to the uninterrupted run,
   a config mismatch refused, unusable checkpoints quarantined, the
-  report's validity flags, and what is not ported raising.
+  report's validity flags, and what is not ported raising;
+- the distributed search (`repro_torch.distributed`): one inline worker,
+  a thread pool and a chaos sweep (a worker kill, a torn checkpoint)
+  equal to the sequential run; orchestrated checkpoints resumed across
+  the packages, both ways; `sharded=True` and a split over two devices
+  equal to the plain path exactly; `pad_population` and the one-device
+  `shard_population` against the reference's; a real cell through a
+  subprocess worker equal to the same cell inline.
 """
 import dataclasses
 import json
@@ -37,6 +44,15 @@ from repro_torch.convert import (
 from repro_torch.core import ddpg as tddpg
 from repro_torch.core import search as tsearch
 from repro_torch.core.batched_env import BatchedEnvConfig, BatchedQuantEnv
+import repro_torch.distributed.chaos as tchaos
+import repro_torch.distributed.orchestrator as torch_orch
+import repro_torch.distributed.population as tpop
+from repro_torch.distributed.chaos import (
+    ChaosInterrupt,
+    Fault,
+    FaultPlan,
+    tear_checkpoint,
+)
 
 J_TINY, T_TINY = jcl.SceneScale.tiny(), tcl.SceneScale.tiny()
 # test_torch_search.py's bands.
@@ -389,8 +405,6 @@ def test_bench_report_validity_flags_and_keys(port_bundles, reference_run):
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcl.HeroSearchRun(_port_cfg(sharded=True), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         tcl.HeroSearchRun(_cfg(tcl, workload="lm"), device="cpu").run()
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -405,3 +419,283 @@ def test_scene_bundle_anchors(port_bundles):
     assert (n.latency, n.psnr, n.model_bytes) == (1.0, 0.0, 1.0)
     assert b.baseline_latency == float(b.env.original_cost)
     assert b.env.device == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# The distributed search: orchestrated sweeps, the population split
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def sequential(port_bundles):
+    """The port's sequential run of `_port_cfg()`: what every orchestrated
+    sweep below must equal."""
+    return tcl.HeroSearchRun(_port_cfg(), port_bundles, device="cpu").run()
+
+
+def _orchestrate(cfg, bundles, chaos=None, **kw):
+    orch = torch_orch.ElasticOrchestrator(
+        torch_orch.SearchCellProgram(
+            tcl.HeroSearchRun(cfg, bundles, device="cpu")),
+        torch_orch.OrchestratorConfig(**kw), chaos=chaos)
+    return orch, orch.run
+
+
+def test_orchestrator_workers1_identical_to_sequential(port_bundles,
+                                                       sequential):
+    """One inline worker, chaos off: the orchestrator IS the sequential
+    `HeroSearchRun.run()`, result for result, its cells done in canonical
+    order."""
+    orch, run = _orchestrate(_port_cfg(), port_bundles, workers=1,
+                             worker_kind="inline")
+    res = run()
+    _assert_results_equal(res, sequential)
+    assert res.resumed_cells == 0 and res.sharded is False
+    assert [e for e in orch.events if e[0] == "done"] == [
+        ("done", s.name, 0, "inline-0")
+        for s in tcl.HeroSearchRun(_port_cfg(), device="cpu").cell_specs()]
+
+
+def test_orchestrator_thread_pool_identical_to_sequential(port_bundles,
+                                                          sequential):
+    """Two thread workers run cells of the same bundles at once and
+    complete them out of canonical order; the replay at finalize still
+    gives the sequential result, bit for bit."""
+    orch, run = _orchestrate(_port_cfg(), port_bundles, workers=2,
+                             worker_kind="thread", poll_interval=1e-3)
+    res = run()
+    _assert_results_equal(res, sequential)
+    timeless = lambda r: [dict(c.to_json(), search_seconds=None)
+                          for c in r.cells]
+    assert timeless(res) == timeless(sequential)
+    assert {e[3] for e in orch.events if e[0] == "done"} \
+        == {"thread-0", "thread-1"}
+
+
+def test_chaos_sweep_recovers_to_identical_frontier(port_bundles, sequential,
+                                                    tmp_path):
+    """A 2-scene x 2-budget sweep takes a worker kill on its first cell
+    AND a torn checkpoint write (the orchestrator dies mid-write); the
+    relaunched sweep quarantines the torn file, restarts clean, and lands
+    on the exact uninterrupted frontier."""
+    ck = tmp_path / "sweep.json"
+    cfg = _port_cfg(checkpoint_path=str(ck))
+    names = [s.name for s in tcl.HeroSearchRun(cfg, device="cpu")
+             .cell_specs()]
+    plan = FaultPlan([Fault("crash", names[0]),
+                      Fault("torn_checkpoint", names[2])])
+    orch, run = _orchestrate(cfg, port_bundles, chaos=plan, workers=2,
+                             worker_kind="inline", backoff_base=1e-4,
+                             poll_interval=1e-4)
+    with pytest.raises(ChaosInterrupt):
+        run()
+    ev_kinds = [e[0] for e in orch.events]
+    assert "crash" in ev_kinds and "rescale" in ev_kinds
+    assert ev_kinds.count("torn") == 1
+    with pytest.raises(json.JSONDecodeError):
+        json.loads(ck.read_text())
+    with pytest.warns(RuntimeWarning, match="quarantined"):
+        _, rerun = _orchestrate(cfg, port_bundles, workers=2,
+                                worker_kind="inline")
+        resumed = rerun()
+    assert (tmp_path / "sweep.json.corrupt").exists()
+    _assert_results_equal(resumed, sequential)
+    assert sorted(json.loads(ck.read_text())["completed"]) == sorted(names)
+
+
+def test_torn_checkpoint_quarantined_and_restarted(port_bundles, sequential,
+                                                   tmp_path):
+    """A checkpoint torn by `tear_checkpoint` moves to `<path>.corrupt`
+    with a RuntimeWarning, and the sequential run restarts cleanly to the
+    full result."""
+    ck = tmp_path / "ckpt.json"
+    cfg = _port_cfg(checkpoint_path=str(ck))
+    tcl.HeroSearchRun(cfg, port_bundles, device="cpu").run(stop_after_cells=2)
+    tear_checkpoint(str(ck))
+    with pytest.warns(RuntimeWarning, match="quarantined"):
+        res = tcl.HeroSearchRun(cfg, port_bundles, device="cpu").run()
+    assert res.resumed_cells == 0
+    assert (tmp_path / "ckpt.json.corrupt").exists()
+    _assert_results_equal(res, sequential)
+
+
+def _partial_orchestrated_checkpoint(orch_mod, chaos_mod, program, names):
+    """Run `program`'s sweep until its second cell fails for good (one
+    attempt allowed): the checkpoint then holds the first cell only."""
+    plan = chaos_mod.FaultPlan([chaos_mod.Fault("transient", names[1])])
+    with pytest.raises(orch_mod.CellRetriesExhausted):
+        orch_mod.ElasticOrchestrator(
+            program, orch_mod.OrchestratorConfig(workers=1,
+                                                 worker_kind="inline",
+                                                 max_attempts=1),
+            chaos=plan).run()
+
+
+def test_port_orchestrated_checkpoint_resumes_in_the_reference(
+        bundles, reference_run, carried_agent, tmp_path):
+    jb, tb = bundles
+    want, _ = reference_run
+    ck = tmp_path / "ckpt.json"
+    run = tcl.HeroSearchRun(_cfg(tcl, checkpoint_path=str(ck)),
+                            {"chair": tb}, device="cpu")
+    _partial_orchestrated_checkpoint(
+        torch_orch, tchaos, torch_orch.SearchCellProgram(run),
+        [s.name for s in run.cell_specs()])
+    assert json.loads(ck.read_text())["completed"] == ["chair@1"]
+    got = jcl.HeroSearchRun(_cfg(jcl, checkpoint_path=str(ck)),
+                            {"chair": jb}).run()
+    assert got.resumed_cells == 1 and len(got.cells) == 2
+    assert [c.best_bits for c in got.cells] \
+        == [c.best_bits for c in want.cells]
+    assert got.policies_evaluated == want.policies_evaluated
+
+
+def test_reference_orchestrated_checkpoint_resumes_in_the_port(
+        bundles, reference_run, carried_agent, tmp_path):
+    import repro.distributed.chaos as jchaos
+    import repro.distributed.orchestrator as jorch
+
+    jb, tb = bundles
+    want, _ = reference_run
+    ck = tmp_path / "ckpt.json"
+    run = jcl.HeroSearchRun(_cfg(jcl, checkpoint_path=str(ck)),
+                            {"chair": jb})
+    _partial_orchestrated_checkpoint(
+        jorch, jchaos, jorch.SearchCellProgram(run),
+        [s.name for s in run.cell_specs()])
+    assert json.loads(ck.read_text())["completed"] == ["chair@1"]
+    got = torch_orch.run_orchestrated(
+        tcl.HeroSearchRun(_cfg(tcl, checkpoint_path=str(ck)),
+                          {"chair": tb}, device="cpu"),
+        workers=2, worker_kind="thread")
+    assert got.resumed_cells == 1 and len(got.cells) == 2
+    assert [c.best_bits for c in got.cells] \
+        == [c.best_bits for c in want.cells]
+    assert got.policies_evaluated == want.policies_evaluated
+    assert sorted(json.loads(ck.read_text())["completed"]) \
+        == ["chair@0.8", "chair@1"]
+
+
+def _assert_evals_identical(a, b):
+    for key in ("bits", "psnr", "latency_cycles", "model_bytes", "reward",
+                "fqr", "feasible"):
+        np.testing.assert_array_equal(getattr(a, key), getattr(b, key),
+                                      err_msg=key)
+
+
+def _assert_sims_identical(a, b):
+    assert a.keys() == b.keys()
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_sharded_flag_matches_default_path_exactly(port_bundles):
+    """`sharded=True` (one CPU: the plain call through the split's
+    wrapper, latency through the fused `policy_latency`) equals the
+    default path exactly, PSNR, latency, bytes and reward."""
+    b = port_bundles["chair"]
+    split = BatchedQuantEnv(
+        b.env, BatchedEnvConfig(proxy_rays=T_TINY.proxy_rays, seed=0),
+        sharded=True, device="cpu")
+    assert split.sharded and split.n_shards == 1
+    assert split.psnr_org_proxy == b.benv.psnr_org_proxy
+    bits = np.random.RandomState(5).randint(1, 9, size=(6, b.env.n_units))
+    budget = 0.8 * b.env.original_cost
+    _assert_evals_identical(split.evaluate_population(bits, budget),
+                            b.benv.evaluate_population(bits, budget))
+    _assert_sims_identical(split.simulate_batch(bits),
+                           b.benv.simulate_batch(bits))
+
+
+def test_two_device_split_equals_the_plain_path(port_bundles, sequential,
+                                               monkeypatch):
+    """The population split over two devices (`population_devices`
+    patched to [cpu, cpu]) at an odd K = 5, so the last policy pads the
+    second shard: every metric equals the unsplit env's; and a closed loop
+    over split envs (K = 6) gives the sequential result, reported as
+    sharded."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(tpop, "population_devices",
+                        lambda n=None, kind="cuda": [cpu, cpu])
+    b = port_bundles["lego"]
+    split = BatchedQuantEnv(
+        b.env, BatchedEnvConfig(proxy_rays=T_TINY.proxy_rays, seed=1),
+        sharded=True, device="cpu")
+    assert split.n_shards == 2
+    bits = np.random.RandomState(9).randint(1, 9, size=(5, b.env.n_units))
+    _assert_evals_identical(split.evaluate_population(bits),
+                            b.benv.evaluate_population(bits))
+    _assert_sims_identical(split.simulate_batch(bits),
+                           b.benv.simulate_batch(bits))
+    chair = port_bundles["chair"]
+    split_chair = BatchedQuantEnv(
+        chair.env, BatchedEnvConfig(proxy_rays=T_TINY.proxy_rays, seed=0),
+        sharded=True, device="cpu")
+    cfg = _port_cfg(sharded=True)
+    res = tcl.HeroSearchRun(cfg, device="cpu", bundles={
+        "chair": tcl.scene_bundle(chair.env, split_chair),
+        "lego": tcl.scene_bundle(b.env, split)}).run()
+    _assert_results_equal(res, sequential)
+    assert res.sharded is True and tcl.bench_report(res, cfg)["sharded"]
+
+
+def test_pad_and_single_device_shard_population_equal_reference(bundles):
+    """`pad_population` pads as the reference's, and the one-device
+    `shard_population` of the fused latency model gives the reference's
+    statistics exactly and its cycles within the simulator band."""
+    import repro.distributed.population as jpop
+
+    rng = np.random.RandomState(2)
+    for k, m in ((5, 2), (4, 2), (1, 3), (7, 4)):
+        arr = rng.randint(1, 9, size=(k, 3)).astype(np.float32)
+        got, gk = tpop.pad_population(arr, m)
+        want, wk = jpop.pad_population(arr, m)
+        np.testing.assert_array_equal(got, want)
+        assert gk == wk == k
+    jb, tb = bundles
+    hb, wb, ab = tb.benv.bits_to_arrays(
+        rng.randint(1, 9, size=(5, tb.env.n_units)))
+    got = tpop.shard_population(tb.benv.bsim.vmappable(),
+                                [torch.device("cpu")])(hb, wb, ab)
+    call = jpop.shard_population(jax.vmap(jb.benv.bsim.vmappable()))
+    assert call.n_shards == 1
+    want = call(hb, wb, ab)
+    assert sorted(got) == sorted(want)
+    for key in ("grid_hits", "grid_misses", "grid_cold_misses"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    np.testing.assert_array_equal(got["model_bytes"].astype(np.float32),
+                                  want["model_bytes"])
+    np.testing.assert_allclose(got["total_cycles"], want["total_cycles"],
+                               rtol=REL)
+
+
+def test_subprocess_worker_runs_a_real_cell_equal_to_inline(monkeypatch):
+    """A real tiny cell crosses the process boundary through
+    `worker_main` on the CPU and comes back as the `CellOutput` the same
+    cell gives in this process: the child retrains its scene from the
+    config (one intra-op thread, as here) and gets the same field."""
+    cfg = tcl.ClosedLoopConfig(
+        scenes=("chair",), budget_fracs=(1.0,), seed=3, scale=T_TINY,
+        n_iterations=1, population=4, verbose=False, checkpoint_path=None)
+    run = tcl.HeroSearchRun(cfg, device="cpu")
+    program = torch_orch.SearchCellProgram(run)
+    spec = program.cell_specs()[0]
+    assert program.job_payload(spec)["device"] == "cpu"
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    w = torch_orch.SubprocessWorker(program.job_payload, name="p0",
+                                    device="cpu")
+    assert w.card is None
+    w.start(spec, 0)
+    try:
+        w._proc.wait(timeout=600)
+    finally:
+        ev = w.poll()
+        w.close()
+    assert ev is not None, "the subprocess worker did not finish"
+    kind, espec, attempt, out = ev
+    assert kind == "done", (kind, out)
+    assert espec == spec and attempt == 0
+    assert isinstance(out, tcl.CellOutput) and out.policies_evaluated == 4
+    inline = run.run_cell(spec)
+    timeless = lambda o: [dict(p, t_emit=None) for p in o.points]
+    assert timeless(out) == timeless(inline)
+    assert out.best_bits == inline.best_bits
+    assert out.best_reward == inline.best_reward

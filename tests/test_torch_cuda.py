@@ -25,7 +25,10 @@ relative of a host one's, a 4-level env's episode on the card
 against the CPU (misses equal, cycles within 1e-6, PSNR within 1e-3
 dB), and one tiny closed-loop cell on the card against the CPU (the
 same bits, rewards within 1e-4, PSNR within 1e-3 dB, latency within
-1e-6 relative)."""
+1e-6 relative). The distributed search on the card: a thread pool's
+sweep equal to the sequential run, launches included, and the
+population split over the visible cards equal to the plain env
+exactly."""
 import importlib.util
 from pathlib import Path
 
@@ -1063,3 +1066,56 @@ def test_closed_loop_cell_card_against_cpu(card):
         assert abs(g["latency"] - w["latency"]) <= 1e-6 * abs(w["latency"])
         assert g["model_bytes"] == w["model_bytes"]
     assert got.best_bits == want.best_bits
+
+
+def _tiny_card_bundle(card, seed=0, scene="chair"):
+    from repro_torch.core.closed_loop import SceneScale, build_scene_bundle
+
+    return build_scene_bundle(scene, SceneScale.tiny(), seed=seed,
+                              device=card)
+
+
+def test_thread_pool_on_the_card_equals_the_sequential_run(card):
+    """Two thread workers run the cells of one tiny bundle at once on the
+    card: the frontier, the cells' bits and the gather-composite's launch
+    count equal the sequential run's."""
+    from repro_torch.core.closed_loop import (
+        ClosedLoopConfig,
+        HeroSearchRun,
+        SceneScale,
+    )
+    from repro_torch.distributed.orchestrator import run_orchestrated
+    from repro_torch.kernels.gather_composite import gather_composite_cuda
+
+    bundles = {"chair": _tiny_card_bundle(card)}
+    cfg = ClosedLoopConfig(scenes=("chair",), budget_fracs=(1.0, 0.8, 0.7),
+                           seed=7, scale=SceneScale.tiny(), n_iterations=2,
+                           population=8, verbose=False)
+    n = gather_composite_cuda.launches
+    seq = HeroSearchRun(cfg, bundles, device=card).run()
+    seq_launches = gather_composite_cuda.launches - n
+    n = gather_composite_cuda.launches
+    pool = run_orchestrated(HeroSearchRun(cfg, bundles, device=card),
+                            workers=2, worker_kind="thread")
+    assert gather_composite_cuda.launches - n == seq_launches > 0
+    assert CS.same_results(pool, seq)
+    assert pool.policies_evaluated == seq.policies_evaluated == 48
+
+
+def test_sharded_population_on_the_card_equals_the_plain_env(card):
+    """`sharded=True` splits over every visible card; its evaluations and
+    its fused `policy_latency` simulation equal the plain env's exactly."""
+    from repro_torch.core.batched_env import BatchedQuantEnv
+
+    b = _tiny_card_bundle(card)
+    split = BatchedQuantEnv(b.env, b.benv.bcfg, sharded=True, device=card)
+    assert split.n_shards == torch.cuda.device_count()
+    bits = np.random.RandomState(3).randint(1, 9, size=(7, b.env.n_units))
+    got, want = split.evaluate_population(bits), b.benv.evaluate_population(
+        bits)
+    for key in ("psnr", "latency_cycles", "model_bytes", "reward"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
+    fused, memo = split.simulate_batch(bits), b.benv.simulate_batch(bits)
+    assert fused.keys() == memo.keys()
+    for key in memo:
+        np.testing.assert_array_equal(fused[key], memo[key], err_msg=key)

@@ -310,11 +310,35 @@ def test_serve_cli_compiles_saves_and_serves(tiny_quick):
     assert again["psnr_delta_db"] <= 1e-4
 
 
-def test_orchestrator_flags_exit_2_naming_item_7(tiny_quick, capsys):
-    assert cli.main(["search", "--workers", "2"]) == 2
-    assert "item 7" in capsys.readouterr().err
-    assert cli.main(["search", "--chaos", "3"]) == 2
-    assert "item 7" in capsys.readouterr().err
+def test_search_cli_orchestrated_runs_write_the_sequential_frontier(
+        tiny_quick, capsys):
+    """`--workers 2` (threads), `--workers 2 --worker-kind inline` and
+    `--chaos 3` go through the orchestrator and each writes the frontier
+    `--workers 1` writes."""
+    base = ["search", "--quick", "--scenes", "chair", "--budgets", "1.0,0.8",
+            "--iterations", "1", "--population", "4", "--device", "cpu",
+            "--checkpoint", ""]
+    reports = {}
+    for name, extra in (("one", []), ("threads", ["--workers", "2"]),
+                        ("inline", ["--workers", "2", "--worker-kind",
+                                    "inline"]),
+                        ("chaos", ["--chaos", "3"])):
+        assert cli.main(base + extra + ["--out", f"{name}.json"]) == 0
+        reports[name] = json.loads((tiny_quick / f"{name}.json").read_text())
+    out = capsys.readouterr().out
+    assert "1 device(s))" in out and "(sharded)" not in out
+    one = reports.pop("one")
+    for name, r in reports.items():
+        assert r["frontier"] == one["frontier"], name
+        assert r["frontier_hypervolume"] == one["frontier_hypervolume"]
+        assert [c["best_bits"] for c in r["cells"]] \
+            == [c["best_bits"] for c in one["cells"]], name
+        assert r["policies_evaluated"] == one["policies_evaluated"]
+        assert r["sharded"] is False and r["n_devices"] == 1
+    assert not (tiny_quick / "experiments").exists()
+
+
+def test_unported_flags_exit_2_naming_item_8(tiny_quick, capsys):
     assert cli.main(["search", "--workload", "lm", "--device", "cpu"]) == 2
     assert "item 8" in capsys.readouterr().err
     assert cli.main([]) == 2

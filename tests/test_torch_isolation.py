@@ -213,6 +213,43 @@ def test_pipeline_entry_points_raise_without_a_card(no_card, tmp_path,
     assert run.cells == [] and run.device == "cpu"
 
 
+def test_distributed_entry_points_raise_without_a_card(no_card):
+    """The orchestrated sweep, a subprocess worker, the population split
+    and its device list run on the card by default and raise without
+    one, before any work; given "cpu" they run there."""
+    from repro_torch.core import BatchedQuantEnv
+    from repro_torch.core.closed_loop import ClosedLoopConfig, HeroSearchRun
+    from repro_torch.distributed import (
+        auto_shard,
+        population_devices,
+        shard_population,
+    )
+    from repro_torch.distributed.orchestrator import (
+        SubprocessWorker,
+        run_orchestrated,
+    )
+
+    cfg = ClosedLoopConfig(scenes=(), verbose=False)
+    calls = [
+        lambda: run_orchestrated(HeroSearchRun(cfg), workers=2),
+        lambda: SubprocessWorker(lambda spec: {}),
+        lambda: BatchedQuantEnv(object(), sharded=True),
+        lambda: population_devices(),
+        lambda: shard_population(lambda x: x),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert auto_shard() is False
+    # Asking for the CPU works.
+    res = run_orchestrated(HeroSearchRun(cfg, device="cpu"), workers=2)
+    assert res.cells == [] and res.device == "cpu"
+    assert SubprocessWorker(lambda spec: {}, device="cpu").card is None
+    assert population_devices(kind="cpu") == [torch.device("cpu")]
+    twice = shard_population(lambda x: 2 * x, [torch.device("cpu")])
+    np.testing.assert_array_equal(twice(np.arange(3)), [0, 2, 4])
+
+
 def test_lm_entry_points_raise_without_a_card(no_card):
     from repro_torch.configs import get_arch
     from repro_torch.convert import lm_params_from_numpy

@@ -36,6 +36,16 @@ BAND_DB = 0.1
 CULL_THRESHOLD = 1.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tiny shapes gain nothing from more, and
+    the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene():
     """(reference params, reference dataset, the port's dataset)."""

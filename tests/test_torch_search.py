@@ -21,6 +21,9 @@ The 8-bit baseline's PSNR carries the one known gap: the integer path
 clamps the paper-exact grid's -129 weight code to int8's -128, as the
 reference's Pallas kernel does, while the reference's CPU float carrier
 keeps it (ROADMAP §3): 5.8e-4 dB here, inside the band."""
+import copy
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +72,16 @@ UPDATE_TOL = 1e-5
 # 14 units: 4 hash levels, then (activation, weight) of 5 linears.
 BITS = [[3, 5, 7, 8, 2, 4, 6, 8, 3, 5, 7, 1, 8, 4],
         [8, 6, 4, 2, 8, 8, 5, 3, 8, 8, 6, 6, 4, 4]]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tiny shapes gain nothing from more, and
+    the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -418,6 +431,28 @@ def test_population_search_matches_reference(benvs):
 
 
 def test_sharded_population_raises_instead_of_running_unsharded(envs):
+    """`sharded=True` splits the population (here over the one CPU) and
+    never quietly runs on one device: a target whose batched form has no
+    `vmappable()` cannot be split, so asking for the split raises, while
+    `sharded=None` stays on one device there."""
     _, te = envs
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcore.BatchedQuantEnv(te, sharded=True, device="cpu")
+    tb = tcore.BatchedQuantEnv(te, tcore.BatchedEnvConfig(proxy_rays=16),
+                               sharded=True, device="cpu")
+    assert tb.sharded is True and tb.n_shards == 1
+
+    class NoSplitTarget:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def batched(self, *a, **kw):
+            return SimpleNamespace(
+                simulate_batch=self.inner.batched(*a, **kw).simulate_batch)
+
+    unsplittable = copy.copy(te)
+    unsplittable.target = NoSplitTarget(te.target)
+    with pytest.raises(ValueError, match="vmappable"):
+        tcore.BatchedQuantEnv(unsplittable, sharded=True, device="cpu")
+    tb = tcore.BatchedQuantEnv(unsplittable,
+                               tcore.BatchedEnvConfig(proxy_rays=16),
+                               device="cpu")
+    assert tb.sharded is False and tb.n_shards == 1

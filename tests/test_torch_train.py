@@ -75,6 +75,16 @@ def _cmp_leaves(t_tree, j_tree, atol):
                                    atol=atol, err_msg=name)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tiny shapes gain nothing from more, and
+    the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def j_ds():
     return jd.make_dataset(js.SceneConfig(image_hw=16, n_train_views=4,
