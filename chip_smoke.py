@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's NeRF training, the HERO search, its
-search -> compile -> serve pipeline and its two serving paths on one NVIDIA
-GPU.
+search -> compile -> serve pipeline, its two serving paths and the LM
+quantization search on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -139,6 +139,36 @@ Phases, each of which raises on failure:
    once per layer per prefill, decode attention once per layer per step.
 10. qwen2-7b's widths at 2 layers in float32 on the card and on the CPU:
    logits and caches within 1e-3.
+11. The LM quantization search (``repro_torch.workloads.lm``): flash
+   attention at the search's shapes first (the smoke configs' float32
+   route, S 64, hd 16, within 1e-4 of its plain version and timed beside
+   it and SDPA; qwen3-moe's bf16 geometry, hd 64, G 16); the
+   ``LMWorkload`` bundle of qwen2-7b's smoke config built on the card
+   (its seconds, ``psnr_org``, ``original_cost``) and with the same
+   weights on the CPU; 16 policies from a fixed numpy seed (the 8-bit and
+   b_min extremes among them) scored by both, the proxy and base losses
+   within 1e-6 relative, quality and reward within the bounds that
+   implies policy by policy (one float32 ulp of the loss moves quality by
+   up to 0.01 dB near its floor), latency and ``model_bytes`` within 1e-6
+   relative, flash attention once per layer per forward (the extremes'
+   losses printed beside the quality cap at which the reference's
+   bundle saturates); ``HeroSearchRun`` at
+   ``examples/torch/lm_quant_search.py``'s defaults (budgets 1.0 and
+   0.85, 2 iterations at K = 8), counts zeroed around it (flash attention
+   once per layer per forward, nothing else; policies/s, frontier,
+   hypervolume, ``frontier_valid_vs_8bit``, proxy forwards against cost),
+   then ``hero-search-torch --workload lm --arch qwen2-7b --quick``
+   returning 0; ``loss_fn`` at qwen2-7b's published width in bf16 over 4 x
+   1024 tokens with no spec, the 8-bit spec and a mixed one (loss,
+   quality, ms, peak memory; flash attention 28 times each); the
+   ``roofline-lm`` preset's seconds/token at 8 and 4 bits beside the
+   card's measured copy rate (4 GiB device to device); qwen3-moe and
+   arctic smoke on the card against the CPU (``loss_fn``'s ce and aux
+   within 1e-5 relative, prefill and 4 decode steps within 1e-3), and
+   qwen3-moe-235b-a22b's published widths at 2 layers in bf16 under a
+   mixed spec (ms, peak memory, the dropped share of (token, slot)
+   pairs); then ``examples/torch/{quickstart,render_compare,
+   lm_quant_search}.py`` at their own scale on the card.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, ``launches_revisit`` from the revisit stream,
@@ -146,7 +176,8 @@ stream and the LM serve, ``launches_revisit`` from the revisit stream,
 PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_closed_loop``, ``launches_compile`` and
 ``launches_pipeline_serve`` from the pipeline's three stages,
-``launches_distributed`` from the thread-pool sweep),
+``launches_distributed`` from the thread-pool sweep,
+``launches_lm_search`` from the LM closed loop),
 the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2480,6 +2511,463 @@ def lm_card_vs_cpu(dev, tol: float = 1e-3):
                              f"{cache_err} > {tol}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the LM quantization search.
+# ---------------------------------------------------------------------------
+LM_ARCH = "qwen2-7b"
+LM_POP_K = 16  # policies of the card-vs-CPU population
+LM_BUDGETS = (1.0, 0.85)  # lm_quant_search's defaults: 2 iterations at K = 8
+LM_ITERATIONS, LM_K = 2, 8
+LM_FULL_BATCH, LM_FULL_SEQ = 4, 1024  # full-width loss_fn tokens
+COPY_BYTES = 4 << 30  # the card's stream rate: a 4 GiB device copy
+
+
+def lm_flash_shapes(dev, entry):
+    """Flash attention at the LM search's shapes before the search runs
+    them: the smoke configs' float32 route (B 4, Hkv 2, S 64, G 2, hd 16,
+    causal) within 1e-4 of its plain version, timed beside it and SDPA
+    (kept in `entry` under `*_lm_smoke`); and qwen3-moe's bf16 geometry
+    (Hkv 4, G 16, hd 64, S 1024) within `BF16_ATTN_LIMIT`."""
+    from repro_torch.kernels.flash_attention_kernel import (
+        flash_attention_cuda as kernel,
+        flash_attention_plain as plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype, (B, Hkv, S, G, hd), tol in (
+            (torch.float32, (4, 2, 64, 2, 16), 1e-4),
+            (torch.bfloat16, (4, 4, 1024, 16, 64), BF16_ATTN_LIMIT)):
+        q = torch.randn((B, S, Hkv * G, hd), generator=gen, device=dev) \
+            .to(dtype)
+        k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        q5 = q.view(B, S, Hkv, G, hd).permute(0, 2, 1, 3, 4)
+        k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        err = (kernel(q5, k4, v4, True) - plain(q5, k4, v4, True)).abs() \
+            .max().item()
+        print(f"flash_attention {dtype} (B {B}, Hkv {Hkv}, S {S}, G {G}, hd "
+              f"{hd}) causal: max |diff| {err:.3g} (tolerance {tol})")
+        if not err <= tol:
+            raise AssertionError(f"flash_attention at the LM search's shapes:"
+                                 f" {err} > {tol}")
+        if dtype != torch.float32:
+            continue
+        qs = q.transpose(1, 2)
+        t_k = median_ms(lambda: kernel(q5, k4, v4, True))
+        t_p = median_ms(lambda: plain(q5, k4, v4, True))
+        t_l = median_ms(lambda: sdpa(qs, k4, v4, is_causal=True,
+                                     enable_gqa=True))
+        nbytes = 4 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
+        flops = 4.0 * B * Hkv * G * S * S * hd / 2
+        bnd = bound(nbytes, flops, PEAK_F32_OPS)
+        print(f"  float32 at the smoke shapes: kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, SDPA {t_l:.4f} ms, bound {bnd[0]:.6f} ms "
+              f"({bnd[1]})")
+        entry.update(max_abs_err_lm_smoke=err, ms_lm_smoke=t_k,
+                     plain_ms_lm_smoke=t_p, library_ms_lm_smoke=t_l,
+                     bound_ms_lm_smoke=bnd[0])
+
+
+class ForwardCounter:
+    """Counts `repro_torch.models.lm.forward` calls while in use (each
+    `loss_fn` makes one)."""
+
+    def __enter__(self):
+        from repro_torch.models import lm
+
+        self.mod, self.inner, self.n = lm, lm.forward, 0
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self.inner(*a, **kw)
+        lm.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.forward = self.inner
+
+
+def lm_population_card_vs_cpu(dev, kern, loss_rel: float = 1e-6):
+    """The LM workload's bundle for qwen2-7b built on the card, and the
+    same weights' bundle on the CPU; 16 policies from a fixed numpy seed
+    (the all-8-bit and all-b_min extremes first) scored by both, flash
+    attention launched once per layer per forward. The proxy losses and
+    the full-precision base losses agree within `loss_rel` (a few float32
+    ulps: the card's products sum in another order); latency and
+    model_bytes within 1e-6 relative. Quality is the loss mapped to dB,
+    and the mapping's slope near its floor is 10 / ln 10 / (2 *
+    LOSS_FLOOR) ~ 2.2e4 dB per unit of loss, so one ulp of a loss of ~7
+    (4.8e-7) moves it by up to 0.01 dB: quality and reward are held to
+    the bound the loss tolerance implies, policy by policy, and their
+    largest differences printed. Returns the card's bundle."""
+    from repro_torch.workloads.lm import (
+        LOSS_FLOOR,
+        LMBatchedEnv,
+        LMQuantEnv,
+        LMWorkload,
+        lm_bundle,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = LMWorkload().build_bundle(LM_ARCH, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    env = bundle.env
+    cpu = torch.device("cpu")
+    cpu_env = LMQuantEnv(LM_ARCH, env.ecfg, device=cpu,
+                         params=to_device(env.params, cpu))
+    cpu_bundle = lm_bundle(cpu_env, LMBatchedEnv(cpu_env))
+    print(f"LM workload ({LM_ARCH} smoke, {env.n_units} units): bundle "
+          f"built on the card in {build_s:.3f} s; psnr_org "
+          f"{env.psnr_org!r} dB (CPU {cpu_env.psnr_org!r}), original_cost "
+          f"{env.original_cost!r} s/token (CPU {cpu_env.original_cost!r}), "
+          f"target {env.target.describe()}")
+    rng = np.random.default_rng(11)
+    b_min, b_max = env.ecfg.b_min, env.ecfg.b_max
+    bits = rng.integers(b_min, b_max + 1, (LM_POP_K, env.n_units))
+    bits[0], bits[1] = b_max, b_min
+    zeroed(kern)
+    with ForwardCounter() as fwd:
+        t0 = time.perf_counter()
+        ev = bundle.benv.evaluate_population(bits)
+        torch.cuda.synchronize()
+        pop_s = time.perf_counter() - t0
+    launches = read(kern)
+    ref = cpu_bundle.benv.evaluate_population(bits)
+    loss = bundle.benv.proxy_losses(env.params, bits).astype(np.float64)
+    loss_cpu = cpu_bundle.benv.proxy_losses(cpu_env.params, bits) \
+        .astype(np.float64)
+    base, base_cpu = env.base_loss_proxy, cpu_env.base_loss_proxy
+    d_loss = max(float(np.abs(loss / loss_cpu - 1).max()),
+                 abs(base / base_cpu - 1))
+    # |d quality| <= slope * |d excess|, the slope taken at the smaller
+    # of the two excesses (the mapping is convex), |d excess| bounded by
+    # the loss tolerance on both losses.
+    d_excess = loss_rel * (loss_cpu + base_cpu)
+    excess = np.maximum(np.minimum(loss - base, loss_cpu - base_cpu)
+                        - d_excess, LOSS_FLOOR)
+    q_bound = 10.0 / np.log(10.0) * d_excess / (excess + LOSS_FLOOR)
+    dq = np.abs(ev.psnr - ref.psnr)
+    org_bound = float(q_bound[0]) if np.all(bits[0] == b_max) else 0.0
+    d_org = abs(bundle.benv.psnr_org_proxy - cpu_bundle.benv.psnr_org_proxy)
+    dr = np.abs(ev.reward - ref.reward)
+    r_bound = env.ecfg.lam * (q_bound + org_bound) + 1e-9
+    dl = float(np.abs(ev.latency_cycles / ref.latency_cycles - 1).max())
+    db = float(np.abs(ev.model_bytes / ref.model_bytes - 1).max())
+    print(f"LM population of {LM_POP_K} on the card in {pop_s:.3f} s "
+          f"({LM_POP_K / pop_s:.1f} policies/s), card vs CPU: losses "
+          f"{d_loss:.3g} rel (tolerance {loss_rel}), quality max "
+          f"{float(dq.max()):.3g} dB (bounds by policy from the loss "
+          f"tolerance {float(q_bound.min()):.3g}..{float(q_bound.max()):.3g}"
+          f"), 8-bit anchor {d_org:.3g} dB, reward max {float(dr.max()):.3g}"
+          f", latency {dl:.3g} rel, model_bytes {db:.3g} rel; {fwd.n} "
+          f"forwards, launches {launches}")
+    if not (d_loss <= loss_rel and np.all(dq <= q_bound)
+            and d_org <= org_bound and np.all(dr <= r_bound)
+            and dl <= 1e-6 and db <= 1e-6):
+        raise AssertionError("the LM population on the card differs from "
+                             "the CPU's")
+    want = {n: 0 for n in kern}
+    want["flash_attention"] = env.cfg.n_layers * LM_POP_K
+    if fwd.n != LM_POP_K or launches != want:
+        raise AssertionError(f"{fwd.n} forwards and launches {launches}, "
+                             f"want {LM_POP_K} and {want}")
+    cap = -10.0 * np.log10(2 * LOSS_FLOOR)
+    print(f"  extremes on the proxy batch: all-{b_max}-bit loss "
+          f"{float(loss[0])!r}, all-{b_min}-bit loss {float(loss[1])!r}, "
+          f"full precision "
+          f"{base!r}; quality {float(ev.psnr[0])!r} and "
+          f"{float(ev.psnr[1])!r} dB against the cap -10 log10(2 * "
+          f"LOSS_FLOOR) = {float(cap)!r}, at which the reference's qwen2-7b "
+          "smoke bundle (its own random weights) saturates at both "
+          "extremes")
+    del cpu_bundle, cpu_env
+    return bundle
+
+
+def lm_closed_loop(bundle, dev, kern):
+    """The closed loop at `examples/torch/lm_quant_search.py`'s defaults
+    on the card (qwen2-7b, budgets 1.0 and 0.85, 2 iterations at K = 8),
+    counts zeroed around it: flash attention once per layer per forward,
+    nothing else; its time split into proxy forwards and cost. Then
+    `hero-search-torch --workload lm --arch qwen2-7b --quick` must return
+    0. Returns the loop's launches."""
+    from repro_torch.core.closed_loop import (
+        ClosedLoopConfig,
+        HeroSearchRun,
+        bench_report,
+    )
+    from repro_torch.hero import cli
+
+    benv = bundle.benv
+    cfg = ClosedLoopConfig(scenes=(LM_ARCH,), budget_fracs=LM_BUDGETS,
+                           n_iterations=LM_ITERATIONS, population=LM_K,
+                           workload="lm", hardware="roofline-lm",
+                           checkpoint_path=None, verbose=False)
+    zeroed(kern)
+    with ForwardCounter() as fwd, \
+            CallTimer(benv, "evaluate_population", "proxy_losses",
+                      "simulate_batch") as pop_t:
+        t0 = time.perf_counter()
+        result = HeroSearchRun(cfg, {LM_ARCH: bundle}, device=dev).run()
+        loop_s = time.perf_counter() - t0
+    loop = read(kern)
+    report = bench_report(result, cfg)
+    print(f"LM closed loop ({len(LM_BUDGETS)} budgets x {LM_ITERATIONS} "
+          f"iterations x K={LM_K}): {loop_s:.2f} s, "
+          f"{result.policies_evaluated} policies, "
+          f"{result.policies_per_sec:.2f} policies/s of search "
+          f"({result.search_seconds:.3f} s), frontier "
+          f"{len(result.frontier)} points, hypervolume "
+          f"{result.hypervolume()!r}, frontier_valid_vs_8bit "
+          f"{report['frontier_valid_vs_8bit']}; {fwd.n} forwards, launches "
+          f"{loop}")
+    print(f"  where the loop's time went: evaluate_population "
+          f"{pop_t.s['evaluate_population']:.3f} s (proxy forwards "
+          f"{pop_t.s['proxy_losses']:.3f} s, cost "
+          f"{pop_t.s['simulate_batch']:.4f} s), the rest (agent, CEM, "
+          f"budget enforcement, frontier) "
+          f"{loop_s - pop_t.s['evaluate_population']:.3f} s")
+    want = {n: 0 for n in kern}
+    want["flash_attention"] = bundle.env.cfg.n_layers * fwd.n
+    if not (report["frontier_valid_vs_8bit"] and len(result.cells) == 2
+            and result.policies_evaluated
+            == len(LM_BUDGETS) * LM_ITERATIONS * LM_K and loop == want):
+        raise AssertionError(f"LM closed loop: launches {loop} (want "
+                             f"{want}), report {report}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "search.json"
+        t0 = time.perf_counter()
+        rc = cli.main(["search", "--workload", "lm", "--arch", LM_ARCH,
+                       "--quick", "--device", dev.type, "--checkpoint", "",
+                       "--out", str(out)])
+        cli_s = time.perf_counter() - t0
+        cli_report = json.loads(out.read_text())
+    print(f"hero-search-torch --workload lm --arch {LM_ARCH} --quick: rc {rc}"
+          f" in {cli_s:.2f} s, {cli_report['policies_evaluated']} policies, "
+          f"frontier {cli_report['frontier_size']} points, "
+          f"{cli_report['policies_per_sec']} policies/s")
+    if rc != 0 or not cli_report["frontier_size"]:
+        raise AssertionError(f"the LM CLI search failed: rc {rc}")
+    return loop
+
+
+def lm_full_width(dev, kern):
+    """`loss_fn` at qwen2-7b's published width (bf16, random weights from a
+    seed) over 4 x 1024 `TokenPipeline` tokens with no spec, the all-8-bit
+    spec and a mixed one (4-bit bands, layers' weights 4/8 and
+    activations 8/4 bits alternating): flash attention once per layer
+    each; loss, quality, ms and peak memory. Then the roofline's
+    seconds/token and model_bytes at 8 and 4 bits under the card's preset
+    beside the card's measured device-to-device copy rate."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.hero.targets import LMRooflineTarget
+    from repro_torch.models import lm
+    from repro_torch.workloads.lm import quality_db
+
+    model = get_arch(LM_ARCH).model
+    params = lm.init_params(model, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    tokens = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+        vocab_size=model.vocab_size, seq_len=LM_FULL_SEQ,
+        global_batch=LM_FULL_BATCH)).batch()).long().to(dev)
+    L = lm.total_layers(model)
+    full = lambda v, *shape: torch.full(shape, float(v), device=dev)
+    alt = lambda a, b: torch.tensor([[a if l % 2 == 0 else b] * lm.N_GROUPS
+                                     for l in range(L)], dtype=torch.float32,
+                                    device=dev)
+    specs = {
+        "none": None,
+        "8-bit": lm.LMQuantSpec(full(8, model.n_embed_bands),
+                                full(8, L, lm.N_GROUPS),
+                                full(8, L, lm.N_GROUPS)),
+        "mixed": lm.LMQuantSpec(full(4, model.n_embed_bands), alt(4, 8),
+                                alt(8, 4)),
+    }
+    base = None
+    with torch.inference_mode():
+        for name, spec in specs.items():
+            run = lambda: lm.loss_fn(params, {"tokens": tokens}, model,
+                                     spec=spec)[0]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zeroed(kern)
+            loss = float(run())
+            launches = read(kern)
+            peak = torch.cuda.max_memory_allocated(dev)
+            ms = median_ms(run, iters=3, warmup=1, hide_host=False)
+            base = loss if base is None else base
+            q = float(quality_db(loss, base))
+            print(f"{LM_ARCH} full width, loss_fn over {LM_FULL_BATCH} x "
+                  f"{LM_FULL_SEQ} tokens, spec {name}: loss {loss!r}, quality "
+                  f"{q!r} dB, {ms:.2f} ms (CUDA events, median of 3), peak "
+                  f"{peak / 2**30:.2f} GiB; launches {launches}")
+            want = {n: 0 for n in kern}
+            want["flash_attention"] = L
+            if launches != want or not np.isfinite(loss):
+                raise AssertionError(f"full-width loss_fn ({name}): loss "
+                                     f"{loss}, launches {launches}, want "
+                                     f"{want}")
+    del params
+    target = LMRooflineTarget(device=dev)
+    wl = target.build_workload(model)
+    for bits in (8, 4):
+        r = target.baseline(wl, bits)
+        print(f"roofline-lm ({target.hw.chip}, {target.hw.hbm_gbps} GB/s) on "
+              f"{LM_ARCH} at {bits} bits: {r['seconds_per_token'] * 1e3:.4f} "
+              f"ms/token, model_bytes {r['model_bytes']:.0f}")
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = median_ms(lambda: dst.copy_(src), iters=10, warmup=2)
+    print(f"the card's stream rate: a {COPY_BYTES / 2**30:.0f} GiB "
+          f"device-to-device copy in {ms:.3f} ms (CUDA events, median of "
+          f"10): {2 * COPY_BYTES / ms / 1e6:.1f} GB/s read + write, against "
+          f"the preset's {target.hw.hbm_gbps} GB/s")
+    del src, dst
+
+
+def lm_moe(dev, kern, tol: float = 1e-3, rel: float = 1e-5):
+    """The MoE archs on the card: qwen3-moe and arctic smoke against the
+    CPU (`loss_fn`'s ce and aux within `rel`, `prefill` and 4 decode steps'
+    logits within `tol`), then qwen3-moe-235b-a22b's published widths at 2
+    layers in bf16: `loss_fn` under a mixed spec, its ms, peak memory and
+    the share of dropped (token, slot) pairs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.serve import greedy
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import lm
+    from repro_torch.tree_util import tree_leaves
+
+    cpu = torch.device("cpu")
+    for arch in ("qwen3-moe-235b-a22b", "arctic-480b"):
+        cfg = get_arch(arch).smoke
+        p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=cpu)
+        p_dev = to_device(p_cpu, dev)
+        toks = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)).batch()
+        ).long()
+        with torch.inference_mode():
+            zeroed(kern)
+            l_dev, m_dev = lm.loss_fn(p_dev, {"tokens": toks.to(dev)}, cfg)
+            launches = read(kern)
+            l_cpu, m_cpu = lm.loss_fn(p_cpu, {"tokens": toks}, cfg)
+            d_ce = abs(float(m_dev["ce"]) / float(m_cpu["ce"]) - 1)
+            d_aux = abs(float(m_dev["aux"]) / float(m_cpu["aux"]) - 1)
+            prompt, steps = toks[:2, :32], 4
+            ld, cd = lm.prefill(p_dev, {"tokens": prompt.to(dev)}, cfg,
+                                32 + steps)
+            lc, cc = lm.prefill(p_cpu, {"tokens": prompt}, cfg, 32 + steps)
+            worst = (ld.cpu() - lc).abs().max().item()
+            for i in range(steps):
+                tok = greedy(lc)[:, None]
+                ld, cd = lm.decode_step(p_dev, cd, tok.to(dev), 32 + i, cfg)
+                lc, cc = lm.decode_step(p_cpu, cc, tok, 32 + i, cfg)
+                worst = max(worst, (ld.cpu() - lc).abs().max().item())
+        print(f"{arch} smoke, card vs CPU: loss_fn ce {float(m_dev['ce'])!r} "
+              f"({d_ce:.3g} rel), aux {float(m_dev['aux'])!r} ({d_aux:.3g} "
+              f"rel); prefill + {steps} decode steps logits max |diff| "
+              f"{worst:.3g} (tolerance {tol}); loss_fn launches {launches}")
+        if not (d_ce <= rel and d_aux <= rel and worst <= tol
+                and launches["flash_attention"] == cfg.n_layers):
+            raise AssertionError(f"{arch} on the card differs from the CPU")
+
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").model,
+                              n_layers=2)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    tokens = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_FULL_SEQ,
+        global_batch=LM_FULL_BATCH)).batch()).long().to(dev)
+    L = lm.total_layers(cfg)
+    spec = lm.LMQuantSpec(
+        torch.full((cfg.n_embed_bands,), 4.0, device=dev),
+        torch.tensor([[4.0] * lm.N_GROUPS, [8.0] * lm.N_GROUPS], device=dev),
+        torch.tensor([[8.0] * lm.N_GROUPS, [4.0] * lm.N_GROUPS], device=dev))
+    shares = []
+    inner = ffn_mod.moe_route
+
+    def route(*a, **kw):
+        r = inner(*a, **kw)
+        shares.append(r.dropped_share())
+        return r
+    ffn_mod.moe_route = route
+    try:
+        with torch.inference_mode():
+            run = lambda: lm.loss_fn(params, {"tokens": tokens}, cfg,
+                                     spec=spec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zeroed(kern)
+            loss, metrics = run()
+            loss = float(loss)
+            launches = read(kern)
+            peak = torch.cuda.max_memory_allocated(dev)
+            dropped = list(shares)
+            ms = median_ms(run, iters=3, warmup=1, hide_host=False)
+    finally:
+        ffn_mod.moe_route = inner
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"qwen3-moe-235b-a22b published widths, {L} layers, bf16 "
+          f"({n_bytes / 1e9:.2f} GB of weights), loss_fn under a mixed spec "
+          f"over {LM_FULL_BATCH} x {LM_FULL_SEQ} tokens: loss {loss!r} (aux "
+          f"{float(metrics['aux'])!r}), {ms:.2f} ms (CUDA events, median of "
+          f"3), peak {peak / 2**30:.2f} GiB, dropped (token, slot) pairs by "
+          f"layer {dropped}; launches {launches}")
+    if not (np.isfinite(loss) and launches["flash_attention"] == L):
+        raise AssertionError(f"qwen3-moe full width: loss {loss}, launches "
+                             f"{launches}")
+    del params
+
+
+def examples_on_card(dev):
+    """The ported examples at their own scale on the card: the quickstart
+    (train, env, PTQ, an 8-episode search), the render comparison and the
+    LM search; each must return 0."""
+    import importlib.util
+    import io
+    from contextlib import redirect_stdout
+
+    for name, writes in (("quickstart", False), ("render_compare", True),
+                         ("lm_quant_search", False)):
+        path = ROOT / "examples" / "torch" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with tempfile.TemporaryDirectory() as tmp:
+            args = ["--device", dev.type] + (["--out", tmp] if writes
+                                              else [])
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with redirect_stdout(out):
+                rc = mod.main(args)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        tail = out.getvalue().strip().splitlines()[-1]
+        print(f"examples/torch/{name}.py on the card: rc {rc} in {s:.2f} s; "
+              f"last line: {tail}")
+        if rc != 0:
+            raise AssertionError(f"examples/torch/{name}.py returned {rc}")
+
+
+def lm_search_phase(dev, kern, flash_entry):
+    """Phase 11. Returns the LM closed loop's launches."""
+    t0 = time.perf_counter()
+    lm_flash_shapes(dev, flash_entry)
+    bundle = lm_population_card_vs_cpu(dev, kern)
+    loop = lm_closed_loop(bundle, dev, kern)
+    del bundle
+    lm_full_width(dev, kern)
+    lm_moe(dev, kern)
+    examples_on_card(dev)
+    print(f"LM search phase: {time.perf_counter() - t0:.2f} s")
+    return loop
+
+
 # Sources whose ptxas lines are printed in full (kernel names, stack and
 # spill bytes, wgmma notes); for the others only the register counts.
 DETAIL_SOURCES = ("flash_attention.cu", "decode_attention.cu",
@@ -2691,6 +3179,8 @@ def main() -> int:
     launches.update({n: lm_launches[n] for n in LM_KERNELS})
     lm_profile(dev)
     lm_card_vs_cpu(dev)
+    psnr_launches["lm_search"] = lm_search_phase(
+        dev, kern, next(e for e in entries if e["name"] == "flash_attention"))
 
     for e in entries:
         # quant_matmul lies on no path: 0 launches in every run.

@@ -11,14 +11,18 @@ from typing import Dict, List
 from repro_torch.configs.base import SHAPES, ArchSpec, ShapeSpec
 
 _MODULES = {
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
 }
-# The reference's other architectures (MoE, mamba, xLSTM, encoder-decoder,
-# patch frontends, and the dense configs the port has not tested yet).
+# The reference's other architectures: mamba, xLSTM, encoder-decoder and
+# patch-frontend blocks.
 _LATER = (
-    "qwen3-moe-235b-a22b", "arctic-480b", "llama3-405b", "granite-34b",
-    "nemotron-4-340b", "llava-next-mistral-7b", "whisper-large-v3",
-    "jamba-v0.1-52b", "xlstm-350m",
+    "llava-next-mistral-7b", "whisper-large-v3", "jamba-v0.1-52b",
+    "xlstm-350m",
 )
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -140,7 +140,9 @@ def lm_params_from_numpy(tree: Dict, device: DeviceLike = None) -> Dict:
     `np.asarray` reads, block leaves stacked over periods under
     `blocks/pos<i>`) -> the port's layout on `device`: the same top-level
     leaves, and `blocks` a list with one dict per layer (layer
-    n * period + i is period n's `pos<i>`)."""
+    n * period + i is period n's `pos<i>`). Every subtree of a block
+    crosses as it is: attention, dense FFN, and the `moe` subtree (the
+    f32 router, the expert stacks, the `dense` residual FFN)."""
     dev = resolve_device(device)
     out = {k: _tree(v, dev) for k, v in tree.items() if k != "blocks"}
     blocks = tree["blocks"]

@@ -16,8 +16,8 @@
 - baselines: PTQ / QAT / CAQ-proxy comparison methods
 
 The loop is workload-generic: `repro_torch.workloads` supplies the
-per-case bundles (the `nerf` scene adapter; `lm` is registered and not
-ported, ROADMAP §1 item 8).
+per-case bundles (the `nerf` scene adapter and the `lm` quantization
+workload).
 """
 from repro_torch.core.action import action_to_bits, bits_to_action
 from repro_torch.core.ddpg import DDPGAgent, DDPGConfig, ReplayBuffer

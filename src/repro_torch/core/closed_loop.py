@@ -8,7 +8,8 @@ the pieces into that loop:
 
   scene grid ──► per-case workload bundle (`repro_torch.workloads`): the
                  NeRF workload trains an NGPQuantEnv per scene (shared
-                 occupancy bake, one BatchedQuantEnv each)
+                 occupancy bake, one BatchedQuantEnv each); the LM
+                 workload builds an LMQuantEnv per arch id
   budget grid ─► per-cell `hero_population_search` with the budget passed
                  as call state (no env mutation, envs are shared)
   every evaluated policy ─► per-scene raw `ParetoFrontier` + one joint
@@ -268,7 +269,7 @@ class ClosedLoopConfig:
     # the frontier's latency axis means nothing across targets.
     hardware: str = "neurex"
     # Registered workload name (`repro_torch.workloads`): what kind of task
-    # the `scenes` entries name.
+    # the `scenes` entries name — NeRF scene names or LM arch ids.
     workload: str = "nerf"
 
     def fingerprint(self) -> Dict:
@@ -490,7 +491,8 @@ class HeroSearchRun:
     ):
         """`target=` injects a `HardwareTarget` INSTANCE for scene-env
         building (overriding the by-name `cfg.hardware` resolution).
-        `workload=` likewise injects a `Workload` INSTANCE. The run lives
+        `workload=` likewise injects a `Workload` INSTANCE (e.g. an
+        `LMWorkload` with non-default eval knobs). The run lives
         on `device` (the card unless "cpu"): built bundles are built
         there, and injected ones must live there."""
         self.cfg = cfg

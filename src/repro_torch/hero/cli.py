@@ -12,10 +12,13 @@ The reports default to `BENCH_search_torch.json` and
 `experiments/`. `--workers N` (N > 1) or `--chaos SEED` runs the sweep's
 cells through the elastic orchestrator (`repro_torch.distributed.
 orchestrator`): thread, inline or subprocess workers (`--worker-kind`),
-the same frontier as one worker. The LM workload (`--workload lm`, item
-8) is not ported: asking for it exits with code 2.
+the same frontier as one worker. `--workload lm` searches an LM arch's
+embed-band and per-layer bits (`--arch`, default qwen2-7b) against the
+`roofline-lm` target; an arch whose blocks are not ported exits with code
+2.
 
     hero-search-torch --quick --workers 2 --worker-kind subprocess --chaos 3
+    hero-search-torch --workload lm --arch qwen2-7b --quick --device cpu
 """
 from __future__ import annotations
 
@@ -61,15 +64,20 @@ def search_main(argv=None) -> int:
     ap.add_argument("--workload", default="nerf",
                     choices=sorted(list_workloads()),
                     help="registered task family the loop searches over: "
-                         "'nerf' scenes (default); 'lm' is not ported")
-    ap.add_argument("--scenes", default="chair,lego",
-                    help="comma-separated procedural scenes")
+                         "'nerf' scenes (default) or 'lm' arch ids")
+    ap.add_argument("--scenes", default=None,
+                    help="comma-separated cases: procedural scenes for "
+                         "--workload nerf (default chair,lego), arch ids "
+                         "for --workload lm (default qwen2-7b)")
+    ap.add_argument("--arch", default=None,
+                    help="shorthand for --scenes with a single LM arch id "
+                         "(--workload lm)")
     ap.add_argument("--budgets", default="1.0,0.85",
                     help="latency budgets as fractions of 8-bit latency")
     ap.add_argument("--hardware", default=None,
                     choices=sorted(list_targets()),
                     help="registered hardware target the search optimizes "
-                         "for (default: neurex)")
+                         "for (default: neurex for nerf, roofline-lm for lm)")
     ap.add_argument("--iterations", type=int, default=4,
                     help="population-search iterations per cell")
     ap.add_argument("--population", type=int, default=8,
@@ -100,20 +108,37 @@ def search_main(argv=None) -> int:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.workload != "nerf":
-        print(f"[hero-search-torch] workload {args.workload!r} is not ported "
-              "yet: ROADMAP §1 item 8", file=sys.stderr)
-        return 2
-    hardware = args.hardware or "neurex"
+    if args.arch is not None:
+        if args.workload != "lm":
+            ap.error("--arch is shorthand for --workload lm")
+        if args.scenes is not None:
+            ap.error("pass either --arch or --scenes, not both")
+        args.scenes = args.arch
+    if args.scenes is None:
+        args.scenes = "qwen2-7b" if args.workload == "lm" else "chair,lego"
+    hardware = args.hardware or (
+        "roofline-lm" if args.workload == "lm" else "neurex"
+    )
     device = resolve_device(args.device)
 
     scenes = tuple(s for s in args.scenes.split(",") if s)
+    if args.workload == "lm":
+        from repro_torch.configs import get_arch
+
+        for arch in scenes:
+            try:
+                get_arch(arch)
+            except KeyError as e:
+                print(f"[hero-search-torch] {e.args[0]}", file=sys.stderr)
+                return 2
     budgets = tuple(float(b) for b in args.budgets.split(",") if b)
     scale = SceneScale.quick() if args.quick else SceneScale.standard()
     n_iter = min(args.iterations, 3) if args.quick else args.iterations
 
     n_dev = _n_devices(device)
-    print(f"[hero-search-torch] {len(scenes)} scene(s) x {len(budgets)} "
+    label = "scene" if args.workload == "nerf" else "arch"
+    print(f"[hero-search-torch] workload={args.workload}: {len(scenes)} "
+          f"{label}(s) x {len(budgets)} "
           f"budget(s), {n_iter} iteration(s) x {args.population} policies "
           f"per cell, target={hardware}, on {device} "
           f"({n_dev} device(s){' (sharded)' if n_dev > 1 else ''})")
@@ -126,6 +151,7 @@ def search_main(argv=None) -> int:
         n_iterations=n_iter,
         population=args.population,
         hardware=hardware,
+        workload=args.workload,
     )
     if args.checkpoint is None:
         # Key the default checkpoint on the config fingerprint: different
@@ -170,7 +196,7 @@ def search_main(argv=None) -> int:
         print(f"[hero-search-torch] beat uniform "
               f"{result.fixed_bit_reference}-bit after "
               f"{result.seconds_to_fixed_bit:.1f}s of search")
-    print(f"\n  {'scene':8s} {'budget':>6s} {'lat ratio':>9s} "
+    print(f"\n  {label:8s} {'budget':>6s} {'lat ratio':>9s} "
           f"{'dQ dB':>9s} {'size ratio':>10s}")
     for p in sorted(result.frontier.points, key=lambda p: (p.scene, p.latency)):
         budget = f"{p.budget:g}" if p.budget is not None else "-"

@@ -14,6 +14,10 @@ targets and a by-name registry:
   roofline-edge  — an analytic bandwidth/compute roofline (RT-NeRF-style
                    on-device budget), NOT backed by the NeuRex machinery:
                    closed-form in the bit vectors
+  roofline-lm    — weight-bound transformer decode roofline (the H100's
+                   HBM stream; the JAX package's preset is a TPU v5e's):
+                   the LM workload's cost model. Not a renderer target;
+                   `repro_torch.workloads.lm` consumes it
 
 A target provides four things: a workload (a trace from real rays),
 a scalar `simulate` (one policy -> `LatencyBreakdown`), a `batched`
@@ -375,6 +379,159 @@ class RooflineTarget:
 
 
 # ---------------------------------------------------------------------------
+# LM decode roofline target (the LM workload's cost model)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LMRooflineHWConfig:
+    """Weight-bound autoregressive decode on an HBM-class chip.
+
+    At batch-1 decode every weight byte is streamed from HBM once per
+    token, so seconds/token = bytes(embed bands + per-layer weights) over
+    peak bandwidth. Activation bits shape quality, not this cost model
+    (their traffic is negligible next to the weight stream). The preset
+    is the card the port runs on: NVIDIA H100 SXM5 80GB HBM3 at 700 W,
+    3.35 TB/s of HBM3 and 989 dense bf16 tensor-core TFLOP/s (NVIDIA's
+    H100 datasheet). The JAX package's preset is a TPU v5e (819 GB/s,
+    197 TFLOP/s); pass `hbm_gbps=819.0` to reproduce its seconds. The
+    search reads latency only as a ratio to the same target's 8-bit
+    baseline, so the rate cancels there.
+    """
+
+    chip: str = "nvidia-h100-sxm"
+    hbm_gbps: float = 3350.0  # GB/s peak HBM bandwidth
+    peak_tflops_bf16: float = 989.0  # recorded identity; unused by the model
+
+    @property
+    def hbm_bw(self) -> float:
+        """B/s."""
+        return self.hbm_gbps * 1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDecodeWorkload:
+    """Policy-independent constants of one arch's decode step (the LM
+    analogue of `NGPTrace`): embedding-band row counts and per-layer
+    weight-group element counts."""
+
+    arch: str
+    n_layers: int
+    d_model: int
+    band_rows: np.ndarray  # (n_bands,) f32 — vocab rows per embed band
+    group_elems: np.ndarray  # (N_GROUPS,) f32 — weight elems per group/layer
+
+
+def _lm_decode_metrics(
+    embed_bits: torch.Tensor,  # (K, n_bands) or (n_bands,)
+    w_bits: torch.Tensor,  # (K, n_layers, N_GROUPS) or (n_layers, N_GROUPS)
+    a_bits: torch.Tensor,  # like w_bits; quality-only
+    consts: LMDecodeWorkload,
+    hw: LMRooflineHWConfig,
+) -> Dict[str, torch.Tensor]:
+    """Closed-form decode cost in f32, over a leading K axis ((K, ·) bit
+    tensors -> (K,) metrics) or for one policy (scalars). `total_cycles`
+    is in SECONDS per token — the closed loop only ever consumes latency
+    as a ratio to the same target's 8-bit baseline, so the unit cancels."""
+    single = embed_bits.dim() == 1
+    eb = embed_bits.reshape(-1, embed_bits.shape[-1]).to(torch.float32)
+    wb = w_bits.reshape(-1, *w_bits.shape[-2:]).to(torch.float32)
+    ab = a_bits.reshape(-1, *a_bits.shape[-2:]).to(torch.float32)
+    dev = eb.device
+    band_rows = torch.from_numpy(np.asarray(consts.band_rows, np.float32)) \
+        .to(dev)
+    group = torch.from_numpy(np.asarray(consts.group_elems, np.float32)) \
+        .to(dev)
+    embed_bytes = torch.sum(band_rows * float(consts.d_model) * eb,
+                            dim=-1) / 8.0
+    w_bytes = torch.sum(group * wb, dim=(-2, -1)) / 8.0
+    model_bytes = embed_bytes + w_bytes
+    seconds = model_bytes / hw.hbm_bw
+    # Every output depends on every input (a_bits is cost-neutral by
+    # design), as the reference's sharded outputs must.
+    zero = torch.sum(ab, dim=(-2, -1)) * 0.0
+    out = {
+        "total_cycles": seconds + zero,
+        "seconds_per_token": seconds + zero,
+        "model_bytes": model_bytes + zero,
+        "dram_bytes": model_bytes + zero,
+    }
+    return {k: v[0] for k, v in out.items()} if single else out
+
+
+class LMRooflineTarget:
+    """Weight-bound LM decode roofline as a `HardwareTarget`.
+
+    Same protocol shape as the renderer targets, different workload type:
+    `build_workload` takes a `repro_torch.models.common.ModelConfig` and
+    returns `LMDecodeWorkload` consts; bit arrays are (embed_band, w, a)
+    instead of (hash, w, a). `repro_torch.workloads.lm` is the intended
+    consumer. As in the reference, the FFN groups count the config's
+    `d_ff` once a layer, also for MoE archs (the experts are not counted).
+    """
+
+    def __init__(self, hw: LMRooflineHWConfig = LMRooflineHWConfig(),
+                 name: str = "roofline-lm", device: DeviceLike = None):
+        self.name = name
+        self.hw = hw
+        self.device = resolve_device(device)
+
+    def build_workload(self, model_cfg) -> LMDecodeWorkload:
+        from repro_torch.models.lm import embed_band_boundaries, total_layers
+
+        cfg = model_cfg
+        bounds = embed_band_boundaries(cfg.vocab_size, cfg.n_embed_bands)
+        band_rows = np.diff(np.asarray(bounds, np.float64))
+        d, hd = cfg.d_model, cfg.head_dim
+        glu = cfg.ffn_type in ("swiglu", "geglu")
+        group_elems = np.asarray([
+            d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd,  # qkv
+            cfg.n_heads * hd * d,  # out proj
+            d * cfg.d_ff * (2 if glu else 1),  # ffn in (+gate)
+            cfg.d_ff * d,  # ffn out
+        ], np.float64)
+        return LMDecodeWorkload(
+            arch=cfg.name,
+            n_layers=total_layers(cfg),
+            d_model=d,
+            band_rows=band_rows.astype(np.float32),
+            group_elems=group_elems.astype(np.float32),
+        )
+
+    def _t(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def simulate(self, workload: LMDecodeWorkload, embed_bits, w_bits,
+                 a_bits) -> Dict[str, float]:
+        r = _lm_decode_metrics(self._t(embed_bits), self._t(w_bits),
+                               self._t(a_bits), workload, self.hw)
+        return {k: float(v) for k, v in r.items()}
+
+    def baseline(self, workload: LMDecodeWorkload,
+                 bits: int = 8) -> Dict[str, float]:
+        b = float(bits)
+        n_bands = len(workload.band_rows)
+        shape = (workload.n_layers, len(workload.group_elems))
+        return self.simulate(
+            workload, np.full(n_bands, b), np.full(shape, b),
+            np.full(shape, b),
+        )
+
+    def batched(self, workload: LMDecodeWorkload) -> BatchedHardwareSim:
+        hw = self.hw
+        return _RooflineBatched(
+            lambda eb, wb, ab: _lm_decode_metrics(eb, wb, ab, workload, hw),
+            self.device,
+        )
+
+    def describe(self) -> Dict:
+        return {
+            "name": self.name,
+            "family": "roofline-lm",
+            "config": dataclasses.asdict(self.hw),
+            "device": device_key(self.device),
+        }
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 _TARGET_REGISTRY: Dict[str, tuple] = {}  # name -> (factory, description)
@@ -396,11 +553,6 @@ _CROSS_FAMILY_KNOBS = ("coarse_levels",)
 
 def make_target(name: str = "neurex", **overrides) -> HardwareTarget:
     """Instantiate a registered target by name with config overrides."""
-    if name == "roofline-lm":
-        raise NotImplementedError(
-            "hardware target 'roofline-lm': the LM decode roofline is ported "
-            "with the LM workload (ROADMAP §1 item 8); its preset is a TPU's "
-            "HBM rate, and the port needs the card's own figures")
     if name not in _TARGET_REGISTRY:
         known = ", ".join(sorted(_TARGET_REGISTRY))
         raise KeyError(f"unknown hardware target {name!r} (registered: {known})")
@@ -486,4 +638,21 @@ register_target(
     "roofline-edge", _roofline_factory(RooflineHWConfig(), "roofline-edge"),
     "analytic bandwidth/compute roofline of an on-device renderer "
     "(non-NeuRex)",
+)
+
+
+def _lm_roofline_factory(preset: LMRooflineHWConfig, name: str):
+    def factory(**kw) -> HardwareTarget:
+        device = kw.pop("device", None)
+        return LMRooflineTarget(dataclasses.replace(preset, **kw), name=name,
+                                device=device)
+    return factory
+
+
+register_target(
+    "roofline-lm",
+    _lm_roofline_factory(LMRooflineHWConfig(), "roofline-lm"),
+    "weight-bound LM decode roofline (NVIDIA H100 SXM, 3.35 TB/s HBM "
+    "stream of embed-band + per-layer weight bytes; the --workload lm cost "
+    "model)",
 )

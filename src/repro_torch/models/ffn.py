@@ -1,17 +1,32 @@
-"""Dense FFN blocks (GLU / gelu / squared-ReLU).
+"""FFN blocks: dense (GLU / gelu / squared-ReLU) and mixture-of-experts.
 
-The counterpart of the dense half of `repro/models/ffn.py`; the
-mixture-of-experts FFN comes with the MoE blocks (ROADMAP §1 item 8).
+The counterpart of `repro/models/ffn.py`. MoE uses the reference's
+sort-free capacity dispatch: each (token, slot)'s position in its expert
+is the exclusive prefix count of earlier pairs routed there (a
+group-local cumsum plus cross-group offsets, the same global order as one
+flat cumsum), pairs at or past the global capacity C are dropped, the
+kept ones are scattered into an (E, C, d) buffer, the experts run as
+batched products, and the outputs are scattered back weighted by their
+gates. All routing is integer work, and each (expert, slot) holds at most
+one token, so the float scatters add a value to zeros only: exact on the
+card too. The combine adds up to `top_k` contributions a token, in the
+order of the slots on the CPU and in any order on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.common import ACT_FNS, ModelConfig, dense_init
+from repro_torch.models.common import ACT_FNS, ModelConfig, MoEConfig, dense_init
 
 
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
 def ffn_param_shapes(cfg: ModelConfig, d_ff: Optional[int] = None):
     d, dff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.ffn_type in ("swiglu", "geglu"):
@@ -37,3 +52,156 @@ def ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         raise ValueError(cfg.ffn_type)
     return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts
+# ---------------------------------------------------------------------------
+def moe_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    m = cfg.moe
+    d = cfg.d_model
+    dffe = m.d_ff_expert or cfg.d_ff
+    glu = cfg.ffn_type in ("swiglu", "geglu")
+    shapes = {"router": (d, m.n_experts)}
+    if glu:
+        shapes["experts_gate"] = (m.n_experts, d, dffe)
+    shapes["experts_in"] = (m.n_experts, d, dffe)
+    shapes["experts_out"] = (m.n_experts, dffe, d)
+    return shapes
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig) -> Dict:
+    """The router in f32 (`dense_init`), each expert stack N(0, 1) /
+    sqrt(its second axis) in the model's dtype, and the dense residual FFN
+    when the config has one; drawn from `generator` on its device."""
+    params = {}
+    for name, shape in moe_param_shapes(cfg).items():
+        if name == "router":
+            params[name] = dense_init(generator, shape[0], shape[1],
+                                      torch.float32)
+        else:
+            w = torch.randn(shape, generator=generator,
+                            device=generator.device, dtype=torch.float32)
+            params[name] = w.div_(math.sqrt(shape[1])).to(cfg.param_dtype)
+    if cfg.moe.dense_residual:
+        params["dense"] = init_ffn(generator, cfg)
+    return params
+
+
+def moe_capacity(n_tokens: int, mcfg: MoEConfig) -> int:
+    """Static per-expert capacity, rounded up to a multiple of 8."""
+    c = math.ceil(n_tokens * mcfg.top_k * mcfg.capacity_factor / mcfg.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+@dataclasses.dataclass
+class MoERouting:
+    """One MoE layer's routing of T tokens: every (token, slot) pair in
+    token-major order (pair i is token i // top_k's slot i % top_k)."""
+
+    gate_vals: torch.Tensor  # (T, k) normalized top-k gates
+    expert_ids: torch.Tensor  # (T, k) int64
+    flat_pos: torch.Tensor  # (T*k,) position of each pair in its expert
+    keep: torch.Tensor  # (T*k,) bool: flat_pos < capacity
+    slot: torch.Tensor  # (T*k,) flat (expert, slot) index; dropped: slot 0
+    slot_tok: torch.Tensor  # (E, C) token in each slot; T = empty
+    slot_gate: torch.Tensor  # (E, C) f32 gate of each slot; 0 = empty
+    capacity: int
+    aux_loss: torch.Tensor  # () Switch-style load-balancing loss
+
+    def dropped_share(self) -> float:
+        """Share of (token, slot) pairs over capacity."""
+        return float(1.0 - self.keep.float().mean())
+
+
+def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERouting:
+    """Route the tokens xt (T, d): router softmax in the router's dtype,
+    top-k gates renormalized to sum 1, the aux loss E * sum(mean(probs) *
+    frac(top-1)), each pair's global position in its expert (a
+    group-local exclusive cumsum plus exclusive group offsets), the keep
+    mask against the global capacity C = `moe_capacity(T)`, and the slot
+    maps: the (expert, slot) -> token map by an integer `amin` scatter
+    (dropped pairs offer the sentinel T) and the slot gates by an exact
+    add into zeros."""
+    m = cfg.moe
+    T = xt.shape[0]
+    E, k = m.n_experts, m.top_k
+    G = m.dispatch_groups if T % max(m.dispatch_groups, 1) == 0 else 1
+    Tg = T // G
+    dev = xt.device
+    rdt = getattr(torch, m.router_dtype)
+    logits = xt.to(rdt) @ params["router"].to(rdt)  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)  # (T, k)
+    gate_vals = gate_vals / torch.clamp_min(
+        torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
+
+    me = torch.mean(probs, dim=0)  # (E,)
+    ce = torch.mean(F.one_hot(expert_ids[:, 0], E).to(torch.float32), dim=0)
+    aux_loss = E * torch.sum(me * ce)
+
+    ids_g = expert_ids.reshape(G, Tg * k)  # (G, Tg*k)
+    onehot = F.one_hot(ids_g, E)  # (G, Tg*k, E) int64
+    pos_local = torch.cumsum(onehot, dim=1) - onehot  # exclusive, per group
+    counts = torch.sum(onehot, dim=1)  # (G, E)
+    group_base = torch.cumsum(counts, dim=0) - counts  # exclusive over groups
+    pos = torch.gather(pos_local, 2, ids_g[..., None])[..., 0]
+    base = torch.gather(group_base, 1, ids_g)  # (G, Tg*k)
+    flat_pos = (pos + base).reshape(-1)
+    flat_ids = expert_ids.reshape(-1)
+    C = moe_capacity(T, m)
+    keep = flat_pos < C
+    slot = flat_ids * C + torch.where(keep, flat_pos, 0)  # (T*k,)
+
+    tok_idx = torch.arange(T, device=dev).repeat_interleave(k)
+    slot_tok = torch.full((E * C,), T, dtype=torch.int64, device=dev)
+    slot_tok.scatter_reduce_(0, slot, torch.where(keep, tok_idx, T),
+                             reduce="amin")
+    slot_gate = torch.zeros((E * C,), dtype=torch.float32, device=dev)
+    slot_gate.index_add_(0, slot, gate_vals.reshape(-1) * keep)
+    return MoERouting(gate_vals=gate_vals, expert_ids=expert_ids,
+                      flat_pos=flat_pos, keep=keep, slot=slot,
+                      slot_tok=slot_tok.view(E, C),
+                      slot_gate=slot_gate.view(E, C), capacity=C,
+                      aux_loss=aux_loss)
+
+
+def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d). Returns (out, aux_loss); the dense residual FFN is
+    added when the config has one."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = m.n_experts, m.top_k
+    xt = x.reshape(T, d)
+    r = moe_route(params, xt, cfg)
+    C = r.capacity
+
+    # Dispatch: each kept pair's token row into its (expert, slot); a
+    # dropped pair adds a zero row at its expert's slot 0.
+    contrib = xt.repeat_interleave(k, dim=0) * r.keep[:, None].to(xt.dtype)
+    buf = torch.zeros((E * C, d), dtype=xt.dtype, device=x.device)
+    buf.index_add_(0, r.slot, contrib)
+    buf = buf.view(E, C, d)
+
+    glu = cfg.ffn_type in ("swiglu", "geglu")
+    act = ACT_FNS["silu"] if cfg.ffn_type == "swiglu" else ACT_FNS["gelu"]
+    if glu:
+        h = act(torch.bmm(buf, params["experts_gate"]))
+        h = h * torch.bmm(buf, params["experts_in"])
+    elif cfg.ffn_type == "relu2":
+        h = ACT_FNS["relu2"](torch.bmm(buf, params["experts_in"]))
+    else:
+        h = act(torch.bmm(buf, params["experts_in"]))
+    out_buf = torch.bmm(h, params["experts_out"])  # (E, C, d)
+
+    # Combine: each slot's gated output back to its token; row T takes
+    # the empty slots' zeros and is cut off.
+    weighted = out_buf * r.slot_gate[..., None].to(out_buf.dtype)
+    out = torch.zeros((T + 1, d), dtype=out_buf.dtype, device=x.device)
+    out.index_add_(0, r.slot_tok.reshape(-1), weighted.reshape(E * C, d))
+    out = out[:T]
+    if m.dense_residual:
+        out = out + ffn(params["dense"], xt, cfg)
+    return out.reshape(B, S, d), r.aux_loss

@@ -4,9 +4,9 @@ Factories import lazily so `repro_torch.core.closed_loop` can depend on
 this package (for `WorkloadBundle` and by-name resolution) while the
 concrete workloads depend back on `repro_torch.core` without a cycle.
 
-The registry lists the same names and descriptions as the JAX package's.
-The LM workload is registered but not ported: its factory raises
-(ROADMAP §1 item 8).
+The registry lists the same names and descriptions as the JAX package's:
+`nerf` (`repro_torch.workloads.nerf`) and `lm`
+(`repro_torch.workloads.lm`).
 """
 from __future__ import annotations
 
@@ -47,10 +47,9 @@ def _nerf_factory(**kw) -> Workload:
 
 
 def _lm_factory(**kw) -> Workload:
-    raise NotImplementedError(
-        "workload 'lm': the LM quantization workload (workloads/lm.py, "
-        "forward, loss_fn, LMQuantSpec and the roofline-lm target) is not "
-        "ported yet: ROADMAP §1 item 8")
+    from repro_torch.workloads.lm import LMWorkload
+
+    return LMWorkload(**kw)
 
 
 register_workload(

@@ -405,10 +405,12 @@ def test_bench_report_validity_flags_and_keys(port_bundles, reference_run):
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcl.HeroSearchRun(_cfg(tcl, workload="lm"), device="cpu").run()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        twl.get_workload("lm")
+    ssm = ("jamba-v0.1-52b",)
+    with pytest.raises(KeyError, match="item 8"):
+        tcl.HeroSearchRun(_cfg(tcl, workload="lm", scenes=ssm,
+                               hardware="roofline-lm"), device="cpu").run()
+    with pytest.raises(KeyError, match="item 8"):
+        twl.get_workload("lm").policy_shape(ssm[0])
 
 
 def test_scene_bundle_anchors(port_bundles):

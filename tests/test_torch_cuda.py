@@ -28,7 +28,10 @@ same bits, rewards within 1e-4, PSNR within 1e-3 dB, latency within
 1e-6 relative). The distributed search on the card: a thread pool's
 sweep equal to the sequential run, launches included, and the
 population split over the visible cards equal to the plain env
-exactly."""
+exactly. The LM search on the card: `loss_fn` of the MoE and dense
+smoke configs under a mixed spec within 1e-5 relative of the CPU's
+(flash attention once per layer), and the LM bundle's proxy losses
+within 1e-6 relative of the CPU's on the same weights."""
 import importlib.util
 from pathlib import Path
 
@@ -1119,3 +1122,58 @@ def test_sharded_population_on_the_card_equals_the_plain_env(card):
     assert fused.keys() == memo.keys()
     for key in memo:
         np.testing.assert_array_equal(fused[key], memo[key], err_msg=key)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "nemotron-4-340b",
+                                  "arctic-480b", "qwen3-moe-235b-a22b"])
+def test_lm_loss_under_a_spec_card_against_cpu(card, arch):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    cfg = get_arch(arch).smoke
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    p_dev = CS.to_device(p_cpu, card)
+    rng = np.random.default_rng(2)
+    L = lm.total_layers(cfg)
+    bits = (rng.integers(2, 9, cfg.n_embed_bands),
+            rng.integers(2, 9, (L, lm.N_GROUPS)),
+            rng.integers(2, 9, (L, lm.N_GROUPS)))
+    spec = lambda dev: lm.LMQuantSpec(*(torch.tensor(b, dtype=torch.float32,
+                                                     device=dev)
+                                        for b in bits))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).long()
+    n = flash_attention_cuda.launches
+    with torch.no_grad():
+        got, m_dev = lm.loss_fn(p_dev, {"tokens": toks.to(card)}, cfg,
+                                spec=spec(card))
+        torch.cuda.synchronize()
+        want, m_cpu = lm.loss_fn(p_cpu, {"tokens": toks}, cfg,
+                                 spec=spec("cpu"))
+    assert flash_attention_cuda.launches - n == cfg.n_layers
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    assert float(m_dev["aux"]) == pytest.approx(float(m_cpu["aux"]),
+                                                rel=1e-5, abs=0.0)
+
+
+def test_lm_bundle_proxy_losses_card_against_cpu(card):
+    from repro_torch.workloads.lm import (
+        LMBatchedEnv,
+        LMQuantEnv,
+        LMWorkload,
+        lm_bundle,
+    )
+
+    b = LMWorkload().build_bundle("qwen2-7b", device=card)
+    cpu_env = LMQuantEnv("qwen2-7b", b.env.ecfg, device="cpu",
+                         params=CS.to_device(b.env.params, "cpu"))
+    cpu = lm_bundle(cpu_env, LMBatchedEnv(cpu_env))
+    bits = np.random.RandomState(4).randint(2, 9, size=(6, b.env.n_units))
+    np.testing.assert_allclose(b.benv.proxy_losses(b.env.params, bits),
+                               cpu.benv.proxy_losses(cpu_env.params, bits),
+                               rtol=1e-6)
+    assert b.env.base_loss_proxy == pytest.approx(cpu_env.base_loss_proxy,
+                                                  rel=1e-6)
+    got, want = b.benv.simulate_batch(bits), cpu.benv.simulate_batch(bits)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6)

@@ -339,7 +339,8 @@ def test_search_cli_orchestrated_runs_write_the_sequential_frontier(
 
 
 def test_unported_flags_exit_2_naming_item_8(tiny_quick, capsys):
-    assert cli.main(["search", "--workload", "lm", "--device", "cpu"]) == 2
+    assert cli.main(["search", "--workload", "lm", "--arch", "jamba-v0.1-52b",
+                     "--device", "cpu"]) == 2
     assert "item 8" in capsys.readouterr().err
     assert cli.main([]) == 2
     assert cli._parse_bits("5", 3) == [5, 5, 5]

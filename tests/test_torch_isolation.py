@@ -288,3 +288,59 @@ def test_runner_fingerprint_names_the_device(no_card):
     assert fp["device_kind"] == "cpu" and fp["device_count"] == 0
     assert fp["kernel_backend"] == "plain-cpu"
     assert fp["torch_version"] == torch.__version__
+
+
+def test_lm_workload_entry_points_raise_without_a_card(no_card):
+    """The LM search's entry points (the roofline target, the env, the
+    workload's bundle, the spec helpers and the search CLI) run on the
+    card by default and raise without one, before any forward pass."""
+    from repro_torch.configs import get_arch
+    from repro_torch.hero import cli
+    from repro_torch.hero.targets import LMRooflineTarget, make_target
+    from repro_torch.models.lm import no_lm_quant
+    from repro_torch.workloads import get_workload
+    from repro_torch.workloads.lm import LMQuantEnv
+
+    cfg = get_arch("qwen2-7b").smoke
+    calls = [
+        lambda: LMRooflineTarget(),
+        lambda: make_target("roofline-lm"),
+        lambda: LMQuantEnv("qwen2-7b"),
+        lambda: get_workload("lm").build_bundle("qwen2-7b"),
+        lambda: no_lm_quant(cfg),
+        lambda: cli.main(["search", "--workload", "lm", "--checkpoint", ""]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert no_lm_quant(cfg, "cpu").w_bits.device.type == "cpu"
+    assert make_target("roofline-lm", device="cpu").device.type == "cpu"
+
+
+_EXAMPLE_IMPORTS = r"""
+import importlib.util, pathlib, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+for path in sorted(pathlib.Path(sys.argv[1]).glob("*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
+assert not bad, bad
+print(len(list(pathlib.Path(sys.argv[1]).glob("*.py"))))
+"""
+
+
+def test_ported_examples_import_only_the_port():
+    examples = ROOT / "examples" / "torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _EXAMPLE_IMPORTS,
+                          str(examples)], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == 4
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    hits = [f"{f}:{i}" for f in sorted(examples.glob("*.py"))
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+    assert not hits

@@ -94,14 +94,14 @@ def test_registry_holds_qwen2_7b_with_the_reference_fields():
 
 def test_other_archs_raise_naming_their_slice():
     with pytest.raises(KeyError, match="item 8"):
-        get_arch("llama3-405b")
+        get_arch("jamba-v0.1-52b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("pattern,change", [
     ("xlstm", dict(pattern="xlstm")),
-    ("moe", dict(moe=tcommon.MoEConfig())),
+    ("ssm", dict(pattern="jamba", attn_every=2)),
     ("patches", dict(embed_frontend="prefix_patches")),
 ])
 def test_unported_blocks_raise(pattern, change):
