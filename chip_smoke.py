@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's NeRF training, the HERO search, its
-search -> compile -> serve pipeline, its two serving paths and the LM
-quantization search on one NVIDIA GPU.
+search -> compile -> serve pipeline, its two serving paths, the LM
+quantization search and the LM stack's other block families on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -169,6 +170,35 @@ Phases, each of which raises on failure:
    mixed spec (ms, peak memory, the dropped share of (token, slot)
    pairs); then ``examples/torch/{quickstart,render_compare,
    lm_quant_search}.py`` at their own scale on the card.
+12. The other block families (Mamba / jamba, mLSTM and sLSTM / xlstm,
+   whisper's encoder-decoder, llava's patch prefix): flash attention at
+   the shapes the serves below give it (B 4): whisper's encoder (Sq = Sk
+   = 1,500, 20 heads, hd 64, as ``ops.full_attention`` runs it), its
+   cross-attention (1,024 and 64 queries over 1,500 keys), both over
+   1,001 keys (a partly filled last tile), whisper's causal decoder
+   self-attention (S 1,024, G 1, hd 64) and llava's and jamba's causal
+   layers (Hkv 8, G 4, hd 128, S 1,024), bf16 within ``BF16_ATTN_LIMIT``
+   and f32 within 1e-4 of ``full_attention_plain`` or
+   ``flash_attention_plain``; decode attention at whisper's cross decode
+   (all 1,500 rows of the cross cache) and at whisper's and llava's
+   self-attention decode, held alike to ``decode_attention_plain``; each
+   timed beside it and SDPA with its bound; each of whisper-large-v3,
+   llava-next-mistral-7b, xlstm-350m (full width and depth) and
+   jamba-v0.1-52b (full width, one period: 8 layers) served by
+   ``repro_torch.launch.serve``, 4 requests of 1,024 prompt positions
+   (llava: 576 zero patches and 448 tokens; whisper beside 1,500 zero
+   frames) and 32 tokens, counts zeroed around each serve (flash once
+   per attention layer per prefill, for whisper also once per encoder
+   layer and once per decoder layer for cross-attention; decode
+   attention once per attention layer per step, twice per decoder layer
+   for whisper); the mLSTM, sLSTM and Mamba mixers (and the selective
+   scan) timed at the served shapes; jamba's ``loss_fn`` under a mixed
+   spec over 4 x 1,024 tokens (ms, peak memory); the four smoke configs
+   in float32 on the card against the CPU (forward, prefill and a decode
+   step with every cache leaf within 1e-3) and jamba's and xlstm's
+   ``LMWorkload`` bundles (the base loss within 1e-6 relative, quantized
+   losses as ``workloads.lm.losses_agree`` says); ``hero-search-torch
+   --workload lm --arch xlstm-350m --quick`` returning 0.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, ``launches_revisit`` from the revisit stream,
@@ -177,7 +207,12 @@ PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_closed_loop``, ``launches_compile`` and
 ``launches_pipeline_serve`` from the pipeline's three stages,
 ``launches_distributed`` from the thread-pool sweep,
-``launches_lm_search`` from the LM closed loop),
+``launches_lm_search`` from the LM closed loop,
+``launches_serve_{whisper,llava,xlstm,jamba}`` from phase 12's serves;
+the flash entry also carries the phase 12 shapes' numbers under
+``*_{whisper_enc,cross_served,cross,ragged,cross_ragged,whisper_dec,
+llava_jamba}`` and the decode entry under
+``*_{whisper_cross,whisper_self,llava_jamba}``),
 the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2968,6 +3003,476 @@ def lm_search_phase(dev, kern, flash_entry):
     return loop
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the LM stack's other block families (Mamba / jamba, xLSTM,
+# whisper's encoder-decoder, llava's patch prefix).
+# ---------------------------------------------------------------------------
+ITEM8_ARCHS = ("whisper-large-v3", "llava-next-mistral-7b", "xlstm-350m",
+               "jamba-v0.1-52b")
+ITEM8_SHORT = {"whisper-large-v3": "whisper", "llava-next-mistral-7b": "llava",
+               "xlstm-350m": "xlstm", "jamba-v0.1-52b": "jamba"}
+# Prompt positions a request: llava's are its 576 patches and 448 tokens.
+ITEM8_PROMPT = 1024
+# Jamba at full width is cut to one period (PERF.md section 4): 7 Mamba
+# layers, 1 attention layer, 4 of them with the 16-expert MoE (~25 GB).
+JAMBA_LAYERS = 8
+# Kernel 6 at the shapes phase 12's serves give it, B 4 (name, Hkv, G, hd,
+# Sq, Sk, causal): whisper's encoder over its 1,500 frames; its decoder's
+# cross-attention of the 1,024 prompt positions over them, and of 64;
+# both over 1,001 frames, whose last 64-key tile holds 41 keys; whisper's
+# causal decoder self-attention; llava's and jamba's causal layers.
+FULL_SHAPES = (("whisper_enc", 20, 1, 64, 1500, 1500, False),
+               ("cross_served", 20, 1, 64, 1024, 1500, False),
+               ("cross", 20, 1, 64, 64, 1500, False),
+               ("ragged", 20, 1, 64, 1001, 1001, False),
+               ("cross_ragged", 20, 1, 64, 64, 1001, False),
+               ("whisper_dec", 20, 1, 64, 1024, 1024, True),
+               ("llava_jamba", 8, 4, 128, 1024, 1024, True))
+# Kernel 7 at the shapes phase 12's serves give it, B 4 (name, Hkv, G, hd,
+# cache rows, length): whisper's cross decode over every row of its
+# 1,500-row cross cache, and whisper's and llava's (jamba's) self-attention
+# decode in the middle of a request's 32 tokens.
+DECODE_SHAPES = (("whisper_cross", 20, 1, 64, 1500, 1500),
+                 ("whisper_self", 20, 1, 64, LM_SMAX, LM_PROMPT + LM_GEN // 2),
+                 ("llava_jamba", 8, 4, 128, LM_SMAX, LM_PROMPT + LM_GEN // 2))
+
+
+def flash_full_shapes(dev, entry):
+    """Kernel 6 at FULL_SHAPES: the non-causal ones as `ops.full_attention`
+    runs them (Sq queries against Sk keys) held to `full_attention_plain`,
+    the causal ones to `flash_attention_plain`; bf16 within
+    BF16_ATTN_LIMIT and f32 within 1e-4; the bf16 call timed beside the
+    plain version and SDPA, with its bound (kept in `entry` under
+    `*_<shape>`)."""
+    from repro_torch.kernels.flash_attention_kernel import (
+        flash_attention_cuda as kernel,
+        flash_attention_plain,
+        full_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B = LM_BATCH
+    for name, Hkv, G, hd, Sq, Sk, causal in FULL_SHAPES:
+        H = Hkv * G
+        plain = (lambda q, k, v: flash_attention_plain(q, k, v, True)) \
+            if causal else full_attention_plain
+        errs = {}
+        for dtype, tol in ((torch.float32, 1e-4),
+                           (torch.bfloat16, BF16_ATTN_LIMIT)):
+            q = torch.randn((B, Sq, H, hd), generator=gen, device=dev) \
+                .to(dtype)
+            k = torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev) \
+                .to(dtype)
+            v = torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev) \
+                .to(dtype)
+            q5 = q.view(B, Sq, Hkv, G, hd).permute(0, 2, 1, 3, 4)
+            k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+            err = (kernel(q5, k4, v4, causal) - plain(q5, k4, v4)).abs() \
+                .max().item()
+            errs[dtype] = err
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {name} ({dtype}, Sq "
+                                     f"{Sq}, Sk {Sk}): {err} > {tol}")
+        qs = q.transpose(1, 2)  # the bf16 inputs in the library's layout
+        t_k = median_ms(lambda: kernel(q5, k4, v4, causal))
+        t_p = median_ms(lambda: plain(q5, k4, v4))
+        t_l = median_ms(lambda: sdpa(qs, k4, v4, is_causal=causal,
+                                     enable_gqa=True))
+        nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
+        flops = 4.0 * B * H * Sq * Sk * hd / (2 if causal else 1)
+        bnd = bound(nbytes, flops, PEAK_BF16_OPS)
+        print(f"flash_attention (B {B}, Hkv {Hkv}, G {G}, hd {hd}, Sq {Sq}, "
+              f"Sk {Sk}, causal {causal}, {name}): max |diff| bf16 "
+              f"{errs[torch.bfloat16]:.3g}, f32 {errs[torch.float32]:.3g}; "
+              f"bf16 kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
+              f"{t_l:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        entry.update({f"max_abs_err_{name}": errs[torch.bfloat16],
+                      f"max_abs_err_{name}_f32": errs[torch.float32],
+                      f"ms_{name}": t_k, f"plain_ms_{name}": t_p,
+                      f"library_ms_{name}": t_l, f"bound_ms_{name}": bnd[0],
+                      f"bound_by_{name}": bnd[1]})
+
+
+def decode_full_shapes(dev, entry):
+    """Kernel 7 at DECODE_SHAPES on strided views of (B, rows, Hkv, hd)
+    caches, as the model hands them over: bf16 within BF16_ATTN_LIMIT and
+    f32 within 1e-4 of `decode_attention_plain`; the bf16 call timed
+    beside the plain version and SDPA, with its bound (kept in `entry`
+    under `*_<shape>`)."""
+    from repro_torch.kernels.decode_attention_kernel import (
+        decode_attention_cuda as kernel,
+        decode_attention_plain as plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B = LM_BATCH
+    for name, Hkv, G, hd, S, length in DECODE_SHAPES:
+        errs = {}
+        for dtype, tol in ((torch.float32, 1e-4),
+                           (torch.bfloat16, BF16_ATTN_LIMIT)):
+            q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev) \
+                .to(dtype)
+            cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+                     .to(dtype) for _ in range(2)]
+            k, v = (c.permute(0, 2, 1, 3) for c in cache)
+            err = (kernel(q, k, v, length).float()
+                   - plain(q, k, v, length).float()).abs().max().item()
+            errs[dtype] = err
+            if not err <= tol:
+                raise AssertionError(f"decode_attention {name} ({dtype}, "
+                                     f"rows {S}, length {length}): {err} > "
+                                     f"{tol}")
+        len_t = torch.tensor(length, dtype=torch.int32, device=dev)
+        qs = q.reshape(B, Hkv * G, 1, hd)
+        mask = (torch.arange(S, device=dev) < length)[None, None, None, :]
+        t_k = median_ms(lambda: kernel(q, k, v, len_t))
+        t_p = median_ms(lambda: plain(q, k, v, len_t))
+        t_l = median_ms(lambda: sdpa(qs, k, v, attn_mask=mask,
+                                     enable_gqa=True))
+        nbytes = 2 * (2 * B * Hkv * length * hd + 2 * q.numel()) + 4
+        bnd = bound(nbytes, 4.0 * B * Hkv * G * length * hd, PEAK_BF16_OPS)
+        print(f"decode_attention (B {B}, Hkv {Hkv}, G {G}, hd {hd}, rows "
+              f"{S}, length {length}, {name}): max |diff| bf16 "
+              f"{errs[torch.bfloat16]:.3g}, f32 {errs[torch.float32]:.3g}; "
+              f"bf16 kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
+              f"{t_l:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        entry.update({f"max_abs_err_{name}": errs[torch.bfloat16],
+                      f"max_abs_err_{name}_f32": errs[torch.float32],
+                      f"ms_{name}": t_k, f"plain_ms_{name}": t_p,
+                      f"library_ms_{name}": t_l, f"bound_ms_{name}": bnd[0],
+                      f"bound_by_{name}": bnd[1]})
+
+
+def item8_model(arch: str):
+    """The full-width config phase 12 serves: the published one, jamba's
+    cut to JAMBA_LAYERS layers."""
+    from repro_torch.configs import get_arch
+
+    model = get_arch(arch).model
+    if arch == "jamba-v0.1-52b":
+        model = dataclasses.replace(model, n_layers=JAMBA_LAYERS)
+    return model
+
+
+def attention_launches(model):
+    """(flash launches a forward or prefill, decode-attention launches a
+    decode step): flash once per attention layer, and for whisper also
+    once per encoder layer and once per decoder layer for
+    cross-attention; decode attention once per attention layer, twice per
+    decoder layer for whisper."""
+    from repro_torch.models import lm
+
+    n_attn = sum(lm._layer_kind(model, l) in ("attn", "dec")
+                 for l in range(model.n_layers))
+    cross = model.n_layers if model.pattern == "encdec" else 0
+    return n_attn + model.encoder_layers + cross, n_attn + cross
+
+
+def item8_want(model, stats, kern):
+    """The launches a serve run must make (`attention_launches`), and no
+    other kernel's."""
+    flash, decode = attention_launches(model)
+    want = {n: 0 for n in kern}
+    want["flash_attention"] = flash * stats.prefills
+    want["decode_attention"] = decode * stats.decode_steps
+    return want
+
+
+def mixer_ms(label, fn):
+    """One recurrent mixer at full width: median of 3 calls, host clock
+    included (CUDA events around each)."""
+    with torch.inference_mode():
+        ms = median_ms(fn, iters=3, warmup=1, hide_host=False)
+    print(f"  {label}: {ms:.2f} ms")
+    return ms
+
+
+def item8_serve(dev, kern):
+    """Each of ITEM8_ARCHS at full width (jamba cut to one period), random
+    weights from a seed on the card, through `repro_torch.launch.serve`:
+    4 requests of ITEM8_PROMPT prompt positions (llava: 576 zero patches
+    and 448 tokens; whisper: 1,500 zero frames beside 1,024 tokens) and
+    LM_GEN generated tokens. Counts are zeroed just before each serve and
+    read just after (`item8_want`). The recurrent mixers are timed at the
+    served shapes, and jamba's `loss_fn` under a mixed spec. Returns
+    {"serve_<arch>": launches}."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm, ssm as ssm_mod
+    from repro_torch.models import xlstm_blocks as xl
+    from repro_torch.tree_util import tree_leaves
+
+    out = {}
+    for arch in ITEM8_ARCHS:
+        model = item8_model(arch)
+        prefix = model.n_prefix_patches \
+            if model.embed_frontend == "prefix_patches" else 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = lm.init_params(model, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+        zeroed(kern)
+        stats = serve_mod.serve(model, params, LM_BATCH, LM_BATCH,
+                                ITEM8_PROMPT - prefix, LM_GEN, dev,
+                                log=lambda _: None)
+        launches = read(kern)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = item8_want(model, stats, kern)
+        print(f"{arch} ({model.n_layers} layers"
+              f"{f' + {model.encoder_layers} encoder' if model.encoder_layers else ''}"
+              f", d {model.d_model}, {n_bytes / 1e9:.2f} GB of weights, "
+              f"drawn in {init_s:.2f} s) served: {stats.requests} requests "
+              f"of {ITEM8_PROMPT} prompt positions + {LM_GEN} tokens, "
+              f"prefill {stats.prefill_ms[0]:.2f} ms, decode "
+              f"{stats.decode_ms_per_step[0]:.3f} ms a step, "
+              f"{stats.tokens_per_s:.1f} tokens/s ({stats.wall_s:.2f} s), "
+              f"peak {peak / 2**30:.2f} GiB; launches {launches} (want "
+              f"{want})")
+        if launches != want or any(s.shape != (LM_BATCH, LM_GEN)
+                                   for s in stats.samples):
+            raise AssertionError(f"{arch}: launches {launches}, want {want}")
+        out[f"serve_{ITEM8_SHORT[arch]}"] = launches
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn((LM_BATCH, ITEM8_PROMPT, model.d_model),
+                        generator=gen, device=dev).to(model.param_dtype) \
+            if model.pattern in ("xlstm", "jamba") else None
+        if arch == "xlstm-350m":
+            mixer_ms(f"mLSTM forward (B {LM_BATCH}, S {ITEM8_PROMPT}, d "
+                     f"{model.d_model})",
+                     lambda: xl.mlstm_forward(params["blocks"][0]["mlstm"],
+                                              x, model))
+            mixer_ms(f"sLSTM forward, {ITEM8_PROMPT} sequential cell steps",
+                     lambda: xl.slstm_forward(params["blocks"][1]["slstm"],
+                                              x, model))
+        if arch == "jamba-v0.1-52b":
+            din, r, n = ssm_mod.ssm_dims(model)
+            f32 = lambda *s: torch.rand(s, generator=gen, device=dev)
+            scan = (f32(LM_BATCH, ITEM8_PROMPT, din) * 0.1, -f32(din, n),
+                    f32(LM_BATCH, ITEM8_PROMPT, n), f32(LM_BATCH,
+                                                         ITEM8_PROMPT, n),
+                    f32(LM_BATCH, ITEM8_PROMPT, din),
+                    torch.zeros((LM_BATCH, din, n), device=dev))
+            mixer_ms(f"Mamba forward (B {LM_BATCH}, S {ITEM8_PROMPT}, d_inner"
+                     f" {din}, d_state {n})",
+                     lambda: ssm_mod.ssm_forward(params["blocks"][0]["ssm"],
+                                                 x, model))
+            mixer_ms(f"  of which the selective scan ({ITEM8_PROMPT // 128} "
+                     "chunks of 128)",
+                     lambda: ssm_mod._selective_scan_chunked(*scan, 128))
+            del scan
+            jamba_loss_full_width(dev, kern, model, params)
+        del params, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def jamba_loss_full_width(dev, kern, model, params):
+    """`loss_fn` at jamba's one-period full width (bf16) over 4 x 1024
+    `TokenPipeline` tokens under a mixed spec (4-bit bands, layers'
+    weights 4/8 and activations 8/4 bits alternating): loss, ms and peak
+    memory; flash attention once (the one attention layer), nothing
+    else. Beyond 70 GiB of peak memory the same is also run over 2 x 1024 tokens."""
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import lm
+
+    L = lm.total_layers(model)
+    alt = lambda a, b: torch.tensor([[a if l % 2 == 0 else b] * lm.N_GROUPS
+                                     for l in range(L)], dtype=torch.float32,
+                                    device=dev)
+    spec = lm.LMQuantSpec(torch.full((model.n_embed_bands,), 4.0,
+                                     device=dev), alt(4, 8), alt(8, 4))
+    for batch in (LM_FULL_BATCH, LM_FULL_BATCH // 2):
+        tokens = torch.from_numpy(TokenPipeline(TokenPipelineConfig(
+            vocab_size=model.vocab_size, seq_len=LM_FULL_SEQ,
+            global_batch=batch)).batch()).long().to(dev)
+        run = lambda: lm.loss_fn(params, {"tokens": tokens}, model,
+                                 spec=spec)[0]
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zeroed(kern)
+            loss = float(run())
+            launches = read(kern)
+            peak = torch.cuda.max_memory_allocated(dev)
+            ms = median_ms(run, iters=3, warmup=1, hide_host=False)
+        print(f"jamba one period, loss_fn under a mixed spec over {batch} x "
+              f"{LM_FULL_SEQ} tokens: loss {loss!r}, {ms:.2f} ms (CUDA "
+              f"events, median of 3), peak {peak / 2**30:.2f} GiB; launches "
+              f"{launches}")
+        want = {n: 0 for n in kern}
+        want["flash_attention"] = attention_launches(model)[0]
+        if launches != want or not np.isfinite(loss):
+            raise AssertionError(f"jamba loss_fn: loss {loss}, launches "
+                                 f"{launches}, want {want}")
+        if peak <= 70 * 2**30:
+            break
+
+
+def item8_batch(cfg, rng, B: int = 2, S: int = 32):
+    """A numpy batch for a smoke config: tokens, llava's patches, or
+    whisper's frames (4 fewer than max_source_len, so the cross cache
+    keeps zero rows)."""
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)}
+    if cfg.embed_frontend == "prefix_patches":
+        b["patches"] = (rng.normal(size=(B, cfg.n_prefix_patches,
+                                         cfg.d_model)) * 0.02) \
+            .astype(np.float32)
+    if cfg.embed_frontend == "stub_frames":
+        b["frames"] = (rng.normal(size=(B, cfg.max_source_len - 4,
+                                        cfg.d_model)) * 0.02) \
+            .astype(np.float32)
+    return b
+
+
+def item8_smoke_card_vs_cpu(dev, kern, arch: str, tol: float = 1e-3):
+    """`arch`'s smoke config in float32 on the card and on the CPU, same
+    weights and inputs (whisper's frames short of max_source_len):
+    `forward`'s logits, `prefill`'s logits and every cache leaf, one
+    `decode_step`'s logits and cache within `tol`; the forward's launches
+    flash attention's alone, once per attention layer
+    (`attention_launches`), and the decode step's decode attention's
+    alone. Returns the largest gaps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    cpu = torch.device("cpu")
+    cfg = get_arch(arch).smoke
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), device=cpu)
+    p_dev = to_device(p_cpu, dev)
+    b_cpu = {k: torch.from_numpy(v) for k, v in
+             item8_batch(cfg, np.random.default_rng(12)).items()}
+    b_dev = to_device(b_cpu, dev)
+    prefix = cfg.n_prefix_patches \
+        if cfg.embed_frontend == "prefix_patches" else 0
+    S = b_cpu["tokens"].shape[1] + prefix
+    pre = lambda b: dict(b, tokens=b["tokens"][:, :-1])
+    diffs = {}
+    with torch.inference_mode():
+        zeroed(kern)
+        l_dev = lm.forward(p_dev, b_dev, cfg)[0]
+        launches = read(kern)
+        diffs["forward"] = (l_dev.cpu() - lm.forward(p_cpu, b_cpu, cfg)[0]
+                            ).abs().max().item()
+        ld, cd = lm.prefill(p_dev, pre(b_dev), cfg, S)
+        lc, cc = lm.prefill(p_cpu, pre(b_cpu), cfg, S)
+        diffs["prefill"] = (ld.cpu() - lc).abs().max().item()
+        diffs["prefill cache"] = max(
+            (cd[i][n].cpu() - cc[i][n]).abs().max().item()
+            for i in cc for n in cc[i])
+        tok = b_cpu["tokens"][:, -1:]
+        zeroed(kern)
+        ld, cd = lm.decode_step(p_dev, cd, tok.to(dev), S - 1, cfg)
+        launches_decode = read(kern)
+        lc, cc = lm.decode_step(p_cpu, cc, tok, S - 1, cfg)
+        diffs["decode"] = (ld.cpu() - lc).abs().max().item()
+        diffs["decode cache"] = max(
+            (cd[i][n].cpu() - cc[i][n]).abs().max().item()
+            for i in cc for n in cc[i])
+    flash, decode = attention_launches(cfg)
+    want = {n: 0 for n in kern}
+    want_decode = dict(want, decode_attention=decode)
+    want["flash_attention"] = flash
+    print(f"{arch} smoke, float32 card vs CPU: max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+          + f" (tolerance {tol}); forward launches {launches}, decode step "
+          f"launches {launches_decode}")
+    if max(diffs.values()) > tol or launches != want \
+            or launches_decode != want_decode:
+        raise AssertionError(f"{arch} smoke on the card differs from the "
+                             f"CPU: {diffs}, launches {launches} and "
+                             f"{launches_decode}, want {want} and "
+                             f"{want_decode}")
+    return diffs
+
+
+def item8_card_vs_cpu(dev, kern, loss_rel: float = 1e-6):
+    """`item8_smoke_card_vs_cpu` for the four smoke configs; then jamba's
+    and xlstm's `LMWorkload` bundle built on the card and the same
+    weights' on the CPU: the full-precision base loss within `loss_rel`
+    relative, 4 policies' proxy losses as `losses_agree` says (at least 3
+    within FLIP_NEAR, all within FLIP_FAR), flash attention once per
+    attention layer per forward."""
+    from repro_torch.workloads.lm import (
+        FLIP_FAR,
+        FLIP_NEAR,
+        LMBatchedEnv,
+        LMQuantEnv,
+        LMWorkload,
+        losses_agree,
+    )
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(12)
+    for arch in ITEM8_ARCHS:
+        item8_smoke_card_vs_cpu(dev, kern, arch)
+    for arch in ("jamba-v0.1-52b", "xlstm-350m"):
+        bundle = LMWorkload().build_bundle(arch, device=dev)
+        env = bundle.env
+        cpu_env = LMQuantEnv(arch, env.ecfg, device=cpu,
+                             params=to_device(env.params, cpu))
+        bits = rng.integers(env.ecfg.b_min, env.ecfg.b_max + 1,
+                            (4, env.n_units))
+        bits[0], bits[1] = env.ecfg.b_max, env.ecfg.b_min
+        zeroed(kern)
+        loss = bundle.benv.proxy_losses(env.params, bits).astype(np.float64)
+        launches = read(kern)
+        loss_cpu = LMBatchedEnv(cpu_env).proxy_losses(cpu_env.params, bits) \
+            .astype(np.float64)
+        d_base = abs(env.base_loss_proxy / cpu_env.base_loss_proxy - 1)
+        ok, d = losses_agree(loss, loss_cpu)
+        print(f"{arch} LMWorkload bundle, card vs CPU: base loss "
+              f"{env.base_loss_proxy!r} (CPU {cpu_env.base_loss_proxy!r}): "
+              f"{d_base:.3g} rel (tolerance {loss_rel}); 4 policies' proxy "
+              f"losses {loss.tolist()}: {d.tolist()} rel (tolerance "
+              f"{FLIP_NEAR} for 3, {FLIP_FAR} for all); launches {launches}")
+        want = {n: 0 for n in kern}
+        want["flash_attention"] = 4 * attention_launches(env.cfg)[0]
+        if not (d_base <= loss_rel and ok) or launches != want:
+            raise AssertionError(f"{arch} LM bundle on the card differs from "
+                                 f"the CPU: base {d_base}, policies {d}, "
+                                 f"launches {launches}")
+        del bundle, cpu_env
+
+
+def item8_cli(dev):
+    """`hero-search-torch --workload lm --arch xlstm-350m --quick` on the
+    card must return 0 with a non-empty frontier."""
+    from repro_torch.hero import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "search.json"
+        t0 = time.perf_counter()
+        rc = cli.main(["search", "--workload", "lm", "--arch", "xlstm-350m",
+                       "--quick", "--device", dev.type, "--checkpoint", "",
+                       "--out", str(out)])
+        s = time.perf_counter() - t0
+        report = json.loads(out.read_text())
+    print(f"hero-search-torch --workload lm --arch xlstm-350m --quick: rc "
+          f"{rc} in {s:.2f} s, {report['policies_evaluated']} policies, "
+          f"frontier {report['frontier_size']} points")
+    if rc != 0 or not report["frontier_size"]:
+        raise AssertionError(f"the xlstm CLI search failed: rc {rc}")
+
+
+def item8_phase(dev, kern, flash_entry, decode_entry):
+    """Phase 12. Returns the four serves' launches."""
+    t0 = time.perf_counter()
+    flash_full_shapes(dev, flash_entry)
+    decode_full_shapes(dev, decode_entry)
+    launches = item8_serve(dev, kern)
+    item8_card_vs_cpu(dev, kern)
+    item8_cli(dev)
+    print(f"phase 12 (jamba, xlstm, whisper, llava): "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 # Sources whose ptxas lines are printed in full (kernel names, stack and
 # spill bytes, wgmma notes); for the others only the register counts.
 DETAIL_SOURCES = ("flash_attention.cu", "decode_attention.cu",
@@ -3179,8 +3684,11 @@ def main() -> int:
     launches.update({n: lm_launches[n] for n in LM_KERNELS})
     lm_profile(dev)
     lm_card_vs_cpu(dev)
-    psnr_launches["lm_search"] = lm_search_phase(
-        dev, kern, next(e for e in entries if e["name"] == "flash_attention"))
+    flash_entry = next(e for e in entries if e["name"] == "flash_attention")
+    psnr_launches["lm_search"] = lm_search_phase(dev, kern, flash_entry)
+    decode_entry = next(e for e in entries
+                        if e["name"] == "decode_attention")
+    psnr_launches.update(item8_phase(dev, kern, flash_entry, decode_entry))
 
     for e in entries:
         # quant_matmul lies on no path: 0 launches in every run.

@@ -1,9 +1,8 @@
 """Model configurations: the NeRF field's (`ngp`) and the LM registry.
 
-`get_arch(<id>)` returns an `ArchSpec` with the exact published config.
-The port's registry holds the architectures whose blocks it has ported;
-the reference's other ids raise a `KeyError` that names the ROADMAP item
-that ports them.
+`get_arch(<id>)` returns an `ArchSpec` with the exact published config
+of each of the reference's ten architectures; an id nobody has raises
+`KeyError`.
 """
 import importlib
 from typing import Dict, List
@@ -17,22 +16,17 @@ _MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "granite-34b": "repro_torch.configs.granite_34b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
-# The reference's other architectures: mamba, xLSTM, encoder-decoder and
-# patch-frontend blocks.
-_LATER = (
-    "llava-next-mistral-7b", "whisper-large-v3", "jamba-v0.1-52b",
-    "xlstm-350m",
-)
 
 ARCH_IDS: List[str] = list(_MODULES)
 _CACHE: Dict[str, ArchSpec] = {}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in _LATER:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: it comes with "
-                       "ROADMAP §1 item 8 (LM workload)")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _CACHE:

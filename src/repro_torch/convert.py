@@ -135,25 +135,34 @@ def pack_from_numpy(pack, device: DeviceLike = None) -> FusedPack:
     return repack_fused_pack(out, layout) if layout != "planar" else out
 
 
+_STACKED = ("blocks", "enc_blocks")
+
+
 def lm_params_from_numpy(tree: Dict, device: DeviceLike = None) -> Dict:
     """The reference's LM parameters (`lm.init_params`: leaves that
     `np.asarray` reads, block leaves stacked over periods under
-    `blocks/pos<i>`) -> the port's layout on `device`: the same top-level
-    leaves, and `blocks` a list with one dict per layer (layer
-    n * period + i is period n's `pos<i>`). Every subtree of a block
-    crosses as it is: attention, dense FFN, and the `moe` subtree (the
-    f32 router, the expert stacks, the `dense` residual FFN)."""
+    `blocks/pos<i>`, and for whisper the encoder's stacked over its
+    layers under `enc_blocks/pos0`) -> the port's layout on `device`: the
+    same top-level leaves, and `blocks` (and `enc_blocks`) a list with
+    one dict per layer (layer n * period + i is period n's `pos<i>`).
+    Every subtree of a block crosses as it is: attention and the decoder's
+    `xattn`, dense FFN, the `moe` subtree (the f32 router, the expert
+    stacks, the `dense` residual FFN), and the `ssm`, `mlstm` and `slstm`
+    mixers."""
     dev = resolve_device(device)
-    out = {k: _tree(v, dev) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
+    out = {k: _tree(v, dev) for k, v in tree.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key in tree:
+            out[key] = _layers(tree[key], dev)
+    return out
+
+
+def _layers(blocks: Dict, dev: torch.device) -> List[Dict]:
+    """{"pos<i>": tree stacked over periods} -> one dict per layer."""
     n_pos = len(blocks)
     n_periods = len(np.asarray(_first_leaf(blocks["pos0"])))
-    layers: List[Dict] = []
-    for n in range(n_periods):
-        for i in range(n_pos):
-            layers.append(_tree(_slice(blocks[f"pos{i}"], n), dev))
-    out["blocks"] = layers
-    return out
+    return [_tree(_slice(blocks[f"pos{i}"], n), dev)
+            for n in range(n_periods) for i in range(n_pos)]
 
 
 def _first_leaf(node):

@@ -5,7 +5,9 @@
 // reached through flash_attention.
 //
 // q (B, Hkv, S, G, hd) holds the G query heads of each KV head; k, v are
-// (B, Hkv, S, hd). Every operand is addressed through its strides (the
+// (B, Hkv, Sk, hd): Sk keys, Sk == S for causal attention, any Sk >= 1 for
+// full attention (an encoder's self-attention, a decoder's cross-attention
+// over the encoder's Sk positions). Every operand is addressed through its strides (the
 // innermost axis contiguous), so the model passes views of its (B, S, H, hd)
 // projections and no copy is made. For each query row:
 //   s   = (q . k) * scale in f32, masked entries set to -1e30;
@@ -219,8 +221,9 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
-                int Hkv, int S, int G, int hd, Strides qs, Strides ks,
-                Strides vs, Strides os, int causal, float scale_log2) {
+                int Hkv, int S, int Sk, int G, int hd, Strides qs,
+                Strides ks, Strides vs, Strides os, int causal,
+                float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sKV = base + Q_BYTES;
@@ -235,7 +238,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
 
   const int qmax = min((r0 + TC_ROWS - 1) / G, S - 1);
-  const int n_tiles = causal ? qmax / TC_KEYS + 1 : (S + TC_KEYS - 1) / TC_KEYS;
+  const int n_tiles =
+      causal ? qmax / TC_KEYS + 1 : (Sk + TC_KEYS - 1) / TC_KEYS;
 
   // Q: 128 rows x 16 chunks, 8 a thread; row (s, g) at s * qs.s + g * qs.g.
 #pragma unroll
@@ -247,14 +251,14 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* p = bytes ? qb + s * qs.s + g * qs.g + c * 8 : qb;
     cp_async16(sQ + (r >> 6) * 2 * PANEL + swz(r & 63, c, PANEL), p, bytes);
   }
-  load_tile(sKV, kb, ks.s, S, hd, tid);
-  load_tile(sKV + KV_BYTES, vb, vs.s, S, hd, tid);
+  load_tile(sKV, kb, ks.s, Sk, hd, tid);
+  load_tile(sKV + KV_BYTES, vb, vs.s, Sk, hd, tid);
   cp_async_commit();
   if (n_tiles > 1) {
-    load_tile(sKV + STAGE_BYTES, kb + TC_KEYS * ks.s, ks.s, S - TC_KEYS, hd,
+    load_tile(sKV + STAGE_BYTES, kb + TC_KEYS * ks.s, ks.s, Sk - TC_KEYS, hd,
               tid);
     load_tile(sKV + STAGE_BYTES + KV_BYTES, vb + TC_KEYS * vs.s, vs.s,
-              S - TC_KEYS, hd, tid);
+              Sk - TC_KEYS, hd, tid);
   }
   cp_async_commit();
 
@@ -297,8 +301,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int key = k0 + 8 * j + col0 + c;
-        if (key >= S || (causal && key > qposA)) sc[4 * j + c] = NEG;
-        if (key >= S || (causal && key > qposB)) sc[4 * j + 2 + c] = NEG;
+        if (key >= Sk || (causal && key > qposA)) sc[4 * j + c] = NEG;
+        if (key >= Sk || (causal && key > qposB)) sc[4 * j + 2 + c] = NEG;
       }
     }
     // Maxima in the log2 domain (scale * log2 e > 0 commutes with max);
@@ -359,8 +363,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     if (t + 2 < n_tiles) {
       const int k2 = (t + 2) * TC_KEYS;
-      load_tile(sK, kb + k2 * ks.s, ks.s, S - k2, hd, tid);
-      load_tile(sV, vb + k2 * vs.s, vs.s, S - k2, hd, tid);
+      load_tile(sK, kb + k2 * ks.s, ks.s, Sk - k2, hd, tid);
+      load_tile(sV, vb + k2 * vs.s, vs.s, Sk - k2, hd, tid);
     }
     cp_async_commit();  // (possibly empty: keeps the group count in step)
   }
@@ -416,8 +420,9 @@ size_t f32_smem_bytes(int hd) {
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int Hkv, int S, int G, int hd, Strides qs, Strides ks,
-                 Strides vs, Strides os, int causal, float scale) {
+                 int Hkv, int S, int Sk, int G, int hd, Strides qs,
+                 Strides ks, Strides vs, Strides os, int causal,
+                 float scale) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* Qs = smem;                  // BR x ld
@@ -455,13 +460,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
 
   const int qmax = min((r0 + BR - 1) / G, S - 1);
-  const int n_tiles = causal ? qmax / BK + 1 : (S + BK - 1) / BK;
+  const int n_tiles = causal ? qmax / BK + 1 : (Sk + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's PV is done with KVs and Ps
     for (int e = tid; e < BK * hd; e += THREADS) {
       const int c = e / hd, d = e % hd;
-      KVs[c * ld + d] = k0 + c < S ? kb[(k0 + c) * ks.s + d] : 0.0f;
+      KVs[c * ld + d] = k0 + c < Sk ? kb[(k0 + c) * ks.s + d] : 0.0f;
     }
     __syncthreads();
 
@@ -487,7 +492,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        const bool masked = kp >= S || (causal && kp > qpos[i]);
+        const bool masked = kp >= Sk || (causal && kp > qpos[i]);
         Ps[(ty * 4 + i) * (BK + 1) + tx + 16 * j] =
             masked ? NEG : sc[i][j] * scale;
       }
@@ -495,7 +500,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     for (int e = tid; e < BK * hd; e += THREADS) {
       const int c = e / hd, d = e % hd;
-      KVs[c * ld + d] = k0 + c < S ? vb[(k0 + c) * vs.s + d] : 0.0f;
+      KVs[c * ld + d] = k0 + c < Sk ? vb[(k0 + c) * vs.s + d] : 0.0f;
     }
     {
       // Four neighbouring lanes own one row, 16 columns each.
@@ -567,18 +572,21 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). Strides are in
-// elements: q and out (b, h, s, g), k and v (b, h, s). Requires hd <= 128;
-// the bfloat16 route also needs 16-byte-aligned q, k, v and strides that
-// are multiples of 8 elements (the wrapper checks both).
+// elements: q and out (b, h, s, g), k and v (b, h, s). S query positions
+// against Sk keys; causal needs Sk == S. Requires hd <= 128; the bfloat16
+// route also needs 16-byte-aligned q, k, v and strides that are multiples
+// of 8 elements (the wrapper checks both).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int Hkv,
-    int S, int G, int hd, long long qsb, long long qsh, long long qss,
+    int S, int Sk, int G, int hd, long long qsb, long long qsh, long long qss,
     long long qsg, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, long long osg, int causal, float scale,
     int dtype, void* stream) {
   if (hd < 1 || hd > HD_MAX) return (int)cudaErrorInvalidValue;
+  if (causal && Sk != S) return (int)cudaErrorInvalidValue;
   if (B * Hkv * S * G == 0) return (int)cudaGetLastError();
+  if (Sk < 1) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss, qsg}, ks{ksb, ksh, kss, 0},
       vs{vsb, vsh, vss, 0}, os{osb, osh, oss, osg};
   cudaStream_t st = (cudaStream_t)stream;
@@ -591,8 +599,8 @@ extern "C" int repro_flash_attention(
     dim3 grid(B * Hkv, (rows + TC_ROWS - 1) / TC_ROWS);
     flash_tc_kernel<<<grid, TC_THREADS, TC_SMEM, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (float*)out, Hkv, S, G, hd, qs, ks, vs, os,
-        causal, scale * 1.4426950408889634f);
+        (const __nv_bfloat16*)v, (float*)out, Hkv, S, Sk, G, hd, qs, ks, vs,
+        os, causal, scale * 1.4426950408889634f);
     return (int)cudaGetLastError();
   }
   const size_t smem = f32_smem_bytes(hd);
@@ -603,6 +611,6 @@ extern "C" int repro_flash_attention(
   dim3 grid((rows + BR - 1) / BR, B * Hkv);
   flash_f32_kernel<<<grid, THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Hkv, S,
-      G, hd, qs, ks, vs, os, causal, scale);
+      Sk, G, hd, qs, ks, vs, os, causal, scale);
   return (int)cudaGetLastError();
 }

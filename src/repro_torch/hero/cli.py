@@ -14,8 +14,9 @@ cells through the elastic orchestrator (`repro_torch.distributed.
 orchestrator`): thread, inline or subprocess workers (`--worker-kind`),
 the same frontier as one worker. `--workload lm` searches an LM arch's
 embed-band and per-layer bits (`--arch`, default qwen2-7b) against the
-`roofline-lm` target; an arch whose blocks are not ported exits with code
-2.
+`roofline-lm` target (any of the ten archs whose LM bundle builds from
+tokens alone: whisper and llava need frames or patches and raise the
+reference's `KeyError`); an unknown arch id exits with code 2.
 
     hero-search-torch --quick --workers 2 --worker-kind subprocess --chaos 3
     hero-search-torch --workload lm --arch qwen2-7b --quick --device cpu

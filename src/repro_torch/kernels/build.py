@@ -74,10 +74,10 @@ SIGNATURES: Dict[str, List] = {
     "repro_ray_march": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w, sx, sw, zx, out, M, K, N, SM count, stream
     "repro_quant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, out, B, Hkv, S, G, hd, q strides (b, h, s, g), k strides
+    # q, k, v, out, B, Hkv, S, Sk, G, hd, q strides (b, h, s, g), k strides
     # (b, h, s), v strides (b, h, s), out strides (b, h, s, g), causal,
     # scale, dtype, stream
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _L, _L, _L, _L, _I, _F, _I, _P],
     # q, k, v, length (device pointer or null), length (by value), out,

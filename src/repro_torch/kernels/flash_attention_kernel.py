@@ -1,7 +1,9 @@
 """Flash attention (prefill forward): CUDA wrapper, plain version, counter.
 
 q (B, Hkv, S, G, hd) holds the G query heads of each KV head; k, v are
-(B, Hkv, S, hd). Scores are f32 and scaled by 1/sqrt(hd), masked entries
+(B, Hkv, Sk, hd): Sk == S when causal, any Sk >= 1 for full attention
+(an encoder's self-attention, cross-attention over an encoder's
+positions). Scores are f32 and scaled by 1/sqrt(hd), masked entries
 (causal) are set to -1e30, p = exp(s - max) is rounded to v's dtype
 before the PV product, and the output is the f32 sum over max(l, 1e-30).
 The kernel is `csrc/flash_attention.cu` (online softmax over key tiles);
@@ -31,7 +33,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True) -> torch.Tensor:
     """The same function with the whole key axis in one tile (so `m` is the
-    row's maximum): (B, Hkv, S, G, hd) f32."""
+    row's maximum): (B, Hkv, S, G, hd) f32. Causal needs Sk == S."""
     hd, S = q.shape[-1], q.shape[2]
     s = torch.einsum("bhsgd,bhtd->bhsgt", q.float(), k.float()) \
         * (1.0 / math.sqrt(hd))
@@ -43,6 +45,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhsgt,bhtd->bhsgd", p.to(v.dtype).float(), v.float())
     return out / torch.clamp(l, min=1e-30)
+
+
+def full_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Full (non-causal) attention of q (B, Hkv, Sq, G, hd) over k, v
+    (B, Hkv, Sk, hd) for any Sq and Sk: (B, Hkv, Sq, G, hd) f32."""
+    return flash_attention_plain(q, k, v, causal=False)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,9 +70,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require_rows(k, "k", q.dtype, 4, dev)
     require_rows(v, "v", q.dtype, 4, dev)
     B, Hkv, S, G, hd = q.shape
-    if tuple(k.shape) != (B, Hkv, S, hd) or k.shape != v.shape:
+    Sk = k.shape[2]
+    if tuple(k.shape) != (B, Hkv, Sk, hd) or k.shape != v.shape or (
+            causal and Sk != S) or Sk < 1:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+                         f"match q {tuple(q.shape)}{' (causal)' * causal}")
     if hd > HD_MAX:
         raise ValueError(f"head dim {hd} > {HD_MAX}")
     if q.dtype == torch.bfloat16:
@@ -72,7 +83,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, Hkv, G, hd), dtype=torch.float32,
                       device=dev).permute(0, 2, 1, 3, 4)
     launch("repro_flash_attention", dev, q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), out.data_ptr(), B, Hkv, S, G, hd,
+           v.data_ptr(), out.data_ptr(), B, Hkv, S, Sk, G, hd,
            *(q.stride(i) for i in range(4)),
            *(k.stride(i) for i in range(3)),
            *(v.stride(i) for i in range(3)),

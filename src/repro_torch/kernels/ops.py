@@ -31,6 +31,7 @@ from repro_torch.kernels.decode_attention_kernel import (
 from repro_torch.kernels.flash_attention_kernel import (
     flash_attention_cuda,
     flash_attention_plain,
+    full_attention_plain,
 )
 from repro_torch.kernels.gather_composite import (
     gather_composite_cuda,
@@ -143,6 +144,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_card(q):
         return flash_attention_cuda(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Non-causal grouped-query attention for any query and key lengths:
+    q (B, Hkv, Sq, G, hd) against k, v (B, Hkv, Sk, hd) -> (B, Hkv, Sq, G,
+    hd) f32. The model's entry for an encoder's self-attention and for
+    cross-attention; on the card the flash kernel masks keys >= Sk
+    itself, so neither length need be a multiple of a tile."""
+    if _on_card(q):
+        return flash_attention_cuda(q, k, v, causal=False)
+    return full_attention_plain(q, k, v)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,7 +4,11 @@ The counterpart of `repro/launch/serve.py`, on one card. Requests arrive
 as `TokenPipeline` prompts, are batched, prefilled into a KV cache, then
 decoded one greedy token per step; the next batch starts at the next
 prefill. The reference's host mesh and donated cache have no counterpart
-on one card: the decode step updates its cache in place.
+on one card: the decode step updates its cache in place. The stub
+frontends get zero inputs, as in the reference: llava's prompts are
+`n_prefix_patches` patch embeddings before the text (decode positions
+count them, and the cache is sized for them), whisper's carry
+`max_source_len` frames for the encoder.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --batch 4 --prompt-len 16 --gen 24
@@ -35,20 +39,43 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, :], dim=-1)
 
 
+def frontend_inputs(model: ModelConfig, batch: int,
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """The stub frontend's zero inputs of a request batch: llava's
+    (batch, n_prefix_patches, d) patches, whisper's (batch,
+    max_source_len, d) frames, nothing for a token model."""
+    if model.embed_frontend == "prefix_patches":
+        shape = (batch, model.n_prefix_patches, model.d_model)
+        return {"patches": torch.zeros(shape, dtype=model.param_dtype,
+                                       device=device)}
+    if model.embed_frontend == "stub_frames":
+        shape = (batch, model.max_source_len, model.d_model)
+        return {"frames": torch.zeros(shape, dtype=model.param_dtype,
+                                      device=device)}
+    return {}
+
+
 def generate(prefill_fn: Callable, decode_fn: Callable, params: Dict,
              tokens: torch.Tensor, gen: int,
-             marks: Optional[List[float]] = None) -> torch.Tensor:
+             marks: Optional[List[float]] = None,
+             extra: Optional[Dict[str, torch.Tensor]] = None
+             ) -> torch.Tensor:
     """Greedy continuation of the prompts `tokens` (B, S): (B, gen) tokens
-    on the prompts' device. `marks`, when given, receives the host clock
+    on the prompts' device. `extra` holds the frontend's inputs
+    (`frontend_inputs`); patches lead the prompt, so the first decode
+    position follows them. `marks`, when given, receives the host clock
     after the prefill and after the last decode step (the device
     synchronised at both)."""
-    logits, cache = prefill_fn(params, {"tokens": tokens})
+    extra = extra or {}
+    logits, cache = prefill_fn(params, {"tokens": tokens, **extra})
     tok = greedy(logits)[:, None]
     outs = [tok]
     if marks is not None:
         _sync(tokens.device)
         marks.append(time.perf_counter())
     pos = tokens.shape[1]
+    if "patches" in extra:
+        pos += extra["patches"].shape[1]
     for i in range(gen - 1):
         logits, cache = decode_fn(params, cache, tok, pos + i)
         tok = greedy(logits)[:, None]
@@ -88,8 +115,11 @@ def serve(model: ModelConfig, params: Dict, requests: int, batch: int,
           prompt_len: int, gen: int, device: torch.device,
           log: Callable[[str], None] = print) -> ServeStats:
     """Serve `requests` greedy generations of `gen` tokens, `batch` at a
-    time, for `TokenPipeline` prompts of `prompt_len` tokens."""
-    max_seq = prompt_len + gen
+    time, for `TokenPipeline` prompts of `prompt_len` tokens (behind the
+    patches, for llava)."""
+    extra = frontend_inputs(model, batch, device)
+    prefix = extra["patches"].shape[1] if "patches" in extra else 0
+    max_seq = prefix + prompt_len + gen
     prefill_fn = make_prefill_step(model, max_seq)
     decode_fn = make_decode_step(model)
     pipe = TokenPipeline(TokenPipelineConfig(
@@ -104,7 +134,8 @@ def serve(model: ModelConfig, params: Dict, requests: int, batch: int,
         while stats.requests < requests:
             prompts = torch.from_numpy(pipe.batch()).to(device)
             marks = [time.perf_counter()]
-            out = generate(prefill_fn, decode_fn, params, prompts, gen, marks)
+            out = generate(prefill_fn, decode_fn, params, prompts, gen, marks,
+                           extra)
             gen_np = out.cpu().numpy()
             assert gen_np.shape == (batch, gen)
             assert np.all(gen_np >= 0) and np.all(gen_np < model.vocab_size)

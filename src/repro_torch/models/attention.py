@@ -6,16 +6,22 @@ reference's function through the port's attention kernels instead of the
 reference's chunked jnp softmax:
 
 - `self_attention` (and `attention`, its output alone) hands the
-  projections to `ops.flash_attention` as strided views: (B, S, H, hd) -> (B, S, Hkv, G, hd) -> (B, Hkv, S, G, hd), and the
-  keys and values (B, S, Hkv, hd) -> (B, Hkv, S, hd). Query head h belongs
-  to KV head h // G.
+  projections to the flash kernel as strided views: (B, S, H, hd) ->
+  (B, S, Hkv, G, hd) -> (B, Hkv, S, G, hd), and the keys and values
+  (B, S, Hkv, hd) -> (B, Hkv, S, hd). Query head h belongs to KV head
+  h // G. Causal attention goes through `ops.flash_attention`, full
+  attention (an encoder's) through `ops.full_attention`, which takes any
+  length.
+- Cross-attention (`attention(x_kv=...)`, `cross_attention` over
+  `precompute_cross_kv`'s keys and values) attends the decoder's S
+  queries over the encoder's Skv positions through `ops.full_attention`,
+  without a mask and without a rotary embedding on the keys.
 - `decode_attention` writes the new token's K/V into the cache at `pos`
   and hands `ops.decode_attention` the cache (B, S_max, Hkv, hd) as a
   (B, Hkv, S_max, hd) view, masked to `pos + 1` positions; the cache is
-  not copied.
-
-Cross-attention (`_project_qkv`'s `x_kv`, `decode_cross_attention`,
-`precompute_cross_kv`) comes with the encoder-decoder blocks.
+  not copied. `decode_cross_attention` reads the static cross cache the
+  same way over all of its rows, the zero padding past the encoder's
+  length included, as the reference's unmasked softmax does.
 """
 from __future__ import annotations
 
@@ -56,32 +62,58 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig) -> Dict:
     return params
 
 
-def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd)."""
+def _project_q(params: Dict, x: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """x: (B, S, d) -> q (B, S, H, hd)."""
+    B, S, _ = x.shape
+    q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+
+
+def _project_kv(params: Dict, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, d) -> k, v (B, S, Hkv, hd)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if cfg.qkv_bias:
-        q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
-    return q, k, v
+    return (k.reshape(B, S, cfg.n_kv_heads, hd),
+            v.reshape(B, S, cfg.n_kv_heads, hd))
+
+
+def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 x_kv: Optional[torch.Tensor] = None):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,Skv,Hkv,hd) from `x_kv`
+    (B, Skv, d), x itself when None."""
+    k, v = _project_kv(params, x if x_kv is None else x_kv, cfg)
+    return _project_q(params, x, cfg), k, v
+
+
+def precompute_cross_kv(params: Dict, enc_out: torch.Tensor,
+                        cfg: ModelConfig) -> Dict:
+    """The keys and values of `enc_out` (B, S, d): {"k", "v"} each
+    (B, S, Hkv, hd)."""
+    k, v = _project_kv(params, enc_out, cfg)
+    return {"k": k, "v": v}
 
 
 def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool) -> torch.Tensor:
-    """q (B, S, H, hd), k/v (B, S, Hkv, hd) -> (B, S, H * hd) in q's dtype,
-    through `ops.flash_attention` on views (no copies of q, k or v)."""
+    """q (B, S, H, hd), k/v (B, Skv, Hkv, hd) -> (B, S, H * hd) in q's
+    dtype, on views (no copies of q, k or v): causal (Skv == S) through
+    `ops.flash_attention`, full through `ops.full_attention`."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     q5 = q.view(B, S, Hkv, H // Hkv, hd).permute(0, 2, 1, 3, 4)
-    out = ops.flash_attention(q5, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                              causal=causal)  # (B, Hkv, S, G, hd) f32
+    k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    if causal:
+        out = ops.flash_attention(q5, k4, v4, causal=True)
+    else:
+        out = ops.full_attention(q5, k4, v4)  # (B, Hkv, S, G, hd) f32
     return out.permute(0, 2, 1, 3, 4).reshape(B, S, H * hd).to(q.dtype)
 
 
@@ -101,10 +133,33 @@ def self_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     return grouped_attention(q, k, v, causal) @ params["wo"], k, v
 
 
+def cross_attention(params: Dict, x: torch.Tensor, kv: Dict,
+                    cfg: ModelConfig,
+                    positions: Optional[torch.Tensor] = None,
+                    use_rope: bool = False) -> torch.Tensor:
+    """x (B, S, d) attending over precomputed keys and values `kv`
+    ({"k", "v"}: (B, Skv, Hkv, hd)), non-causal: (B, S, d). The rotary
+    embedding, when asked for, turns the queries only."""
+    q = _project_q(params, x, cfg)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return grouped_attention(q, kv["k"], kv["v"], causal=False) \
+        @ params["wo"]
+
+
 def attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
-              use_rope: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill). x: (B, S, d)."""
+              use_rope: bool = True,
+              x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (training / prefill). x: (B, S, d); with
+    `x_kv` (B, Skv, d) cross-attention over it (non-causal, the keys not
+    turned by the rotary embedding)."""
+    if x_kv is not None:
+        return cross_attention(params, x, precompute_cross_kv(params, x_kv,
+                                                              cfg),
+                               cfg, positions, use_rope)
     return self_attention(params, x, cfg, positions, causal, use_rope)[0]
 
 
@@ -151,3 +206,18 @@ def decode_attention(
                                pos + 1)  # (B, Hkv, G, hd)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
     return out @ params["wo"], cache
+
+
+def decode_cross_attention(params: Dict, x: torch.Tensor, kv: Dict,
+                           cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of one decode token x (B, 1, d) over the static
+    cross cache `kv` ({"k", "v"}: (B, S_src, Hkv, hd)), through
+    `ops.decode_attention` on a (B, Hkv, S_src, hd) view of every row:
+    nothing is masked, as in the reference."""
+    B = x.shape[0]
+    hd, Hkv, H = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    k, v = kv["k"], kv["v"]
+    qh = _project_q(params, x, cfg).reshape(B, Hkv, H // Hkv, hd).to(k.dtype)
+    out = ops.decode_attention(qh, k.permute(0, 2, 1, 3),
+                               v.permute(0, 2, 1, 3), k.shape[1])
+    return out.reshape(B, 1, H * hd).to(x.dtype) @ params["wo"]

@@ -1,13 +1,19 @@
 """The LM stack: init, the quantized forward and loss, prefill and decode.
 
-The counterpart of `repro/models/lm.py` for attention blocks with dense
-or mixture-of-experts FFNs. The reference stacks each block parameter
-over periods and scans them; here `params["blocks"]` is a list with one
-dict per layer and the scan is a Python loop (layer n * period + i is the
-reference's period n, position i). The decode cache keeps the
-reference's layout, `{"pos<i>": {"k", "v"}}` with a leading period axis
-((n_periods, B, S_max, n_kv, hd)), so both compare leaf for leaf; a
-decode step updates it in place.
+The counterpart of `repro/models/lm.py` for all ten archs: attention
+blocks with dense or mixture-of-experts FFNs, Mamba (jamba), mLSTM and
+sLSTM (xlstm), the encoder-decoder with cross-attention (whisper, over
+stub frame embeddings `batch["frames"]`) and the patch prefix (llava,
+`batch["patches"]` prepended to the token embeddings). The reference
+stacks each block parameter over periods and scans them; here
+`params["blocks"]` (and whisper's `params["enc_blocks"]`) is a list with
+one dict per layer and the scan is a Python loop (layer n * period + i
+is the reference's period n, position i). The decode cache keeps the
+reference's layout, `{"pos<i>": {leaf: (n_periods, ...)}}` ({"k", "v"}
+for attention, and the cross cache {"xk", "xv"} at `max_source_len` for
+whisper's decoder; {"conv", "ssm"} for Mamba; {"C", "n", "m"} and {"c",
+"n", "h", "m"} for the two xLSTM cells), so both compare leaf for leaf;
+a decode step updates it in place.
 
 Quantization (HERO applied to LMs): `LMQuantSpec` carries bit tensors,
 per-embedding-band bits (the hash-level analogue) and per-layer (w, a)
@@ -17,9 +23,6 @@ paper's quantizers (`quant.linear_quant`, `quant.qat.ste_fake_quant`),
 whatever the model's dtype, and cast back, as the reference's promotion
 does. Bits >= 16 are the full-precision sentinel: the quantized value is
 still computed and then not selected, so a degenerate range never leaks.
-
-Not ported yet (ROADMAP §1 item 8): the mamba, mLSTM, sLSTM and
-encoder-decoder blocks and non-token frontends.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import torch
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm_blocks as xl
 from repro_torch.models.common import (
     ModelConfig,
     apply_norm,
@@ -42,12 +47,10 @@ from repro_torch.models.common import (
 from repro_torch.quant.linear_quant import activation_qparams, weight_qparams
 from repro_torch.quant.qat import ste_fake_quant
 
-_LATER = "ROADMAP §1 item 8 (LM workload)"
-
 N_GROUPS = 4  # quant groups per layer: mixer_in, mixer_out, ffn_in, ffn_out
 
 # Param-name -> quant group (absent = keep full precision: routers, gates,
-# SSM dynamics, norms, biases).
+# SSM dynamics (x_proj, dt_proj, conv_w, A_log, D), norms, biases).
 _WEIGHT_GROUP = {
     "wq": 0, "wk": 0, "wv": 0, "wo": 1,
     "w_gate": 2, "w_in": 2, "w_out": 3,
@@ -177,29 +180,35 @@ def _layer_has_moe(cfg: ModelConfig, layer: int) -> bool:
     return _has_moe(cfg, layer % period(cfg))
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the stack the port does not have yet."""
-    kinds = set(_block_kinds(cfg))
-    if kinds != {"attn"}:
-        raise NotImplementedError(
-            f"{sorted(kinds - {'attn'})} blocks are not ported yet: {_LATER}")
-    if cfg.embed_frontend != "tokens":
-        raise NotImplementedError(
-            f"the {cfg.embed_frontend!r} frontend is not ported yet: {_LATER}")
+def _layer_kind(cfg: ModelConfig, layer: int) -> str:
+    return _block_kinds(cfg)[layer % period(cfg)]
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _init_block(generator: torch.Generator, cfg: ModelConfig,
+def _init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
                 has_moe: bool) -> Dict:
-    """One attention block (the only kind `_check_ported` lets through)
-    with its dense or MoE FFN."""
+    """One block of mixer `kind` with its dense or MoE FFN, where the
+    config has one (never for xlstm)."""
     dev = generator.device
-    p: Dict = {"ln1": norm_init(cfg, cfg.d_model, dev),
-               "attn": attn_mod.init_attn(generator, cfg)}
-    if cfg.d_ff > 0 or has_moe:
-        p["ln2"] = norm_init(cfg, cfg.d_model, dev)
+    d = cfg.d_model
+    p: Dict = {"ln1": norm_init(cfg, d, dev)}
+    if kind in ("attn", "enc", "dec"):
+        p["attn"] = attn_mod.init_attn(generator, cfg)
+        if kind == "dec":
+            p["ln_x"] = norm_init(cfg, d, dev)
+            p["xattn"] = attn_mod.init_attn(generator, cfg)
+    elif kind == "mamba":
+        p["ssm"] = ssm_mod.init_ssm(generator, cfg)
+    elif kind == "mlstm":
+        p["mlstm"] = xl.init_mlstm(generator, cfg)
+    elif kind == "slstm":
+        p["slstm"] = xl.init_slstm(generator, cfg)
+    else:
+        raise ValueError(kind)
+    if cfg.pattern != "xlstm" and cfg.d_ff > 0 or has_moe:
+        p["ln2"] = norm_init(cfg, d, dev)
         if has_moe:
             p["moe"] = ffn_mod.init_moe(generator, cfg)
         else:
@@ -211,7 +220,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Dict:
     """Random parameters from `generator`, drawn on `device` (the card
     unless `device="cpu"`), which must be the generator's device."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
@@ -229,29 +237,63 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.n_layers % period(cfg):
         raise ValueError(f"{cfg.n_layers} layers are not whole periods of "
                          f"{period(cfg)}")
-    params["blocks"] = [_init_block(generator, cfg, _layer_has_moe(cfg, l))
-                        for l in range(cfg.n_layers)]
+    params["blocks"] = [
+        _init_block(generator, cfg, _layer_kind(cfg, l),
+                    _layer_has_moe(cfg, l)) for l in range(cfg.n_layers)]
+    if cfg.pattern == "encdec":
+        params["enc_blocks"] = [_init_block(generator, cfg, "enc", False)
+                                for _ in range(cfg.encoder_layers)]
+        params["enc_pos_embed"] = dense_init(
+            generator, cfg.max_source_len, d, cfg.param_dtype, scale=0.02)
+        params["enc_final_norm"] = norm_init(cfg, d, generator.device)
     return params
+
+
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                      dev: torch.device) -> Dict:
+    if kind in ("attn", "dec"):
+        c = attn_mod.init_kv_cache(cfg, batch, max_seq, dev)
+        if kind == "dec":
+            shape = (batch, cfg.max_source_len, cfg.n_kv_heads, cfg.head_dim)
+            c["xk"] = torch.zeros(shape, dtype=cfg.param_dtype, device=dev)
+            c["xv"] = torch.zeros(shape, dtype=cfg.param_dtype, device=dev)
+        return c
+    if kind == "mamba":
+        return ssm_mod.init_ssm_cache(cfg, batch, dev)
+    if kind == "mlstm":
+        return xl.init_mlstm_cache(cfg, batch, dev)
+    if kind == "slstm":
+        return xl.init_slstm_cache(cfg, batch, dev)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: DeviceLike = None) -> Dict:
-    """Zero decode cache in the reference's layout: {"pos<i>": {"k", "v"}}
-    for each position of a period, each (n_periods, B, S_max, n_kv, hd)."""
-    _check_ported(cfg)
+    """The initial decode cache in the reference's layout: for each
+    position i of a period, {"pos<i>": {leaf: (n_periods, ...)}} with the
+    leaves of that position's block kind (zeros; the xLSTM stabilizers
+    at -1e30)."""
     dev = resolve_device(device)
     p = period(cfg)
-    shape = (cfg.n_layers // p, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    n_periods = cfg.n_layers // p
     return {f"pos{i}": {
-        "k": torch.zeros(shape, dtype=cfg.param_dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.param_dtype, device=dev)}
-        for i in range(p)}
+        name: leaf.expand((n_periods,) + leaf.shape).contiguous()
+        for name, leaf in _init_block_cache(cfg, kind, batch, max_seq,
+                                            dev).items()}
+        for i, kind in enumerate(_block_kinds(cfg))}
 
 
 def _layer_cache(cache: Dict, layer: int, p: int) -> Dict:
-    """Layer `layer`'s (B, S_max, n_kv, hd) views into the cache."""
-    c = cache[f"pos{layer % p}"]
-    return {"k": c["k"][layer // p], "v": c["v"][layer // p]}
+    """Layer `layer`'s views into the cache: every leaf of its position
+    at its period (writes through them update the cache)."""
+    return {name: leaf[layer // p]
+            for name, leaf in cache[f"pos{layer % p}"].items()}
+
+
+def _store(cache: Dict, state: Dict) -> None:
+    """Write a recurrent block's new state into its cache views."""
+    for name, t in state.items():
+        cache[name].copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +305,15 @@ def _embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     if spec is not None:
         table = quant_embedding(table, spec.embed_bits, spec.paper_exact)
     return table[tokens]
+
+
+def _embed_inputs(params: Dict, batch: Dict, cfg: ModelConfig,
+                  spec: Optional[LMQuantSpec] = None) -> torch.Tensor:
+    """The token embeddings, behind llava's patch embeddings."""
+    x = _embed_tokens(params, batch["tokens"], cfg, spec)
+    if cfg.embed_frontend == "prefix_patches":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -279,19 +330,40 @@ def _ffn(bp: Dict, h: torch.Tensor, cfg: ModelConfig, has_moe: bool
     return ffn_mod.ffn(bp["ffn"], h, cfg), None
 
 
-def _apply_block(bp: Dict, x: torch.Tensor, cfg: ModelConfig, has_moe: bool,
-                 a_bits: Optional[torch.Tensor],
-                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One attention block over the full sequence: (x, aux loss). The
-    mixer's and the FFN's inputs are fake-quantized at `a_bits[0]` and
-    `a_bits[2]` when given."""
+def _mixer(bp: Dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
+           positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """The block's sequence mixer over the full sequence of normed h."""
+    if kind in ("attn", "dec", "enc"):
+        return attn_mod.attention(bp["attn"], h, cfg, positions=positions,
+                                  causal=kind != "enc",
+                                  use_rope=cfg.pos_embed == "rope")
+    if kind == "mamba":
+        return ssm_mod.ssm_forward(bp["ssm"], h, cfg)
+    if kind == "mlstm":
+        return xl.mlstm_forward(bp["mlstm"], h, cfg)
+    if kind == "slstm":
+        return xl.slstm_forward(bp["slstm"], h, cfg)
+    raise ValueError(kind)
+
+
+def _apply_block(bp: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 has_moe: bool, a_bits: Optional[torch.Tensor],
+                 enc_out: Optional[torch.Tensor] = None,
+                 positions: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block over the full sequence: (x, aux loss). The mixer's and
+    the FFN's inputs are fake-quantized at `a_bits[0]` and `a_bits[2]`
+    when given; a decoder block ("dec") attends over `enc_out` between
+    them."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(bp["ln1"], x, cfg)
     if a_bits is not None:
         h = _maybe_quant_a(h, a_bits[0])
-    h = attn_mod.attention(bp["attn"], h, cfg, positions=positions,
-                           causal=True, use_rope=cfg.pos_embed == "rope")
-    x = x + h
+    x = x + _mixer(bp, h, cfg, kind, positions)
+    if kind == "dec":
+        h = apply_norm(bp["ln_x"], x, cfg)
+        x = x + attn_mod.attention(bp["xattn"], h, cfg, causal=False,
+                                   use_rope=False, x_kv=enc_out)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x, cfg)
         if a_bits is not None:
@@ -303,29 +375,61 @@ def _apply_block(bp: Dict, x: torch.Tensor, cfg: ModelConfig, has_moe: bool,
     return x, aux
 
 
+def _run_blocks(blocks: List[Dict], x: torch.Tensor, cfg: ModelConfig,
+                kinds: List[str], moe: List[bool],
+                spec: Optional[LMQuantSpec], row0: int,
+                enc_out: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blocks in order, block l of kind kinds[l], under spec row
+    row0 + l (its weights fake-quantized as it runs: one block's copies
+    live at a time): (x, summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for l, bp in enumerate(blocks):
+        a_bits = None
+        if spec is not None:
+            bp = _quant_block_weights(bp, spec.w_bits[row0 + l],
+                                      spec.paper_exact)
+            a_bits = spec.a_bits[row0 + l]
+        x, a = _apply_block(bp, x, cfg, kinds[l], moe[l], a_bits, enc_out,
+                            positions)
+        aux = aux + a
+    return x, aux
+
+
+def encode_source(params: Dict, frames: torch.Tensor, cfg: ModelConfig,
+                  spec: Optional[LMQuantSpec] = None) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, S_src, d): full
+    self-attention, learned positions; under a spec its layers take the
+    spec's first `encoder_layers` rows."""
+    S = frames.shape[1]
+    x = frames + params["enc_pos_embed"][:S]
+    n = len(params["enc_blocks"])
+    x, _ = _run_blocks(params["enc_blocks"], x, cfg, ["enc"] * n,
+                       [False] * n, spec, 0)
+    return apply_norm(params["enc_final_norm"], x, cfg)
+
+
 def forward(params: Dict, batch: Dict, cfg: ModelConfig,
             spec: Optional[LMQuantSpec] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V), aux_loss). batch: {"tokens": (B, S)}. Under a
-    spec, each layer's weights are fake-quantized at its `w_bits` row as
-    the layer runs (one layer's copies live at a time)."""
-    _check_ported(cfg)
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, cfg, spec)
+    """-> (logits (B, S, V), aux_loss). batch keys: tokens (B, S_text);
+    patches (B, P, d) [llava], whose positions lead the sequence; frames
+    (B, S_src, d) [whisper]. Under a spec, each layer's weights are
+    fake-quantized at its `w_bits` row as the layer runs."""
+    x = _embed_inputs(params, batch, cfg, spec)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     if cfg.pos_embed == "learned":
         x = x + params["pos_embed"][:S]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l, bp in enumerate(params["blocks"]):
-        a_bits = None
-        if spec is not None:
-            row = cfg.encoder_layers + l
-            bp = _quant_block_weights(bp, spec.w_bits[row], spec.paper_exact)
-            a_bits = spec.a_bits[row]
-        x, a = _apply_block(bp, x, cfg, _layer_has_moe(cfg, l), a_bits,
-                            positions)
-        aux = aux + a
+    enc_out = None
+    if cfg.pattern == "encdec":
+        enc_out = encode_source(params, batch["frames"], cfg, spec)
+    L = len(params["blocks"])
+    x, aux = _run_blocks(
+        params["blocks"], x, cfg, [_layer_kind(cfg, l) for l in range(L)],
+        [_layer_has_moe(cfg, l) for l in range(L)], spec, cfg.encoder_layers,
+        enc_out, positions)
     return _head(params, x, cfg), aux
 
 
@@ -334,9 +438,12 @@ def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross entropy plus `aux_weight` times the MoE aux loss:
     (loss, {"ce", "aux"}). labels = tokens shifted inside, or explicit
-    batch["labels"] (negative = no loss)."""
+    batch["labels"] (negative = no loss). For llava, patch positions
+    carry no loss."""
     logits, aux = forward(params, batch, cfg, spec)
     tokens = batch["tokens"]
+    if cfg.embed_frontend == "prefix_patches":
+        logits = logits[:, batch["patches"].shape[1]:]
     if "labels" in batch:
         labels = batch["labels"]
         valid = labels >= 0
@@ -365,12 +472,30 @@ def _ffn_residual(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _decode_block(bp: Dict, cache: Dict, x: torch.Tensor, pos: int,
-                  cfg: ModelConfig, has_moe: bool) -> torch.Tensor:
-    """One attention block's decode step; `cache` is updated in place."""
-    h, _ = attn_mod.decode_attention(
-        bp["attn"], apply_norm(bp["ln1"], x, cfg), cache, pos, cfg,
-        use_rope=cfg.pos_embed == "rope")
-    return _ffn_residual(bp, x + h, cfg, has_moe)
+                  cfg: ModelConfig, kind: str, has_moe: bool) -> torch.Tensor:
+    """One block's decode step; `cache` (the layer's views) is updated in
+    place."""
+    h = apply_norm(bp["ln1"], x, cfg)
+    if kind in ("attn", "dec"):
+        h, _ = attn_mod.decode_attention(bp["attn"], h, cache, pos, cfg,
+                                         use_rope=cfg.pos_embed == "rope")
+    elif kind == "mamba":
+        h, state = ssm_mod.ssm_decode_step(bp["ssm"], h, cache, cfg)
+        _store(cache, state)
+    elif kind == "mlstm":
+        h, state = xl.mlstm_decode_step(bp["mlstm"], h, cache, cfg)
+        _store(cache, state)
+    elif kind == "slstm":
+        h, state = xl.slstm_decode_step(bp["slstm"], h, cache, cfg)
+        _store(cache, state)
+    else:
+        raise ValueError(kind)
+    x = x + h
+    if kind == "dec":
+        x = x + attn_mod.decode_cross_attention(
+            bp["xattn"], apply_norm(bp["ln_x"], x, cfg),
+            {"k": cache["xk"], "v": cache["xv"]}, cfg)
+    return _ffn_residual(bp, x, cfg, has_moe)
 
 
 def decode_step(
@@ -381,14 +506,15 @@ def decode_step(
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Dict]:
     """One token for every sequence in the batch. Returns (logits, cache);
-    the cache is updated in place."""
+    the cache is updated in place. For llava, `pos` counts the patch
+    positions before the text."""
     x = _embed_tokens(params, tokens, cfg)
     if cfg.pos_embed == "learned":
         x = x + params["pos_embed"][pos:pos + 1]
     p = period(cfg)
     for l, bp in enumerate(params["blocks"]):
         x = _decode_block(bp, _layer_cache(cache, l, p), x, pos, cfg,
-                          _layer_has_moe(cfg, l))
+                          _layer_kind(cfg, l), _layer_has_moe(cfg, l))
     return _head(params, x, cfg), cache
 
 
@@ -398,27 +524,53 @@ def prefill(
     cfg: ModelConfig,
     max_seq: int,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Consume a prompt, produce (logits (B, S, V), decode cache at pos=S).
+    """Consume a prompt (`forward`'s batch keys), produce (logits (B, S,
+    V), decode cache at pos=S).
 
-    Runs the full forward while writing each layer's K/V into a cache that
-    is zero past S, as the reference's padded cache is. The serve path
+    Runs the full forward while writing each layer's decode state into a
+    fresh cache: attention K/V, zero past S as the reference's padded
+    cache is; the recurrent blocks' final states; whisper's cross K/V,
+    zero past the frames' length up to `max_source_len`. The serve path
     never quantizes (the reference's prefill passes no spec)."""
-    _check_ported(cfg)
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)
     if cfg.pos_embed == "learned":
         x = x + params["pos_embed"][:S]
+    enc_out = None
+    if cfg.pattern == "encdec":
+        enc_out = encode_source(params, batch["frames"], cfg)
     use_rope = cfg.pos_embed == "rope"
     cache = init_cache(cfg, B, max_seq, x.device)
     p = period(cfg)
     for l, bp in enumerate(params["blocks"]):
-        h, k, v = attn_mod.self_attention(
-            bp["attn"], apply_norm(bp["ln1"], x, cfg), cfg, positions,
-            causal=True, use_rope=use_rope)
+        kind = _layer_kind(cfg, l)
         c = _layer_cache(cache, l, p)
-        c["k"][:, :S] = k
-        c["v"][:, :S] = v
-        x = _ffn_residual(bp, x + h, cfg, _layer_has_moe(cfg, l))
+        h = apply_norm(bp["ln1"], x, cfg)
+        if kind in ("attn", "dec"):
+            h, k, v = attn_mod.self_attention(bp["attn"], h, cfg, positions,
+                                              causal=True, use_rope=use_rope)
+            c["k"][:, :S] = k
+            c["v"][:, :S] = v
+        elif kind == "mamba":
+            h, state = ssm_mod.ssm_forward(bp["ssm"], h, cfg,
+                                           return_state=True)
+            _store(c, state)
+        elif kind == "mlstm":
+            _store(c, xl.mlstm_final_state(bp["mlstm"], h, cfg))
+            h = xl.mlstm_forward(bp["mlstm"], h, cfg)
+        elif kind == "slstm":
+            h, state = xl.slstm_forward_with_state(bp["slstm"], h, cfg)
+            _store(c, state)
+        else:
+            raise ValueError(kind)
+        x = x + h
+        if kind == "dec":
+            xkv = attn_mod.precompute_cross_kv(bp["xattn"], enc_out, cfg)
+            x = x + attn_mod.cross_attention(
+                bp["xattn"], apply_norm(bp["ln_x"], x, cfg), xkv, cfg)
+            S_src = enc_out.shape[1]
+            c["xk"][:, :S_src] = xkv["k"]
+            c["xv"][:, :S_src] = xkv["v"]
+        x = _ffn_residual(bp, x, cfg, _layer_has_moe(cfg, l))
     return _head(params, x, cfg), cache

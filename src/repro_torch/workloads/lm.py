@@ -67,6 +67,23 @@ def quality_db(loss, base_loss):
     return -10.0 * np.log10(excess + LOSS_FLOOR)
 
 
+# Two runs of the same quantized losses (card and CPU, port and reference)
+# agree to FLIP_NEAR relative except where an activation code or a top-2
+# expert choice flips: its input crosses a boundary in one run's float32
+# rounding and not in the other's. The largest such gaps read on jamba's
+# smoke config: 2.5e-4 (port against reference, CPU) and 3.3e-4 (an H100
+# against the CPU).
+FLIP_NEAR, FLIP_FAR = 1e-5, 1e-3
+
+
+def losses_agree(got, want, near: float = FLIP_NEAR, far: float = FLIP_FAR):
+    """(ok, relative gaps) of two runs' losses: ok when at least three in
+    four are within `near` and every one within `far`."""
+    d = np.abs(np.asarray(got, np.float64) / np.asarray(want, np.float64)
+               - 1)
+    return bool(d.max() <= far and (d <= near).sum() >= -(-3 * d.size // 4)), d
+
+
 @dataclasses.dataclass(frozen=True)
 class LMEnvConfig:
     """Env-building knobs of the LM workload (the `SceneScale` analogue;

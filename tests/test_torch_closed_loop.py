@@ -14,7 +14,8 @@ params and dataset carried across with `convert`):
   `test_torch_search.py`'s bands;
 - inside the port: determinism, resume equal to the uninterrupted run,
   a config mismatch refused, unusable checkpoints quarantined, the
-  report's validity flags, and what is not ported raising;
+  report's validity flags, and the LM loop over the other block
+  families (xlstm runs, whisper fails as the reference does);
 - the distributed search (`repro_torch.distributed`): one inline worker,
   a thread pool and a chaos sweep (a worker kill, a torn checkpoint)
   equal to the sequential run; orchestrated checkpoints resumed across
@@ -404,13 +405,29 @@ def test_bench_report_validity_flags_and_keys(port_bundles, reference_run):
     assert sorted(report) == sorted(jcl.bench_report(want, _cfg(jcl)))
 
 
-def test_what_is_not_ported_raises():
-    ssm = ("jamba-v0.1-52b",)
-    with pytest.raises(KeyError, match="item 8"):
-        tcl.HeroSearchRun(_cfg(tcl, workload="lm", scenes=ssm,
-                               hardware="roofline-lm"), device="cpu").run()
-    with pytest.raises(KeyError, match="item 8"):
-        twl.get_workload("lm").policy_shape(ssm[0])
+def test_lm_loop_over_the_other_families_runs_or_fails_as_the_reference():
+    """The LM closed loop over xlstm-350m's smoke bundle runs to a valid
+    frontier; jamba's policy shape is the reference's; whisper's loop
+    raises the reference's `KeyError` (its bundle scores token batches,
+    its forward wants frames)."""
+    lm_cfg = lambda pkg, arch: _cfg(pkg, workload="lm", scenes=(arch,),
+                                    hardware="roofline-lm")
+    res = tcl.HeroSearchRun(lm_cfg(tcl, "xlstm-350m"), device="cpu").run()
+    report = tcl.bench_report(res, lm_cfg(tcl, "xlstm-350m"))
+    assert len(res.frontier) > 0 and report["frontier_valid_vs_8bit"]
+    assert res.policies_evaluated == 2 * 2 * 8
+    assert dataclasses.asdict(twl.get_workload("lm").policy_shape(
+        "jamba-v0.1-52b")) == dataclasses.asdict(
+        jwl.get_workload("lm").policy_shape("jamba-v0.1-52b"))
+    errors = []
+    for run in (lambda: jcl.HeroSearchRun(lm_cfg(jcl, "whisper-large-v3"))
+                .run(),
+                lambda: tcl.HeroSearchRun(lm_cfg(tcl, "whisper-large-v3"),
+                                          device="cpu").run()):
+        with pytest.raises(KeyError) as e:
+            run()
+        errors.append(e.value.args)
+    assert errors[0] == errors[1] == ("frames",)
 
 
 def test_scene_bundle_anchors(port_bundles):

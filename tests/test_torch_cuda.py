@@ -31,7 +31,12 @@ population split over the visible cards equal to the plain env
 exactly. The LM search on the card: `loss_fn` of the MoE and dense
 smoke configs under a mixed spec within 1e-5 relative of the CPU's
 (flash attention once per layer), and the LM bundle's proxy losses
-within 1e-6 relative of the CPU's on the same weights."""
+within 1e-6 relative of the CPU's on the same weights. Full attention
+(`ops.full_attention`: Sq queries against Sk keys, whisper's encoder and
+cross-attention shapes among them) against its plain version, 1e-4 in
+float32 and 5e-3 in bfloat16; the jamba, xlstm, whisper and llava smoke
+configs' forward, prefill and decode step within 1e-3 of the CPU's in
+float32, with the attention launches each makes."""
 import importlib.util
 from pathlib import Path
 
@@ -50,6 +55,7 @@ from repro_torch.kernels.decode_attention_kernel import (
 from repro_torch.kernels.flash_attention_kernel import (
     flash_attention_cuda,
     flash_attention_plain,
+    full_attention_plain,
 )
 from repro_torch.kernels.hash_encode import (
     hash_encode_corners_plain,
@@ -225,7 +231,10 @@ def test_flash_attention_kernel_close(card, b, hkv, g, s, hd, dtype):
 
 @pytest.mark.parametrize("b,hkv,g,s,hd", [(1, 1, 1, 32, 16), (2, 4, 3, 100, 16),
                                           (2, 2, 8, 257, 64),
-                                          (4, 4, 7, 1056, 128)])
+                                          (4, 4, 7, 1056, 128),
+                                          # whisper's cross decode, llava's
+                                          (4, 20, 1, 1500, 64),
+                                          (4, 8, 4, 1056, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_close(card, b, hkv, g, s, hd, dtype):
     rng = np.random.default_rng(b + s)
@@ -318,6 +327,39 @@ def test_flash_attention_bf16_refuses_unaligned_views(card):
     qf, kf = q.float(), widef[..., :hd].permute(0, 2, 1, 3)  # h-stride 19
     got = ops.flash_attention(qf, kf, kf)
     assert (got - flash_attention_plain(qf, kf, kf)).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("b,hkv,g,sq,sk,hd", [
+    (1, 4, 1, 1500, 1500, 64),  # whisper's encoder (4 of its 20 heads)
+    (2, 4, 1, 64, 1500, 64),  # its cross-attention over 1,500 frames
+    (1, 4, 1, 1024, 1500, 64),  # ... of a served 1,024-token prompt
+    (1, 4, 1, 1001, 1001, 64),  # the last key tile holds 41 keys
+    (2, 4, 1, 64, 1001, 64),
+    (1, 1, 1, 1, 1, 16), (2, 2, 3, 33, 130, 128), (1, 2, 7, 200, 7, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_attention_kernel_close(card, b, hkv, g, sq, sk, hd, dtype):
+    """`ops.full_attention` on the card (kernel 6, non-causal, its own key
+    length) against `full_attention_plain`, on the model's views."""
+    rng = np.random.default_rng(sq + sk + hd)
+    q, _, _ = _model_views(rng, card, b, sq, hkv, g, hd, dtype)
+    _, k, v = _model_views(rng, card, b, sk, hkv, 1, hd, dtype)
+    n = flash_attention_cuda.launches
+    got = ops.full_attention(q, k, v)
+    want = full_attention_plain(q, k, v)
+    assert flash_attention_cuda.launches - n == 1
+    assert got.shape == (b, hkv, sq, g, hd) and got.dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else BF16_EDGE_TOL
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_flash_attention_refuses_causal_over_other_key_lengths(card):
+    rng = np.random.default_rng(0)
+    q, _, _ = _model_views(rng, card, 1, 64, 2, 2, 16, torch.float32)
+    _, k, v = _model_views(rng, card, 1, 65, 2, 1, 16, torch.float32)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_cuda(q, k, v, causal=True)
+    assert (flash_attention_cuda(q, k, v, causal=False)
+            - full_attention_plain(q, k, v)).abs().max() <= 1e-4
 
 
 def _decode_case(rng, card, b, hkv, g, s, hd, dtype):
@@ -1177,3 +1219,16 @@ def test_lm_bundle_proxy_losses_card_against_cpu(card):
     got, want = b.benv.simulate_batch(bits), cpu.benv.simulate_batch(bits)
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m",
+                                  "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
+def test_other_block_families_card_against_cpu(card, arch):
+    """The smoke config in float32 on the card and the CPU, same weights
+    and inputs (whisper's frames short of max_source_len): forward,
+    prefill and one decode step within 1e-3, every cache leaf too, and
+    the attention launches of a forward and a decode step
+    (`chip_smoke.py`'s `item8_smoke_card_vs_cpu`, which raises)."""
+    diffs = CS.item8_smoke_card_vs_cpu(card, CS.counters(), arch)
+    assert max(diffs.values()) <= 1e-3

@@ -338,10 +338,10 @@ def test_search_cli_orchestrated_runs_write_the_sequential_frontier(
     assert not (tiny_quick / "experiments").exists()
 
 
-def test_unported_flags_exit_2_naming_item_8(tiny_quick, capsys):
-    assert cli.main(["search", "--workload", "lm", "--arch", "jamba-v0.1-52b",
+def test_unknown_arch_exits_2_and_the_bits_parse(tiny_quick, capsys):
+    assert cli.main(["search", "--workload", "lm", "--arch", "no-such-arch",
                      "--device", "cpu"]) == 2
-    assert "item 8" in capsys.readouterr().err
+    assert "unknown arch 'no-such-arch'" in capsys.readouterr().err
     assert cli.main([]) == 2
     assert cli._parse_bits("5", 3) == [5, 5, 5]
     assert cli._parse_bits("", 3) is None

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import get_arch as j_get_arch
 from repro.data import TokenPipeline as JTokenPipeline
 from repro.data import TokenPipelineConfig as JTokenPipelineConfig
@@ -28,7 +29,7 @@ from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import ffn as jffn
 from repro.models import lm as jlm
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.data import TokenPipeline, TokenPipelineConfig
 from repro_torch.launch import serve as tserve
@@ -40,6 +41,18 @@ from repro_torch.models import lm as tlm
 
 TOL = 2e-4
 GEOMETRY = dict(n_layers=2, d_model=256, n_heads=14, n_kv_heads=2, d_head=128)
+OTHER_ARCHS = ["jamba-v0.1-52b", "xlstm-350m", "whisper-large-v3",
+               "llava-next-mistral-7b"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: these tiny shapes gain nothing from more, and
+    the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs(name):
@@ -63,6 +76,24 @@ def models(request):
 def _close(t: torch.Tensor, j, tol=TOL):
     np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
                                rtol=tol, atol=tol)
+
+
+def _arch_batch(cfg, rng, B=2, S=16):
+    """(reference batch, port batch) for a smoke config, as
+    `tests/test_models_smoke.py::_batch` lays it out: S positions, the
+    patch prefix among them for llava; whisper's frames at
+    max_source_len."""
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.embed_frontend == "prefix_patches":
+        b["patches"] = (rng.normal(size=(B, cfg.n_prefix_patches,
+                                         cfg.d_model)) * 0.02) \
+            .astype(np.float32)
+        b["tokens"] = b["tokens"][:, :S - cfg.n_prefix_patches]
+    elif cfg.embed_frontend == "stub_frames":
+        b["frames"] = (rng.normal(size=(B, cfg.max_source_len, cfg.d_model))
+                       * 0.02).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +123,20 @@ def test_registry_holds_qwen2_7b_with_the_reference_fields():
         (j.source, dict(j.skips), dict(j.microbatch))
 
 
-def test_other_archs_raise_naming_their_slice():
-    with pytest.raises(KeyError, match="item 8"):
-        get_arch("jamba-v0.1-52b")
+def test_registry_holds_every_reference_arch():
+    """The ten ids in the reference's order, each with the reference's
+    published and smoke fields and layout; an unknown id raises."""
+    assert ARCH_IDS == J_ARCH_IDS
+    for arch in OTHER_ARCHS:
+        j, t = j_get_arch(arch), get_arch(arch)
+        for cfg_j, cfg_t in ((j.model, t.model), (j.smoke, t.smoke)):
+            assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
+            assert cfg_t.n_params() == cfg_j.n_params()
+            assert tlm.period(cfg_t) == jlm.period(cfg_j)
+            assert tlm.total_layers(cfg_t) == jlm.total_layers(cfg_j)
+            assert tlm._block_kinds(cfg_t) == jlm._block_kinds(cfg_j)
+        assert (t.source, dict(t.skips), dict(t.microbatch)) == \
+            (j.source, dict(j.skips), dict(j.microbatch))
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 
@@ -102,12 +144,24 @@ def test_other_archs_raise_naming_their_slice():
 @pytest.mark.parametrize("pattern,change", [
     ("xlstm", dict(pattern="xlstm")),
     ("ssm", dict(pattern="jamba", attn_every=2)),
-    ("patches", dict(embed_frontend="prefix_patches")),
+    ("patches", dict(embed_frontend="prefix_patches", n_prefix_patches=4)),
 ])
-def test_unported_blocks_raise(pattern, change):
-    cfg = dataclasses.replace(get_arch("qwen2-7b").smoke, **change)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+def test_block_families_on_qwen2_smoke_match_reference(pattern, change):
+    """qwen2-7b's smoke config turned into each new family (mLSTM/sLSTM;
+    Mamba beside attention; a patch prefix): the reference's weights give
+    the reference's logits and loss."""
+    jc = dataclasses.replace(j_get_arch("qwen2-7b").smoke, **change)
+    tc = dataclasses.replace(get_arch("qwen2-7b").smoke, **change)
+    jp = jlm.init_params(jc, jax.random.PRNGKey(6))
+    tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                              device="cpu")
+    jb, tb = _arch_batch(jc, np.random.default_rng(7))
+    with torch.no_grad():
+        logits, _ = tlm.forward(tp, tb, tc)
+        loss, _ = tlm.loss_fn(tp, tb, tc)
+    _close(logits, jlm.forward(jp, jb, jc)[0], 1e-5)
+    assert float(loss) == pytest.approx(float(jlm.loss_fn(jp, jb, jc)[0]),
+                                        rel=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +366,179 @@ def test_init_params_is_seeded():
     assert not torch.equal(a["blocks"][0]["attn"]["wq"],
                            a["blocks"][1]["attn"]["wq"])
     assert a["blocks"][0]["attn"]["bq"].abs().sum() == 0
+
+
+# ---------------------------------------------------------------------------
+# The other block families: jamba (Mamba + attention + MoE), xlstm (mLSTM /
+# sLSTM), whisper (encoder-decoder), llava (patch prefix)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=OTHER_ARCHS)
+def other(request):
+    """(arch, reference config, port config, reference params, port
+    params) of each family's smoke config."""
+    arch = request.param
+    jc, tc = j_get_arch(arch).smoke, get_arch(arch).smoke
+    jp = jlm.init_params(jc, jax.random.PRNGKey(0))
+    tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                              device="cpu")
+    return arch, jc, tc, jp, tp
+
+
+def _mixed(jc, seed=1):
+    rng = np.random.default_rng(seed)
+    L = jlm.total_layers(jc)
+    bits = (rng.integers(2, 9, jc.n_embed_bands),
+            rng.integers(2, 9, (L, jlm.N_GROUPS)),
+            rng.integers(2, 9, (L, jlm.N_GROUPS)))
+    return (jlm.LMQuantSpec(*(jnp.asarray(b, jnp.float32) for b in bits)),
+            tlm.LMQuantSpec(*(torch.tensor(b, dtype=torch.float32)
+                              for b in bits)))
+
+
+@pytest.mark.parametrize("spec", ["none", "mixed"])
+def test_other_families_forward_and_loss_match_reference(other, spec):
+    """`forward` and `loss_fn` with no spec and under a mixed one: logits
+    within 1e-5, loss and cross entropy within 1e-5 relative (MoE aux
+    too)."""
+    arch, jc, tc, jp, tp = other
+    js, ts = _mixed(jc) if spec == "mixed" else (None, None)
+    jb, tb = _arch_batch(jc, np.random.default_rng(2))
+    j_logits, j_aux = jlm.forward(jp, jb, jc, spec=js)
+    j_loss, j_m = jlm.loss_fn(jp, jb, jc, spec=js)
+    with torch.no_grad():
+        t_logits, t_aux = tlm.forward(tp, tb, tc, spec=ts)
+        t_loss, t_m = tlm.loss_fn(tp, tb, tc, spec=ts)
+    assert t_logits.shape == j_logits.shape
+    _close(t_logits, j_logits, 1e-5)
+    assert float(t_loss) == pytest.approx(float(j_loss), rel=1e-5)
+    assert float(t_m["ce"]) == pytest.approx(float(j_m["ce"]), rel=1e-5)
+    assert float(t_m["aux"]) == pytest.approx(float(j_m["aux"]), rel=1e-5)
+
+
+def test_other_families_prefill_decode_matches_forward(other):
+    """The port's mirror of `tests/test_models_smoke.py::
+    test_prefill_decode_matches_forward`, held to the reference's own
+    logits: prefill(t[:n]) then decode_step(t[n]) equals the reference's
+    forward(t[:n+1]) at the last position, and prefill's last logits its
+    forward's at the one before (2e-3)."""
+    arch, jc, tc, jp, tp = other
+    jb, tb = _arch_batch(jc, np.random.default_rng(1))
+    n_text = tb["tokens"].shape[1]
+    extra = jc.n_prefix_patches \
+        if jc.embed_frontend == "prefix_patches" else 0
+    want = np.asarray(jlm.forward(jp, jb, jc)[0], np.float32)
+    pre = dict(tb, tokens=tb["tokens"][:, :n_text - 1])
+    with torch.no_grad():
+        lg_pre, cache = tlm.prefill(tp, pre, tc, n_text + extra)
+        lg_dec, _ = tlm.decode_step(tp, cache, tb["tokens"][:, -1:].long(),
+                                    n_text - 1 + extra, tc)
+    np.testing.assert_allclose(lg_dec[:, 0].numpy(), want[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(lg_pre[:, -1].numpy(), want[:, -2], rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_other_families_prefill_and_decode_match_reference(other):
+    """`prefill` and three `decode_step`s fed the reference's greedy
+    tokens: logits and every cache leaf (k, v; xk, xv; conv, ssm; C, n,
+    m; c, n, h, m) against the reference's, in its layout."""
+    arch, jc, tc, jp, tp = other
+    jb, tb = _arch_batch(jc, np.random.default_rng(3))
+    extra = jc.n_prefix_patches \
+        if jc.embed_frontend == "prefix_patches" else 0
+    S, steps = tb["tokens"].shape[1] + extra, 3
+    jl, jcache = jlm.prefill(jp, jb, jc, S + steps)
+    with torch.no_grad():
+        tl, tcache = tlm.prefill(tp, tb, tc, S + steps)
+    _close(tl, jl)
+    for i in range(steps):
+        jt = jnp.argmax(jl[:, -1], -1)[:, None]
+        jl, jcache = jlm.decode_step(jp, jcache, jt, jnp.int32(S + i), jc)
+        with torch.no_grad():
+            tl, tcache = tlm.decode_step(tp, tcache, torch.from_numpy(
+                np.array(jt)).long(), S + i, tc)
+        _close(tl, jl)
+    assert set(tcache) == set(jcache)
+    for pos in jcache:
+        assert set(tcache[pos]) == set(jcache[pos])
+        for name in jcache[pos]:
+            assert tuple(tcache[pos][name].shape) == jcache[pos][name].shape
+            _close(tcache[pos][name], jcache[pos][name])
+
+
+def test_other_families_init_and_cache_follow_the_reference_layout(other):
+    """The port's own seeded weights and initial cache: the reference's
+    tree, shapes and dtypes leaf for leaf."""
+    arch, jc, tc, jp, _ = other
+    tp = tlm.init_params(tc, torch.Generator().manual_seed(4), device="cpu")
+    again = tlm.init_params(tc, torch.Generator().manual_seed(4),
+                            device="cpu")
+    ref = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                               device="cpu")
+
+    def walk(a, b, c):
+        if isinstance(a, dict):
+            assert set(a) == set(b)
+            for k in a:
+                walk(a[k], b[k], c[k])
+        elif isinstance(a, list):
+            assert len(a) == len(b)
+            for x, y, z in zip(a, b, c):
+                walk(x, y, z)
+        else:
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, c)
+
+    walk(tp, ref, again)
+    jcache = jlm.init_cache(jc, 2, 20)
+    tcache = tlm.init_cache(tc, 2, 20, device="cpu")
+    assert set(tcache) == set(jcache)
+    for pos in jcache:
+        assert set(tcache[pos]) == set(jcache[pos])
+        for name, leaf in jcache[pos].items():
+            np.testing.assert_array_equal(tcache[pos][name].numpy(),
+                                          np.asarray(leaf))
+
+
+def test_serve_main_runs_each_family_on_the_cpu():
+    """`launch.serve` at smoke size: llava's prompts lead with zero
+    patches (the cache sized for them), whisper's carry zero frames."""
+    for arch in OTHER_ARCHS:
+        stats = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "8", "--gen",
+                             "4", "--requests", "2"])
+        assert (stats.requests, stats.tokens, stats.decode_steps) \
+            == (2, 8, 3)
+        assert stats.samples[0].shape == (2, 4)
+
+
+def test_serve_loop_on_patches_yields_the_reference_tokens():
+    """llava's smoke config through the port's greedy loop against the
+    reference's steps driven as `repro.launch.serve` drives them: zero
+    patches, decode positions after them; the reference's cache is sized
+    for them here (its server's `prompt_len + gen` is not)."""
+    jc = j_get_arch("llava-next-mistral-7b").smoke
+    tc = get_arch("llava-next-mistral-7b").smoke
+    jp = jlm.init_params(jc, jax.random.PRNGKey(9))
+    tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                              device="cpu")
+    B, prompt_len, gen, P = 2, 10, 5, jc.n_prefix_patches
+    toks = np.random.default_rng(9).integers(0, jc.vocab_size,
+                                             (B, prompt_len))
+    patches = np.zeros((B, P, jc.d_model), np.float32)
+    logits, cache = jlm.prefill(jp, {"tokens": jnp.asarray(toks),
+                                     "patches": jnp.asarray(patches)}, jc,
+                                P + prompt_len + gen)
+    tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None]
+    outs = [np.asarray(tok)]
+    for i in range(gen - 1):
+        logits, cache = jlm.decode_step(jp, cache, tok,
+                                        jnp.int32(P + prompt_len + i), jc)
+        tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None]
+        outs.append(np.asarray(tok))
+    extra = tserve.frontend_inputs(tc, B, torch.device("cpu"))
+    assert set(extra) == {"patches"} and extra["patches"].shape == (B, P, 64)
+    got = tserve.generate(make_prefill_step(tc, P + prompt_len + gen),
+                          make_decode_step(tc), tp, torch.from_numpy(toks),
+                          gen, extra=extra)
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(outs, axis=1))

@@ -1,6 +1,6 @@
 """The LM quantization path against the JAX package on the CPU: the fake
 quantizers of `models/lm.py` (exact), the mixture of experts
-(`models/ffn.py`), `forward` and `loss_fn` over the six ported arch
+(`models/ffn.py`), `forward` and `loss_fn` over the six attention-only arch
 configs, and the `roofline-lm` target.
 
 Weights come from the reference's `init_params` / `init_moe` and cross
@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import get_arch as j_get_arch
 from repro.hero import targets as jtg
 from repro.models import ffn as jffn
@@ -106,7 +107,7 @@ def _equal(t: torch.Tensor, j):
 # Registry and layout
 # ---------------------------------------------------------------------------
 def test_registry_holds_the_six_archs_with_the_reference_fields():
-    assert sorted(ARCH_IDS) == sorted(ARCHS)
+    assert ARCH_IDS == J_ARCH_IDS and set(ARCHS) <= set(ARCH_IDS)
     for arch in ARCHS:
         j, t = j_get_arch(arch), get_arch(arch)
         for cfg_j, cfg_t in ((j.model, t.model), (j.smoke, t.smoke)):

@@ -250,6 +250,93 @@ def test_population_split_over_two_devices_equals_the_plain_path(
         np.testing.assert_array_equal(split.simulate_batch(bits)[k], v)
 
 
+# ---------------------------------------------------------------------------
+# The other block families: jamba and xlstm search, whisper and llava fail
+# as the reference does
+# ---------------------------------------------------------------------------
+OTHER = ("jamba-v0.1-52b", "xlstm-350m", "whisper-large-v3",
+         "llava-next-mistral-7b")
+
+
+def test_policy_shape_of_the_other_families_equals_reference():
+    tw, jw = twl.get_workload("lm"), jwl.get_workload("lm")
+    for arch in OTHER:
+        assert dataclasses.asdict(tw.policy_shape(arch)) \
+            == dataclasses.asdict(jw.policy_shape(arch))
+
+
+@pytest.mark.parametrize("gaps,ok", [
+    ([0, 0, 0, 0], True), ([0, 0, 0, 9e-4], True), ([0, 0, 2e-5, 9e-4], False),
+    ([0, 0, 0, 2e-3], False), ([0, 2e-5], False), ([9e-6, 0], True),
+    ([0] * 6 + [5e-4] * 2, True), ([0] * 5 + [5e-4] * 3, False)])
+def test_losses_agree_holds_three_in_four_near_and_all_far(gaps, ok):
+    want = np.full(len(gaps), 6.9)
+    got, d = tlw.losses_agree(want * (1 + np.asarray(gaps)), want)
+    assert got is ok
+    np.testing.assert_allclose(d, gaps, atol=1e-12)
+
+
+def _flip_close(got, want):
+    """The port's quantized losses against the reference's, under the
+    port's own rule for two runs of them (`losses_agree`: most within
+    FLIP_NEAR, all within FLIP_FAR)."""
+    ok, d = tlw.losses_agree(got, want)
+    assert ok, d
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
+def test_other_families_proxy_losses_match_reference(arch):
+    """The reference's bundle and the port's env on its weights: the
+    full-precision base losses within LOSS_REL; 8 policies' proxy losses
+    (the 8-bit and b_min extremes among them) and the full eval of the
+    two extremes under `_flip_close`; their cost within REL."""
+    jb = jwl.get_workload("lm").build_bundle(arch, seed=0)
+    params = lm_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jb.env.params), device="cpu")
+    env = tlw.LMQuantEnv(arch, seed=0, target=_v5e_target(), device="cpu",
+                         params=params)
+    tb = tlw.lm_bundle(env, tlw.LMBatchedEnv(env))
+    assert env.unit_labels == jb.env.unit_labels
+    assert env.base_loss_proxy == pytest.approx(jb.env.base_loss_proxy,
+                                                rel=LOSS_REL)
+    assert env.base_loss_full == pytest.approx(jb.env.base_loss_full,
+                                               rel=LOSS_REL)
+    bits = _bits(env, 8, seed=6)
+    bits[0], bits[1] = env.ecfg.b_max, env.ecfg.b_min
+    want = np.asarray(jb.benv._loss_batch(jb.env.params, *(
+        jax.numpy.asarray(a) for a in jb.benv.bits_to_arrays(bits))))
+    got = tb.benv.proxy_losses(env.params, bits)
+    print(f"{arch} proxy losses: port {got.tolist()}, reference "
+          f"{want.tolist()}")
+    _flip_close(got, want)
+    sim_t, sim_j = tb.benv.simulate_batch(bits), jb.benv.simulate_batch(bits)
+    for k in sim_j:
+        np.testing.assert_allclose(sim_t[k], np.asarray(sim_j[k]), rtol=REL)
+    full = [(env._full_loss(list(b)), jb.env._full_loss(list(b)))
+            for b in bits[:2]]
+    print(f"{arch} full evals of the extremes (port, reference): {full}")
+    _flip_close(*zip(*full))
+    for b in bits[:2]:
+        assert env.evaluate_bits(list(b)).latency_cycles == pytest.approx(
+            jb.env.evaluate_bits(list(b)).latency_cycles, rel=REL)
+
+
+@pytest.mark.parametrize("arch,key", [("whisper-large-v3", "frames"),
+                                      ("llava-next-mistral-7b", "patches")])
+def test_frontend_families_fail_as_the_reference(arch, key):
+    """The LM bundle scores token batches only; whisper's forward wants
+    frames and llava's patches, so both packages raise the same
+    `KeyError` (the port adds no search path the reference lacks)."""
+    errors = []
+    for build in (lambda: jwl.get_workload("lm").build_bundle(arch),
+                  lambda: twl.get_workload("lm").build_bundle(arch,
+                                                              device="cpu")):
+        with pytest.raises(KeyError) as e:
+            build()
+        errors.append(e.value.args)
+    assert errors[0] == errors[1] == (key,)
+
+
 def test_renderer_targets_cannot_score_lm():
     with pytest.raises(ValueError, match="cannot score LM"):
         twl.get_workload("lm").build_bundle(ARCH, hardware="neurex",
