@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's NeRF training, the HERO search, its
 search -> compile -> serve pipeline, its two serving paths, the LM
-quantization search and the LM stack's other block families on one
-NVIDIA GPU.
+quantization search, the LM stack's other block families and LM
+training on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -10,7 +10,7 @@ one (or without the rest of the repository beside it).
 
 Phases, each of which raises on failure:
 
-1. Build the nine CUDA sources from ``src/repro_torch/csrc`` (one
+1. Build the ten CUDA sources from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build time,
    every kernel's registers, the attention, quantized-matmul, encode,
    march and gather-composite kernels' spill bytes, and the tensor-core
@@ -199,20 +199,52 @@ Phases, each of which raises on failure:
    ``LMWorkload`` bundles (the base loss within 1e-6 relative, quantized
    losses as ``workloads.lm.losses_agree`` says); ``hero-search-torch
    --workload lm --arch xlstm-350m --quick`` returning 0.
+13. LM training: kernel 6's backward (``csrc/flash_attention_bwd.cu``)
+   against ``flash_attention_bwd_plain`` at every shape the training
+   below gives it (whisper's encoder, causal decoder and cross-attention,
+   qwen2-7b's layers in bf16 within 2e-2 of the largest gradient; the
+   smoke configs' in f32 within 1e-5), with the forward's log-sum-exp
+   within 1e-5 and a second call bit-equal, timed at the bf16 shapes
+   beside its plain version, its bound, the forward and backward kernels
+   back to back and SDPA's forward plus backward (``enable_gqa``);
+   whisper-large-v3 at full width and depth trained by
+   ``launch.train.main`` for 6 steps of 8 x 128 tokens (2 microbatches,
+   1,500 zero frames, f32 moments, checkpoints every 3 steps), counts
+   zeroed around it (kernel 6 and its backward once per attention call
+   per microbatch, nothing else), then resumed from its step-3
+   checkpoint: steps 4-6 within 1e-5 relative of the first run's, their
+   bit-equality printed; qwen2-7b at published width cut to 2 layers,
+   ``make_train_step`` with int8 moments for 4 steps of 2 x 4 x 1,024
+   tokens (ms a step, the clip's and the update's share, peak memory,
+   finite losses and grad norms, the entries whose second moment the
+   codec dropped, launches counted, one more step profiled), then the
+   same steps with f32 moments as a witness; one train step of each of
+   the ten smoke configs in float32 on the card against the CPU (losses
+   and grad norm within 1e-5 relative, first moments within 1e-5 of
+   their largest entry, parameters within 1e-5 where the gradient
+   exceeds 100 eps; MoE archs and xlstm as ``losses_agree`` says, xlstm's
+   moments leaf by leaf within twice what one ulp of weight noise moves
+   them on the CPU); two steps of qwen2-7b's smoke config with int8
+   moments on the card against the CPU (losses and grad norms within
+   1e-5, the moments' scales within 1e-5 and their values within one
+   code step).
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
-stream and the LM serve, ``launches_revisit`` from the revisit stream,
+stream and the LM serve, and for the backward phase 13's whisper run, ``launches_revisit`` from the revisit stream,
 ``launches_psnr_plan`` and ``launches_psnr_march`` from the two fused
 PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_closed_loop``, ``launches_compile`` and
 ``launches_pipeline_serve`` from the pipeline's three stages,
 ``launches_distributed`` from the thread-pool sweep,
 ``launches_lm_search`` from the LM closed loop,
-``launches_serve_{whisper,llava,xlstm,jamba}`` from phase 12's serves;
+``launches_serve_{whisper,llava,xlstm,jamba}`` from phase 12's serves,
+``launches_train_{whisper,qwen2}`` from phase 13's runs;
 the flash entry also carries the phase 12 shapes' numbers under
 ``*_{whisper_enc,cross_served,cross,ragged,cross_ragged,whisper_dec,
 llava_jamba}`` and the decode entry under
-``*_{whisper_cross,whisper_self,llava_jamba}``),
+``*_{whisper_cross,whisper_self,llava_jamba}``, and the backward's
+entry, ``flash_attention_bwd``, qwen2-7b's shape with whisper's under
+``*_{whisper_enc,whisper_dec,whisper_cross}``),
 the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2265,7 +2297,10 @@ def counters():
     from repro_torch.kernels.decode_attention_kernel import (
         decode_attention_cuda,
     )
-    from repro_torch.kernels.flash_attention_kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_kernel import (
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
     from repro_torch.kernels.gather_composite import gather_composite_cuda
     from repro_torch.kernels.hash_encode import (
         hash_encode_corners_cuda,
@@ -2287,6 +2322,7 @@ def counters():
             "ray_march": ray_march_cuda,
             "quant_matmul": quant_matmul_cuda,
             "flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
             "decode_attention": decode_attention_cuda}
 
 
@@ -3473,9 +3509,621 @@ def item8_phase(dev, kern, flash_entry, decode_entry):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: LM training on the card
+# ---------------------------------------------------------------------------
+# (a) whisper-large-v3 at full width and depth through the launcher: 6
+# steps of 8 sequences of 128 tokens in 2 microbatches beside 1,500 zero
+# frames, checkpoints every 3 steps, then the same run resumed at step 3.
+WHISPER_TRAIN = ["--arch", "whisper-large-v3", "--seq-len", "128",
+                 "--global-batch", "8", "--accum", "2"]
+WHISPER_STEPS, WHISPER_CKPT_EVERY = 6, 3
+# (b) qwen2-7b at its published width cut to 2 of 28 layers (PERF.md
+# section 4: 28 layers with an f32 accumulator do not fit one card), int8
+# moments: 4 steps of 2 microbatches of 4 x 1,024 tokens; then the same
+# steps with f32 moments, a witness for the int8 run's loss curve.
+QWEN_TRAIN_LAYERS, QWEN_MB, QWEN_SEQ, QWEN_ACCUM, QWEN_STEPS = 2, 4, 1024, 2, 4
+TRAIN_LR = 3e-4  # the launcher's default, weight decay 0.1
+# (c) one train step of every smoke config, card against CPU: 4
+# microbatches of 2 sequences of 32 tokens; and INT8_STEPS steps of
+# INT8_ARCH's with int8 moments.
+SMOKE_ACCUM, SMOKE_MB, SMOKE_SEQ = 4, 2, 32
+INT8_ARCH, INT8_STEPS = "qwen2-7b", 2
+# xlstm's first moments are held leaf by leaf to twice what SENS_DRAWS
+# draws of SENS_REL weight noise (about one float32 ulp) move them on the
+# CPU, and to no less than 1e-5 (scripts/torch_train_grad_sensitivity.py).
+SENS_REL, SENS_DRAWS = 1e-7, 4
+# (d) kernel 6's backward against its plain version: the largest error
+# over the largest |gradient| of the plain version, per dtype.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+RESUME_REL = 1e-5
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def train_shapes():
+    """(name, B, Hkv, G, hd, Sq, Sk, causal, dtype) of every call (a), (b)
+    and (c) make of kernel 6 and its backward: whisper's encoder, causal
+    decoder and cross-attention, qwen2-7b's layers (bf16); the smoke
+    configs' attention layers (f32), deduplicated."""
+    from repro_torch.configs import ARCH_IDS, get_arch
+
+    w = get_arch("whisper-large-v3").model
+    q = get_arch("qwen2-7b").model
+    B = QWEN_MB
+    bf16 = torch.bfloat16
+    shapes = [("whisper_enc", B, w.n_kv_heads, 1, w.head_dim,
+               w.max_source_len, w.max_source_len, False, bf16),
+              ("whisper_dec", B, w.n_kv_heads, 1, w.head_dim, 128, 128,
+               True, bf16),
+              ("whisper_cross", B, w.n_kv_heads, 1, w.head_dim, 128,
+               w.max_source_len, False, bf16),
+              ("qwen2", QWEN_MB, q.n_kv_heads, q.n_heads // q.n_kv_heads,
+               q.head_dim, QWEN_SEQ, QWEN_SEQ, True, bf16)]
+    seen = set()
+    for arch in ARCH_IDS:
+        cfg = get_arch(arch).smoke
+        if cfg.pattern == "xlstm":
+            continue
+        G = cfg.n_heads // cfg.n_kv_heads
+        S = SMOKE_SEQ + (cfg.n_prefix_patches
+                         if cfg.embed_frontend == "prefix_patches" else 0)
+        calls = [(S, S, True)]
+        if cfg.pattern == "encdec":
+            src = cfg.max_source_len
+            calls = [(S, S, True), (src, src, False), (S, src, False)]
+        for Sq, Sk, causal in calls:
+            key = (cfg.n_kv_heads, G, cfg.head_dim, Sq, Sk, causal)
+            if key not in seen:
+                seen.add(key)
+                shapes.append((f"smoke_{len(seen)}", SMOKE_MB, *key,
+                               torch.float32))
+    return shapes
+
+
+def bwd_inputs(gen, dev, B, Hkv, G, hd, Sq, Sk, dtype):
+    """q, k, v as the model hands them over (views of (B, S, H, hd) and
+    (B, Sk, Hkv, hd)) and an f32 output gradient of q's shape."""
+    H = Hkv * G
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype)
+    do = torch.randn((B, Sq, H, hd), generator=gen, device=dev)
+    v5 = lambda t: t.view(B, Sq, Hkv, G, hd).permute(0, 2, 1, 3, 4)  # noqa
+    return (v5(q), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), v5(do))
+
+
+def phase_flash_backward(dev):
+    """(d): the backward kernel against `flash_attention_bwd_plain` at
+    every shape of `train_shapes()`, on the forward kernel's output and
+    log-sum-exp (the plain version's from the same), within BWD_TOL; the
+    LSE against `attention_lse_plain` within 1e-5; then, at each bf16
+    shape, the kernel timed beside the plain version, its bound, the
+    forward and backward kernels back to back, and SDPA's forward plus
+    backward (`enable_gqa`, a yardstick only). The entry's plain numbers
+    are qwen2-7b's shape; the others ride under `*_<shape>`."""
+    from repro_torch.kernels.flash_attention_kernel import (
+        attention_lse_plain,
+        flash_attention_bwd_cuda as kernel,
+        flash_attention_bwd_plain as plain,
+        flash_attention_cuda,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, worst_f32, timed = 0.0, 0.0, {}
+    for name, B, Hkv, G, hd, Sq, Sk, causal, dtype in train_shapes():
+        q, k, v, do = bwd_inputs(gen, dev, B, Hkv, G, hd, Sq, Sk, dtype)
+        lse = torch.empty((B, Hkv, Sq, G), device=dev)
+        out = flash_attention_cuda(q, k, v, causal, lse)
+        lse_err = (lse - attention_lse_plain(q, k, causal)).abs().max() \
+            .item()
+        got = kernel(q, k, v, out, lse, do, causal)
+        want = plain(q, k, v, out, attention_lse_plain(q, k, causal), do,
+                     causal)
+        torch.cuda.synchronize()
+        gaps = [((a.float() - b.float()).abs().max().item(),
+                 b.float().abs().max().item()) for a, b in zip(got, want)]
+        err = max(d / top for d, top in gaps)  # the tolerance's reading
+        abs_err = max(d for d, _ in gaps)
+        again = kernel(q, k, v, out, lse, do, causal)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"flash backward {name} ({dtype}, B {B}, Hkv {Hkv}, G {G}, "
+              f"hd {hd}, Sq {Sq}, Sk {Sk}, causal {causal}): max |diff| / "
+              f"max |grad| {err:.3g} (tolerance {BWD_TOL[dtype]}; max "
+              f"|diff| {abs_err:.3g}), LSE "
+              f"max |diff| {lse_err:.3g}, rerun bit-equal {same}")
+        if not (err <= BWD_TOL[dtype] and lse_err <= 1e-5 and same):
+            raise AssertionError(f"flash backward {name}: {err}, LSE "
+                                 f"{lse_err}, bit-equal {same}")
+        if dtype == torch.float32:
+            worst_f32 = max(worst_f32, abs_err)
+            continue
+        worst = max(worst, abs_err)
+        H = Hkv * G
+        qs = q.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).transpose(1, 2)
+        dos = do.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd) \
+            .transpose(1, 2)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (qs, k, v))
+
+        def library():
+            torch.autograd.grad(sdpa(qs, ks, vs, is_causal=causal,
+                                     enable_gqa=True), (qs, ks, vs), dos)
+
+        def fwd_bwd():
+            o = flash_attention_cuda(q, k, v, causal, lse)
+            kernel(q, k, v, o, lse, do, causal)
+
+        t_k = median_ms(lambda: kernel(q, k, v, out, lse, do, causal),
+                        iters=10)
+        t_p = median_ms(lambda: plain(q, k, v, out, lse, do, causal),
+                        iters=5, warmup=1)
+        t_l = median_ms(library, iters=10)
+        t_fb = median_ms(fwd_bwd, iters=10)
+        t_c = median_ms(lambda: kernel(q, k, v, out, lse, do, causal),
+                        iters=10, hide_host=False)
+        nbytes = (2 * (q.numel() + k.numel() + v.numel())  # q, k, v
+                  + 4 * 2 * q.numel() + 4 * lse.numel()  # o, dO, lse
+                  + 2 * (q.numel() + k.numel() + v.numel()))  # dq, dk, dv
+        flops = 5 * 2.0 * B * H * Sq * Sk * hd / (2 if causal else 1)
+        bnd = bound(nbytes, flops, PEAK_BF16_OPS)
+        print(f"  kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), forward + backward kernels "
+              f"{t_fb:.4f} ms, SDPA forward + backward {t_l:.4f} ms")
+        timed[name] = dict(err=abs_err, rel=err, ms=t_k, plain_ms=t_p,
+                           bnd=bnd,
+                           library_ms=t_l, fwd_bwd_ms=t_fb, call_ms=t_c)
+    main = timed["qwen2"]
+    e = entry("flash_attention_bwd",
+              "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "src/repro/kernels/flash_attention_kernel.py:67 (no backward "
+              "there: XLA autodiff of src/repro/models/attention.py:75)",
+              worst, main["ms"], main["plain_ms"], main["bnd"],
+              main["library_ms"], main["call_ms"],
+              fwd_bwd_ms=main["fwd_bwd_ms"], max_abs_err_f32=worst_f32,
+              max_err_over_max_grad=main["rel"])
+    for name, t in timed.items():
+        if name == "qwen2":
+            continue
+        e.update({f"max_abs_err_{name}": t["err"],
+                  f"max_err_over_max_grad_{name}": t["rel"],
+                  f"ms_{name}": t["ms"],
+                  f"plain_ms_{name}": t["plain_ms"],
+                  f"bound_ms_{name}": t["bnd"][0],
+                  f"library_ms_{name}": t["library_ms"],
+                  f"fwd_bwd_ms_{name}": t["fwd_bwd_ms"]})
+        e[f"bound_by_{name}"] = t["bnd"][1]
+    return e
+
+
+def train_launches(model, microbatches: int):
+    """Kernel 6's launches (forward, backward) in `microbatches` training
+    microbatches of `model`: one of each per attention call."""
+    n = attention_launches(model)[0] * microbatches
+    return {"flash_attention": n, "flash_attention_bwd": n}
+
+
+def check_train_launches(label, got, want):
+    extra = {n: v for n, v in got.items() if n not in want and v}
+    print(f"  launches in {label}: "
+          + ", ".join(f"{n} {got[n]}" for n in want))
+    if any(got[n] != v for n, v in want.items()) or extra:
+        raise AssertionError(f"{label}: launches {got}, want {want} and no "
+                             f"other kernel")
+
+
+def train_whisper(dev, kern):
+    """(a): whisper-large-v3 trained by `launch.train.main`, counts zeroed
+    just before and read just after; then resumed from its step-3
+    checkpoint, steps 4-6 within RESUME_REL of the first run's. Returns
+    the first run's launches."""
+    import gc
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree_util import leaves_with_path
+
+    model = get_arch("whisper-large-v3").model
+    ckpt = ROOT / "build" / "train_whisper_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = WHISPER_TRAIN + ["--steps", str(WHISPER_STEPS),
+                            "--ckpt-dir", str(ckpt)]
+    torch.cuda.reset_peak_memory_stats()
+    log, t0 = [], time.perf_counter()
+    zeroed(kern)
+    params = train_mod.main(argv + ["--ckpt-every",
+                                    str(WHISPER_CKPT_EVERY)], log=log)
+    launches = read(kern)
+    wall = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in leaves_with_path(params))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"whisper-large-v3 trained at full width and depth ({n_params:,} "
+          f"parameters, {model.param_dtype}, f32 moments): {WHISPER_STEPS} "
+          f"steps of "
+          f"{WHISPER_TRAIN[5]} x {WHISPER_TRAIN[3]} tokens in "
+          f"{WHISPER_TRAIN[7]} microbatches, {wall:.2f} s with "
+          f"checkpoints, peak memory {peak:.2f} GiB; s a step "
+          + ", ".join(f"{r['seconds']:.3f}" for r in log)
+          + "; losses " + ", ".join(f"{r['loss']:.6f}" for r in log))
+    check_train_launches("the whisper run",
+                         launches, train_launches(model,
+                                                  2 * WHISPER_STEPS))
+    shutil.rmtree(ckpt / f"step_{WHISPER_STEPS}")
+    again, t0 = [], time.perf_counter()
+    del_params = train_mod.main(argv + ["--ckpt-every", "1000", "--resume"],
+                                log=again)
+    del del_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first = log[WHISPER_CKPT_EVERY:]
+    rel = max(max(abs(a[k] / b[k] - 1) for k in ("loss", "grad_norm"))
+              for a, b in zip(again, first))
+    bit = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+              for a, b in zip(again, first))
+    print(f"  resumed at step {WHISPER_CKPT_EVERY} ({time.perf_counter() - t0:.2f} s "
+          f"with the restore): steps "
+          f"{[r['step'] + 1 for r in again]} losses "
+          + ", ".join(f"{r['loss']:.6f}" for r in again)
+          + f"; largest relative gap to the first run {rel:.3g} "
+          f"(tolerance {RESUME_REL}), bit-equal {bit}")
+    if [r["step"] for r in again] != [r["step"] for r in first] \
+            or not rel <= RESUME_REL:
+        raise AssertionError(f"the resumed whisper run differs: {again} "
+                             f"against {first}")
+    return launches
+
+
+def lost_second_moments(opt) -> int:
+    """Entries of int8 moments whose nu code is 0 while their mu code is
+    not: the codec's row-wise rounding dropped their second moment and
+    kept their first."""
+    from repro_torch.tree_util import leaves_with_path
+
+    mu, nu = dict(leaves_with_path(opt.mu)), dict(leaves_with_path(opt.nu))
+    return sum(int(((nu[k] == 0) & (mu[k] != 0)).sum()) for k in mu
+               if k.endswith("/codes"))
+
+
+def qwen2_run(dev, kern, moment_dtype: str):
+    """QWEN_STEPS steps of qwen2-7b at published width, 2 layers, through
+    `make_train_step` with `moment_dtype`, from the weights of seed 0 and
+    the pipeline's first batches; counts zeroed just before the steps and
+    read just after. Returns (params, opt state, step, batch function, the
+    report)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree_util import leaves_with_path
+
+    model = dataclasses.replace(get_arch("qwen2-7b").model,
+                                n_layers=QWEN_TRAIN_LAYERS)
+    params = lm.init_params(model, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    opt = adamw_init(params, moment_dtype=moment_dtype)
+    step = steps_mod.make_train_step(
+        model, AdamWConfig(lr=TRAIN_LR, weight_decay=0.1),
+        moment_dtype=moment_dtype)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=model.vocab_size, seq_len=QWEN_SEQ,
+        global_batch=QWEN_MB))
+
+    def batch():
+        return {"tokens": torch.from_numpy(np.stack(
+            [pipe.batch() for _ in range(QWEN_ACCUM)])).to(dev)}
+
+    n_params = sum(t.numel() for _, t in leaves_with_path(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, secs, lost = [], [], []
+    zeroed(kern)
+    with CallTimer(steps_mod, "clip_by_global_norm", "adamw_update") as ct:
+        for _ in range(QWEN_STEPS):
+            b = batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+            if moment_dtype == "int8":
+                lost.append(lost_second_moments(opt))
+    launches = read(kern)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = [1e3 * t for t in secs]
+    clip_ms = 1e3 * ct.s["clip_by_global_norm"] / QWEN_STEPS
+    upd_ms = 1e3 * ct.s["adamw_update"] / QWEN_STEPS
+    print(f"qwen2-7b at published width, {QWEN_TRAIN_LAYERS} layers "
+          f"({n_params:,} parameters, {model.param_dtype}, {moment_dtype} "
+          f"moments): {QWEN_STEPS} "
+          f"steps of {QWEN_ACCUM} x {QWEN_MB} x {QWEN_SEQ} tokens, ms a step "
+          + ", ".join(f"{t:.2f}" for t in ms)
+          + f" (median of the last {QWEN_STEPS - 1}: "
+          f"{float(np.median(ms[1:])):.2f}); a step's clip {clip_ms:.2f} ms "
+          f"and AdamW update {upd_ms:.2f} ms (synchronised, averaged), the "
+          f"rest forward and backward; peak memory {peak:.2f} GiB; loss, "
+          f"grad norm " + "; ".join(f"{l:.6f}, {g:.4f}" for l, g in rows))
+    if lost:
+        print(f"  entries whose second moment's code is 0 while the first "
+              f"moment's is not, after each step: "
+              + ", ".join(f"{n:,}" for n in lost)
+              + f" of {n_params:,} (the next update divides their first "
+              f"moment by that step's |g| alone, or by eps)")
+    if not all(np.isfinite(v) for r in rows for v in r):
+        raise AssertionError(f"qwen2-7b training ({moment_dtype} moments) "
+                             f"gave non-finite values: {rows}")
+    check_train_launches(f"the qwen2-7b steps ({moment_dtype} moments)",
+                         launches,
+                         train_launches(model, QWEN_ACCUM * QWEN_STEPS))
+    return params, opt, step, batch, dict(rows=rows, launches=launches)
+
+
+def train_qwen2(dev, kern):
+    """(b): `qwen2_run` with int8 moments (the run whose launches count),
+    one more step of it profiled for the kernels' device time; then the
+    same steps with f32 moments from the same weights and batches, a
+    witness for the int8 run's loss curve. Returns the int8 run's
+    launches."""
+    import gc
+
+    params, opt, step, batch, int8 = qwen2_run(dev, kern, "int8")
+    b = batch()
+    busy, by_name, _ = profile("qwen2-7b 2-layer train step",
+                               lambda: step(params, opt, b))
+    for part, label in (("flash_tc_kernel", "forward kernel"),
+                        ("bwd_dkdv", "backward dK/dV"),
+                        ("bwd_dq", "backward dQ"),
+                        ("bwd_delta", "backward D")):
+        n, t = by_name_sum(by_name, part)
+        print(f"  {label}: {t:.3f} ms over {n} launches, "
+              f"{100.0 * t / busy:.1f} % of the step's device time")
+    del params, opt, step, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = qwen2_run(dev, kern, "float32")[4]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  int8 against f32 moments, same weights and batches: relative "
+          "gap of the loss, grad norm by step " + "; ".join(
+              f"{abs(a[0] / c[0] - 1):.3g}, {abs(a[1] / c[1] - 1):.3g}"
+              for a, c in zip(int8["rows"], f32["rows"])))
+    return int8["launches"]
+
+
+def train_int8_card_vs_cpu(dev):
+    """(c) with int8 moments: qwen2-7b's smoke config in float32, the same
+    weights and batches on the card and the CPU, INT8_STEPS
+    `make_train_step` steps. Each step's loss and grad norm within 1e-5
+    relative. After the last step, for every leaf of mu and nu: the row
+    scales within 1e-5 of the leaf's largest, and the encoded values
+    (codes times scale) within 1e-5 of the leaf's largest plus one code
+    step (a rounding tie that 1e-5 moves flips a code by one); the share
+    of codes that differ is printed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree_util import leaves_with_path
+
+    cpu = torch.device("cpu")
+    cfg = get_arch(INT8_ARCH).smoke
+    rng = np.random.default_rng(37)
+    batches = []
+    for _ in range(INT8_STEPS):
+        parts = [item8_batch(cfg, rng, SMOKE_MB, SMOKE_SEQ)
+                 for _ in range(SMOKE_ACCUM)]
+        batches.append({k: torch.from_numpy(np.stack([p[k] for p in parts]))
+                        for k in parts[0]})
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, weight_decay=0.1),
+                           moment_dtype="int8")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), device=cpu)
+    runs = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        p = to_device(p_cpu, d)
+        o = adamw_init(p, "int8")
+        rows = []
+        for b in batches:
+            p, o, m = step(p, o, to_device(b, d))
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[where] = (rows, o)
+    (rows_d, od), (rows_c, oc) = runs["card"], runs["cpu"]
+    rel = max(abs(a / c - 1) for rd, rc in zip(rows_d, rows_c)
+              for a, c in zip(rd, rc))
+    worst_s, worst_y, n_diff, n_codes, max_dc = 0.0, 0.0, 0, 0, 0
+    for name, md, mc in (("mu", od.mu, oc.mu), ("nu", od.nu, oc.nu)):
+        got = {k: t.cpu() for k, t in leaves_with_path(md)}
+        want = dict(leaves_with_path(mc))
+        if got.keys() != want.keys() or not all(
+                k.endswith(("/codes", "/scale")) for k in got):
+            raise AssertionError(f"{name} is not int8 throughout: "
+                                 f"{sorted(got)[:4]}")
+        for path in (k for k in got if k.endswith("/codes")):
+            sp = path[:-len("codes")] + "scale"
+            cd, cc, sd, sc = got[path], want[path], got[sp], want[sp]
+            worst_s = max(worst_s, float((sd - sc).abs().max()
+                                         / sc.abs().max()))
+            yd, yc = cd.float() * sd, cc.float() * sc
+            slack = (yd - yc).abs() - (sd + sc) / 2
+            worst_y = max(worst_y, float(slack.max() / yc.abs().max()))
+            dc = (cd.int() - cc.int()).abs()
+            n_diff += int((dc > 0).sum())
+            n_codes += dc.numel()
+            max_dc = max(max_dc, int(dc.max()))
+    print(f"{INT8_ARCH} smoke, int8 moments, {INT8_STEPS} steps card vs "
+          f"CPU: loss, grad norm by step "
+          + "; ".join(f"{a[0]:.6f}, {a[1]:.6f}" for a in rows_d)
+          + f" (largest relative gap {rel:.3g}); mu and nu after the last "
+          f"step: scales max |diff| / leaf max {worst_s:.3g}, encoded "
+          f"values beyond one code step max / leaf max {worst_y:.3g}, "
+          f"codes differing {n_diff} of {n_codes} (max by {max_dc})")
+    if not (rel <= 1e-5 and worst_s <= 1e-5 and worst_y <= 1e-5):
+        raise AssertionError(f"{INT8_ARCH}: the card's int8-moment steps "
+                             f"differ from the CPU's: {rel}, {worst_s}, "
+                             f"{worst_y}")
+
+
+def cpu_moment_spread(step, params, batch, mu):
+    """{leaf: the largest change of its first moment over its largest
+    entry} that SENS_DRAWS draws of SENS_REL relative weight noise make
+    in one CPU `step` from `params`, whose own step gave `mu`: what
+    float32 rounding alone moves them, as
+    `scripts/torch_train_grad_sensitivity.py` measures it."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree_util import leaves_with_path, tree_map
+
+    gen = torch.Generator().manual_seed(1)
+    base = dict(leaves_with_path(mu))
+    spread = dict.fromkeys(base, 0.0)
+    for _ in range(SENS_DRAWS):
+        p = tree_map(lambda t: t * (1 + SENS_REL * torch.randn(
+            t.shape, generator=gen)), params)
+        got = dict(leaves_with_path(step(p, adamw_init(p, "float32"),
+                                         batch)[1].mu))
+        for k, t in base.items():
+            spread[k] = max(spread[k], float((got[k] - t).abs().max()
+                                             / t.abs().max()))
+    return spread
+
+
+def train_step_card_vs_cpu(dev, kern, arch: str):
+    """(c) for one arch: its smoke config in float32, the same weights and
+    batch (SMOKE_ACCUM microbatches) on the card and the CPU, one
+    `make_train_step` step, held as `tests/test_torch_train_lm.py` holds
+    it against the reference: the microbatch losses (forward only), the
+    step's loss and grad norm within 1e-5 relative; the first moments
+    (0.1 times the clipped gradient) within 1e-5 of their largest entry;
+    every parameter after the update within 1e-5 where the CPU's gradient
+    exceeds 100 eps (a first AdamW step divides the rounding of a
+    near-zero gradient by eps). MoE archs and xlstm: the losses as
+    `workloads.lm.losses_agree` says, since a top-2 expert choice or an
+    xLSTM cell's max stabilizer makes the gradient discontinuous at
+    float32 rounding (`scripts/torch_train_grad_sensitivity.py`); their
+    first moments leaf by leaf (the largest gap over the leaf's largest
+    entry), the MoE archs' by `losses_agree`'s rule, xlstm's each within
+    `cpu_moment_spread`'s bound (one ulp of weight noise moves its
+    mLSTM gate bias's moments 3.5e-3 on the CPU alone). The MoE archs'
+    parameters ride on those moments. Kernel 6 and its backward once per
+    attention call per microbatch. Returns the largest gaps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree_util import leaves_with_path
+    from repro_torch.workloads.lm import FLIP_FAR, FLIP_NEAR, losses_agree
+
+    cpu = torch.device("cpu")
+    cfg = get_arch(arch).smoke
+    flips = cfg.moe is not None or cfg.pattern == "xlstm"
+    rng = np.random.default_rng(31)
+    parts = [item8_batch(cfg, rng, SMOKE_MB, SMOKE_SEQ)
+             for _ in range(SMOKE_ACCUM)]
+    b_cpu = {k: torch.from_numpy(np.stack([p[k] for p in parts]))
+             for k in parts[0]}
+    b_dev = to_device(b_cpu, dev)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), device=cpu)
+    p_dev = to_device(p_cpu, dev)
+    ocfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.1)
+    step = make_train_step(cfg, ocfg, moment_dtype="float32")
+    with torch.no_grad():
+        mb = lambda p, b: [float(lm.loss_fn(  # noqa: E731
+            p, {k: v[a] for k, v in b.items()}, cfg)[0])
+            for a in range(SMOKE_ACCUM)]
+        l_dev, l_cpu = mb(p_dev, b_dev), mb(p_cpu, b_cpu)
+    zeroed(kern)
+    pd, od, md = step(p_dev, adamw_init(p_dev, "float32"), b_dev)
+    launches = read(kern)
+    pc, oc, mc = step(p_cpu, adamw_init(p_cpu, "float32"), b_cpu)
+    got = l_dev + [float(md["loss"]), float(md["grad_norm"])]
+    want = l_cpu + [float(mc["loss"]), float(mc["grad_norm"])]
+    ok, rel = losses_agree(got, want)
+    if not flips:
+        ok = bool(rel.max() <= 1e-5)
+    mu_c = dict(leaves_with_path(oc.mu))
+    mu_gap = {k: float((t.cpu() - mu_c[k]).abs().max())
+              for k, t in leaves_with_path(od.mu)}
+    top = {k: float(t.abs().max()) for k, t in mu_c.items()}
+    if mu_gap.keys() != top.keys():
+        raise AssertionError(f"{arch}: the moment trees differ")
+    if flips:
+        by_leaf = {k: mu_gap[k] / top[k] if top[k] else
+                   (0.0 if mu_gap[k] == 0 else np.inf) for k in top}
+        leaf_rel = np.array(list(by_leaf.values()))
+        mu_ok = bool(leaf_rel.max() <= FLIP_FAR and (
+            leaf_rel <= FLIP_NEAR).sum() >= -(-3 * leaf_rel.size // 4))
+        mu_read = (f"first moments by leaf, max |diff| / leaf max: "
+                   f"{int((leaf_rel <= FLIP_NEAR).sum())} of "
+                   f"{leaf_rel.size} within {FLIP_NEAR}, largest "
+                   f"{leaf_rel.max():.3g}")
+        worst_mu = float(leaf_rel.max())
+        if cfg.pattern == "xlstm":
+            spread = cpu_moment_spread(step, p_cpu, b_cpu, oc.mu)
+            ratio = {k: v / max(FLIP_NEAR, 2 * spread[k])
+                     for k, v in by_leaf.items()}
+            w = max(ratio, key=ratio.get)
+            mu_ok = ratio[w] <= 1.0
+            mu_read += (f"; against max({FLIP_NEAR}, 2 x the CPU's own "
+                        f"change under {SENS_REL:g} weight noise) at most "
+                        f"{ratio[w]:.3g} of it ({w}: {by_leaf[w]:.3g}, "
+                        f"the CPU's {spread[w]:.3g})")
+    else:
+        worst_mu = max(mu_gap.values()) / max(top.values())
+        mu_ok = worst_mu <= 1e-5
+        mu_read = (f"first moments max |diff| / max {worst_mu:.3g}")
+    worst_p, p_read = 0.0, "not held (MoE)"
+    if cfg.moe is None:
+        pc_by = dict(leaves_with_path(pc))
+        for path, t in leaves_with_path(pd):
+            gap = (t.cpu() - pc_by[path]).abs()
+            steady = mu_c[path].abs() / (1 - ocfg.b1) > 100 * ocfg.eps
+            worst_p = max(worst_p,
+                          float(torch.where(steady, gap, 0.0).max()))
+        p_read = f"{worst_p:.3g} where |g| > 100 eps"
+    p_ok = worst_p <= 1e-5
+    want_l = train_launches(cfg, SMOKE_ACCUM)
+    lok = all(launches[n] == v for n, v in want_l.items())
+    print(f"{arch} smoke train step, float32 card vs CPU: relative gaps "
+          f"(microbatch losses, loss, grad norm) "
+          + ", ".join(f"{r:.2g}" for r in rel)
+          + f"; {mu_read}; parameters max |diff| {p_read}; launches "
+          + ", ".join(f"{n} {launches[n]}" for n in want_l))
+    if not (ok and mu_ok and p_ok and lok):
+        raise AssertionError(f"{arch}: the card's train step differs from "
+                             f"the CPU's: {rel}, moments {worst_mu}, "
+                             f"parameters {worst_p}, launches {launches}, "
+                             f"want {want_l}")
+    return {"rel": float(rel.max()), "mu": worst_mu, "params": worst_p}
+
+
+def train_phase(dev, kern):
+    """Phase 13: (d) the backward kernel's checks and times, (a) whisper,
+    (b) qwen2-7b, (c) the ten smoke configs card vs CPU and the int8
+    moments card vs CPU. Returns (the
+    backward's kernels entry, {run: launches})."""
+    from repro_torch.configs import ARCH_IDS
+
+    t0 = time.perf_counter()
+    bwd_entry = phase_flash_backward(dev)
+    print(f"  backward kernel checks: {time.perf_counter() - t0:.2f} s")
+    runs = {"train_whisper": train_whisper(dev, kern)}
+    runs["train_qwen2"] = train_qwen2(dev, kern)
+    t1 = time.perf_counter()
+    for arch in ARCH_IDS:
+        train_step_card_vs_cpu(dev, kern, arch)
+    train_int8_card_vs_cpu(dev)
+    print(f"  smoke train steps card vs CPU: {time.perf_counter() - t1:.2f} s")
+    print(f"phase 13 (LM training): {time.perf_counter() - t0:.2f} s")
+    return bwd_entry, runs
+
+
 # Sources whose ptxas lines are printed in full (kernel names, stack and
 # spill bytes, wgmma notes); for the others only the register counts.
-DETAIL_SOURCES = ("flash_attention.cu", "decode_attention.cu",
+DETAIL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+                  "decode_attention.cu",
                   "quant_matmul_packed.cu", "quant_matmul.cu",
                   "hash_encode.cu", "ray_march.cu", "gather_composite.cu")
 # Kernels whose tensor-core (HGMMA, HMMA, IMMA) and cp.async (LDGSTS)
@@ -3689,13 +4337,19 @@ def main() -> int:
     decode_entry = next(e for e in entries
                         if e["name"] == "decode_attention")
     psnr_launches.update(item8_phase(dev, kern, flash_entry, decode_entry))
+    bwd_entry, train_runs = train_phase(dev, kern)
+    entries.append(bwd_entry)
+    psnr_launches.update(train_runs)
+    # The backward's main path is phase 13's whisper run.
+    launches["flash_attention_bwd"] = \
+        train_runs["train_whisper"]["flash_attention_bwd"]
 
     for e in entries:
         # quant_matmul lies on no path: 0 launches in every run.
         e["launches"] = launches.get(e["name"], 0)
-        e["launches_revisit"] = revisit_launches[e["name"]]
+        e["launches_revisit"] = revisit_launches.get(e["name"], 0)
         for k, v in psnr_launches.items():
-            e[f"launches_{k}"] = v[e["name"]]
+            e[f"launches_{k}"] = v.get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

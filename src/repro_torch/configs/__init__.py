@@ -7,7 +7,14 @@ of each of the reference's ten architectures; an id nobody has raises
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import SHAPES, ArchSpec, ShapeSpec
+from repro_torch.configs.base import (
+    SHAPES,
+    ArchSpec,
+    ShapeSpec,
+    decode_input_specs,
+    prefill_input_specs,
+    train_input_specs,
+)
 
 _MODULES = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
@@ -34,4 +41,15 @@ def get_arch(arch_id: str) -> ArchSpec:
     return _CACHE[arch_id]
 
 
-__all__ = ["SHAPES", "ArchSpec", "ShapeSpec", "ARCH_IDS", "get_arch"]
+def all_cells():
+    """Every (arch, shape) pair, with assignment-recorded skips excluded."""
+    for aid in ARCH_IDS:
+        spec = get_arch(aid)
+        for shape in SHAPES.values():
+            if spec.runs(shape.name):
+                yield spec, shape
+
+
+__all__ = ["SHAPES", "ArchSpec", "ShapeSpec", "ARCH_IDS", "get_arch",
+           "all_cells", "train_input_specs", "prefill_input_specs",
+           "decode_input_specs"]

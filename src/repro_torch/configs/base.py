@@ -1,14 +1,17 @@
-"""Config substrate: the shape grid and `ArchSpec`.
+"""Config substrate: the shape grid, `ArchSpec` and the input specs.
 
-The counterpart of `repro/configs/base.py` without the dry-run's input
-specs (they describe JAX shapes for XLA's compiler). Every architecture
-file exports `spec() -> ArchSpec` with the exact published config plus a
-reduced `smoke` config of the same family.
+The counterpart of `repro/configs/base.py`. Every architecture file
+exports `spec() -> ArchSpec` with the exact published config plus a
+reduced `smoke` config of the same family. The input specs are tensors
+on the `meta` device (shape and dtype, no storage), the counterparts of
+the reference's `jax.ShapeDtypeStruct`s.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
 
 from repro_torch.models.common import ModelConfig
 
@@ -47,3 +50,46 @@ class ArchSpec:
 
     def runs(self, shape: str) -> bool:
         return shape not in self.skips
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _frontend_extras(model: ModelConfig, batch: int, seq: int
+                     ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Modality-stub inputs + number of text tokens."""
+    extras: Dict[str, torch.Tensor] = {}
+    text = seq
+    if model.embed_frontend == "prefix_patches":
+        p = model.n_prefix_patches
+        extras["patches"] = _spec((batch, p, model.d_model),
+                                  model.param_dtype)
+        text = seq - p
+    elif model.embed_frontend == "stub_frames":
+        extras["frames"] = _spec((batch, model.max_source_len, model.d_model),
+                                 model.param_dtype)
+    return extras, text
+
+
+def train_input_specs(model: ModelConfig, shape: ShapeSpec,
+                      microbatch: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """One accumulation microbatch (the train step loops over these)."""
+    b = microbatch or shape.global_batch
+    extras, text = _frontend_extras(model, b, shape.seq_len)
+    return {"tokens": _spec((b, text), torch.int32), **extras}
+
+
+def prefill_input_specs(model: ModelConfig, shape: ShapeSpec
+                        ) -> Dict[str, torch.Tensor]:
+    b = shape.global_batch
+    extras, text = _frontend_extras(model, b, shape.seq_len)
+    return {"tokens": _spec((b, text), torch.int32), **extras}
+
+
+def decode_input_specs(model: ModelConfig, shape: ShapeSpec
+                       ) -> Dict[str, torch.Tensor]:
+    """(tokens, pos) for decode_step; the cache comes from the model."""
+    return {"tokens": _spec((shape.global_batch, 1), torch.int32),
+            "pos": _spec((), torch.int32)}

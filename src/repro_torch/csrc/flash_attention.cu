@@ -221,9 +221,9 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
-                int Hkv, int S, int Sk, int G, int hd, Strides qs,
-                Strides ks, Strides vs, Strides os, int causal,
-                float scale_log2) {
+                float* __restrict__ lse, int Hkv, int S, int Sk, int G,
+                int hd, Strides qs, Strides ks, Strides vs, Strides os,
+                int causal, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sKV = base + Q_BYTES;
@@ -378,6 +378,12 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
   const float rA = 1.0f / dA, rB = 1.0f / dB;
   const int sA = qposA, gA = rowA - sA * G, sB = qposB, gB = rowB - sB * G;
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m + log l in the natural domain (m is kept in log2 units).
+    float* lb = lse + (long long)bh * S * G;
+    if (sA < S) lb[rowA] = (mA + log2f(dA)) * 0.6931471805599453f;
+    if (sB < S) lb[rowB] = (mB + log2f(dB)) * 0.6931471805599453f;
+  }
   float* oA = out + b * os.b + h * os.h + sA * os.s + gA * os.g;
   float* oB = out + b * os.b + h * os.h + sB * os.s + gB * os.g;
   const bool pairs = (hd & 1) == 0;
@@ -420,7 +426,8 @@ size_t f32_smem_bytes(int hd) {
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int Hkv, int S, int Sk, int G, int hd, Strides qs,
+                 float* __restrict__ lse, int Hkv, int S, int Sk, int G,
+                 int hd, Strides qs,
                  Strides ks, Strides vs, Strides os, int causal,
                  float scale) {
   extern __shared__ float smem[];
@@ -560,6 +567,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = r0 + ty * 4 + i, s = row / G, g = row % G;
     if (s >= S) continue;
     const float l = fmaxf(row_l[ty * 4 + i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(long long)bh * S * G + row] = row_m[ty * 4 + i] + logf(l);
     float* o = out + b * os.b + h * os.h + s * os.s + g * os.g;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -573,11 +582,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). Strides are in
 // elements: q and out (b, h, s, g), k and v (b, h, s). S query positions
-// against Sk keys; causal needs Sk == S. Requires hd <= 128; the bfloat16
+// against Sk keys; causal needs Sk == S. `lse`, when not null, receives
+// each row's log-sum-exp m + log l (f32, contiguous (B, Hkv, S, G)), which
+// the backward (flash_attention_bwd.cu) recomputes P from. Requires
+// hd <= 128; the bfloat16
 // route also needs 16-byte-aligned q, k, v and strides that are multiples
 // of 8 elements (the wrapper checks both).
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int Hkv,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int B, int Hkv,
     int S, int Sk, int G, int hd, long long qsb, long long qsh, long long qss,
     long long qsg, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
@@ -599,8 +612,8 @@ extern "C" int repro_flash_attention(
     dim3 grid(B * Hkv, (rows + TC_ROWS - 1) / TC_ROWS);
     flash_tc_kernel<<<grid, TC_THREADS, TC_SMEM, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (float*)out, Hkv, S, Sk, G, hd, qs, ks, vs,
-        os, causal, scale * 1.4426950408889634f);
+        (const __nv_bfloat16*)v, (float*)out, (float*)lse, Hkv, S, Sk, G, hd,
+        qs, ks, vs, os, causal, scale * 1.4426950408889634f);
     return (int)cudaGetLastError();
   }
   const size_t smem = f32_smem_bytes(hd);
@@ -610,7 +623,7 @@ extern "C" int repro_flash_attention(
   if (err != cudaSuccess) return (int)err;
   dim3 grid((rows + BR - 1) / BR, B * Hkv);
   flash_f32_kernel<<<grid, THREADS, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Hkv, S,
-      Sk, G, hd, qs, ks, vs, os, causal, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, Hkv, S, Sk, G, hd, qs, ks, vs, os, causal, scale);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,7 @@ SOURCES = (
     "ray_march.cu",
     "quant_matmul.cu",
     "flash_attention.cu",
+    "flash_attention_bwd.cu",
     "decode_attention.cu",
 )
 HEADERS = ("qmm_tile.cuh",)  # included by sources; part of the build's hash
@@ -48,6 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 # C signature of every entry point: argtypes; all return int (cudaError_t).
 SIGNATURES: Dict[str, List] = {
     # x, words, offset, sx, sw, zx, out, M, K, N, bits, groups_per_tile,
@@ -74,12 +76,18 @@ SIGNATURES: Dict[str, List] = {
     "repro_ray_march": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w, sx, sw, zx, out, M, K, N, SM count, stream
     "repro_quant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, out, B, Hkv, S, Sk, G, hd, q strides (b, h, s, g), k strides
-    # (b, h, s), v strides (b, h, s), out strides (b, h, s, g), causal,
-    # scale, dtype, stream
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k, v, out, lse (or null), B, Hkv, S, Sk, G, hd, q strides (b, h,
+    # s, g), k strides (b, h, s), v strides (b, h, s), out strides (b, h,
+    # s, g), causal, scale, dtype, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _L, _L, _L, _L, _I, _F, _I, _P],
+    # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, Hkv, S, Sk, G,
+    # hd, 28 strides (q, k, v, o, dO, dq, dk, dv), causal, scale, dtype,
+    # stream
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _LP, _I, _F, _I,
+                                  _P],
     # q, k, v, length (device pointer or null), length (by value), out,
     # m_part, l_part, acc_part, tickets, B, Hkv, G, S, hd, q strides
     # (b, h, g), k strides (b, h, s), v strides (b, h, s), split, scale,

@@ -101,7 +101,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The partial sums and the combine's tickets are kept across calls,
     per device and shape, so calls must not overlap: the wrapper serves
-    one stream. Each call allocates only its result."""
+    one stream. Each call allocates only its result. Raises on a q, k or
+    v that requires a gradient while grad mode is on: the kernel has no
+    backward (decode is never trained), and would drop it without a
+    word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("decode_attention has no backward: call it under "
+                           "torch.no_grad() or on detached tensors")
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")

@@ -29,7 +29,7 @@ from repro_torch.kernels.decode_attention_kernel import (
     decode_attention_plain,
 )
 from repro_torch.kernels.flash_attention_kernel import (
-    flash_attention_cuda,
+    flash_attention_card,
     flash_attention_plain,
     full_attention_plain,
 )
@@ -138,11 +138,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped-query attention forward: q (B, Hkv, S, G, hd) against k, v
     (B, Hkv, S, hd) -> (B, Hkv, S, G, hd) f32. Non-causal attention needs
     S % 128 == 0, as the reference's kernel does at its default key tile
-    (it has no key mask)."""
+    (it has no key mask). On the card it differentiates through the
+    backward kernel (`FlashAttention`)."""
     if not causal and q.shape[2] % 128:
         raise ValueError("non-causal flash requires S % bk == 0")
     if _on_card(q):
-        return flash_attention_cuda(q, k, v, causal)
+        return flash_attention_card(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)
 
 
@@ -152,9 +153,10 @@ def full_attention(q: torch.Tensor, k: torch.Tensor,
     q (B, Hkv, Sq, G, hd) against k, v (B, Hkv, Sk, hd) -> (B, Hkv, Sq, G,
     hd) f32. The model's entry for an encoder's self-attention and for
     cross-attention; on the card the flash kernel masks keys >= Sk
-    itself, so neither length need be a multiple of a tile."""
+    itself, so neither length need be a multiple of a tile, and
+    differentiates through the backward kernel."""
     if _on_card(q):
-        return flash_attention_cuda(q, k, v, causal=False)
+        return flash_attention_card(q, k, v, causal=False)
     return full_attention_plain(q, k, v)
 
 
@@ -162,7 +164,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length) -> torch.Tensor:
     """One query token per head: q (B, Hkv, G, hd) against the cache k, v
     (B, Hkv, S, hd) masked to positions < length (>= 1) -> (B, Hkv, G, hd)
-    in q's dtype."""
+    in q's dtype. The card's kernel has no backward (decode is never
+    trained) and raises under grad mode on an input requiring one."""
     if _on_card(q):
         return decode_attention_cuda(q, k, v, length)
     return decode_attention_plain(q, k, v, length)

@@ -162,6 +162,59 @@ def total_layers(cfg: ModelConfig) -> int:
     return cfg.n_layers + cfg.encoder_layers
 
 
+_STACKED = (("blocks", period), ("enc_blocks", lambda cfg: 1))
+
+
+def _stack(leaves: List):
+    x = leaves[0]
+    if isinstance(x, dict):
+        return {k: _stack([l[k] for l in leaves]) for k in x}
+    if isinstance(x, tuple):  # a named tuple of leaves (int8 moments)
+        return type(x)(*(_stack([l[i] for l in leaves])
+                         for i in range(len(x))))
+    return torch.stack(leaves)
+
+
+def _row(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _row(v, n) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_row(v, n) for v in tree))
+    return tree[n]
+
+
+def to_reference_layout(tree: Dict, cfg: ModelConfig) -> Dict:
+    """A tree that mirrors the port's parameters (the parameters, an AdamW
+    moment tree, a host copy of either, or meta tensors; an int8 moment's
+    named tuple stacked field by field) in the reference's layout:
+    `blocks` stacked over periods under `pos<i>` (layer n * period + i is
+    period n's row of `pos<i>`), whisper's `enc_blocks` under `pos0`.
+    Checkpoints are written in it, so both packages read them."""
+    out = {k: v for k, v in tree.items() if k not in dict(_STACKED)}
+    for key, per in _STACKED:
+        if key in tree:
+            layers, p = tree[key], per(cfg)
+            out[key] = {f"pos{i}": _stack(layers[i::p]) for i in range(p)}
+    return out
+
+
+def from_reference_layout(tree: Dict, cfg: ModelConfig) -> Dict:
+    """`to_reference_layout` undone: one dict a layer (views of the
+    stacked rows)."""
+    out = {k: v for k, v in tree.items() if k not in dict(_STACKED)}
+    for key, per in _STACKED:
+        if key in tree:
+            p = per(cfg)
+            pos = [tree[key][f"pos{i}"] for i in range(p)]
+            first = pos[0]
+            while isinstance(first, (dict, tuple)):
+                first = next(iter(first.values())) \
+                    if isinstance(first, dict) else first[0]
+            out[key] = [_row(pos[i], n) for n in range(first.shape[0])
+                        for i in range(p)]
+    return out
+
+
 def _block_kinds(cfg: ModelConfig) -> List[str]:
     """Mixer kind for each position within one decoder period."""
     if cfg.pattern == "encdec":

@@ -1,8 +1,9 @@
 """AdamW over a nested params tree; the moment trees mirror it exactly.
 
-Moments in the parameters' dtype only: the quantized moments of the
-reference (`moment_dtype` "f32", "bf16", "int8", its `optim/state_codec`)
-are not ported yet (ROADMAP §1 item 9).
+`moment_dtype` is the reference's: "param" (the parameters' dtype), "f32"
+/ "float32", "bf16" / "bfloat16", or "int8" (blockwise 8-bit Adam through
+`optim/state_codec`); each leaf's moments are decoded to f32 around its
+update and encoded again after it, as the reference does.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.optim.state_codec import moment_codecs
 from repro_torch.tree_util import map_with_path, tree_leaves, tree_map
 
 
@@ -34,20 +36,17 @@ class AdamWState(NamedTuple):
     nu: Any  # second moment, same tree as params
 
 
-def _check_moment_dtype(moment_dtype: str) -> None:
-    if moment_dtype != "param":
-        raise NotImplementedError(
-            f"moment_dtype={moment_dtype!r}: the quantized AdamW moments "
-            "(optim/state_codec) are not ported yet, ROADMAP §1 item 9")
-
-
 def adamw_init(params: Any, moment_dtype: str = "param") -> AdamWState:
-    """Zero moments in the parameters' dtype (`moment_dtype="param"`)."""
-    _check_moment_dtype(moment_dtype)
+    """Zero moments: in the parameters' dtype (`moment_dtype="param"`), or
+    encoded by `moment_dtype`'s codec ('f32', 'bf16' or 'int8')."""
     dev = tree_leaves(params)[0].device
-    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      mu=tree_map(torch.zeros_like, params),
-                      nu=tree_map(torch.zeros_like, params))
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if moment_dtype == "param":
+        return AdamWState(step=step, mu=tree_map(torch.zeros_like, params),
+                          nu=tree_map(torch.zeros_like, params))
+    mu_c, nu_c = moment_codecs(moment_dtype)
+    return AdamWState(step=step, mu=tree_map(mu_c.init, params),
+                      nu=tree_map(nu_c.init, params))
 
 
 @torch.no_grad()
@@ -57,8 +56,8 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
                  moment_dtype: str = "param"):
     """One AdamW step. Returns (new_params, new_state); nothing is updated
     in place. The bias corrections are 1 - b ** step in float32, as the
-    reference computes them."""
-    _check_moment_dtype(moment_dtype)
+    reference computes them. `moment_dtype` must match what `adamw_init`
+    was called with."""
     step = state.step + 1
     lr = config.lr if lr_schedule is None else lr_schedule(step) * config.lr
     b1, b2 = config.b1, config.b2
@@ -66,18 +65,31 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
     bc1 = 1.0 - b1 ** stepf
     bc2 = 1.0 - b2 ** stepf
 
-    new_mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(m.dtype),
-                      state.mu, grads)
-    new_nu = tree_map(
-        lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(v.dtype)),
-        state.nu, grads)
+    quantized = moment_dtype != "param"
+    if quantized:
+        mu_c, nu_c = moment_codecs(moment_dtype)
+    new_mu, new_nu = {}, {}
 
-    def _upd(path, p, m, v):
+    def _upd(path, p, g, m, v):
+        # One leaf at a time: its moments are decoded, updated and encoded
+        # again before the next leaf's are decoded, so at most one leaf's
+        # f32 moments exist at once (int8 moments would otherwise peak
+        # above f32 ones).
+        if quantized:
+            m, v = mu_c.decode(m), nu_c.decode(v)
+        m = b1 * m + (1 - b1) * g.to(m.dtype)
+        v = b2 * v + (1 - b2) * torch.square(g.to(v.dtype))
         update = (m / bc1) / (torch.sqrt(v / bc2) + config.eps)
         if config.weight_decay > 0.0 and not any(
                 s in path for s in config.no_decay_substrings):
             update = update + config.weight_decay * p
+        if quantized:
+            m, v = mu_c.encode(m, p), nu_c.encode(v, p)
+        new_mu[path], new_nu[path] = m, v
         return (p - lr * update).to(p.dtype)
 
-    new_params = map_with_path(_upd, params, new_mu, new_nu)
-    return new_params, AdamWState(step=step, mu=new_mu, nu=new_nu)
+    new_params = map_with_path(_upd, params, grads, state.mu, state.nu)
+    pick = lambda out: map_with_path(  # noqa: E731
+        lambda path, _: out[path], params)
+    return new_params, AdamWState(step=step, mu=pick(new_mu),
+                                  nu=pick(new_nu))

@@ -1,23 +1,36 @@
 """Nested parameter trees: dicts (walked in sorted key order, as
-`jax.tree_util` walks them), lists and tuples of tensors. A leaf's path is
-its keys and indices joined by "/" (`sigma/0/w`, `hash/level_3`), the
-reference's `_path_str`."""
+`jax.tree_util` walks them), lists and tuples of tensors; a named tuple
+keeps its type, and a tuple whose class sets `tree_leaf = True` (a
+sharding spec) is a leaf. A leaf's path is its keys, indices and named-
+tuple field names joined by "/" (`sigma/0/w`, `hash/level_3`,
+`1/mu/embed/codes`), the reference's `_path_str`."""
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
+
+
+def _children(tree: Any) -> Optional[List[Tuple[Any, str, Any]]]:
+    """(key or index, path component, child) of a container; None for a
+    leaf."""
+    if isinstance(tree, dict):
+        return [(k, str(k), tree[k]) for k in tree]
+    if not isinstance(tree, (list, tuple)) or getattr(type(tree),
+                                                     "tree_leaf", False):
+        return None
+    names = getattr(tree, "_fields", None) or range(len(tree))
+    return [(i, str(n), v) for i, (n, v) in enumerate(zip(names, tree))]
 
 
 def leaves_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """[(path, leaf)] in the reference's leaf order."""
-    if isinstance(tree, dict):
-        items = [(str(k), tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(str(i), v) for i, v in enumerate(tree)]
-    else:
+    kids = _children(tree)
+    if kids is None:
         return [(prefix, tree)]
+    if isinstance(tree, dict):
+        kids = sorted(kids, key=lambda kid: kid[0])
     out: List[Tuple[str, Any]] = []
-    for k, v in items:
-        out += leaves_with_path(v, f"{prefix}/{k}" if prefix else k)
+    for _, name, v in kids:
+        out += leaves_with_path(v, f"{prefix}/{name}" if prefix else name)
     return out
 
 
@@ -28,16 +41,15 @@ def tree_leaves(tree: Any) -> List[Any]:
 def map_with_path(fn: Callable, tree: Any, *rest: Any, prefix: str = ""):
     """A tree of `fn(path, leaf, *leaves of rest at that path)`, with the
     structure of `tree`."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree, *rest)
+    out = [map_with_path(fn, v, *(r[k] for r in rest),
+                         prefix=f"{prefix}/{name}" if prefix else name)
+           for k, name, v in kids]
     if isinstance(tree, dict):
-        return {k: map_with_path(fn, tree[k], *(r[k] for r in rest),
-                                 prefix=f"{prefix}/{k}" if prefix else str(k))
-                for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(
-            map_with_path(fn, v, *(r[i] for r in rest),
-                          prefix=f"{prefix}/{i}" if prefix else str(i))
-            for i, v in enumerate(tree))
-    return fn(prefix, tree, *rest)
+        return dict(zip(tree, out))
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any):

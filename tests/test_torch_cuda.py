@@ -36,7 +36,12 @@ within 1e-6 relative of the CPU's on the same weights. Full attention
 cross-attention shapes among them) against its plain version, 1e-4 in
 float32 and 5e-3 in bfloat16; the jamba, xlstm, whisper and llava smoke
 configs' forward, prefill and decode step within 1e-3 of the CPU's in
-float32, with the attention launches each makes."""
+float32, with the attention launches each makes. Kernel 6's backward
+against its plain version (1e-5 of the largest gradient in float32, 2e-2
+in bfloat16) and bit-stable, its log-sum-exp within 1e-5, autograd
+through `ops` on the card equal to the CPU's within 1e-5, the bare
+forward and kernel 7 refusing a gradient they would drop, and one train
+step of six smoke configs card against CPU."""
 import importlib.util
 from pathlib import Path
 
@@ -1232,3 +1237,104 @@ def test_other_block_families_card_against_cpu(card, arch):
     (`chip_smoke.py`'s `item8_smoke_card_vs_cpu`, which raises)."""
     diffs = CS.item8_smoke_card_vs_cpu(card, CS.counters(), arch)
     assert max(diffs.values()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6's backward and the gradient guards
+# ---------------------------------------------------------------------------
+BWD_CASES = [(1, 1, 1, 37, 37, 16, True), (2, 2, 3, 130, 130, 64, True),
+             (2, 4, 7, 100, 100, 128, True), (1, 2, 2, 65, 65, 32, False),
+             (2, 3, 1, 20, 1001, 64, False), (1, 2, 7, 129, 64, 128, False)]
+
+
+@pytest.mark.parametrize("b,hkv,g,sq,sk,hd,causal", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_close(card, b, hkv, g, sq, sk, hd,
+                                               causal, dtype):
+    """dq, dk, dv against `flash_attention_bwd_plain` on the forward
+    kernel's output and log-sum-exp: the largest error over the largest
+    |gradient| within 1e-5 in float32 and 2e-2 in bfloat16, the
+    log-sum-exp within 1e-5 of `attention_lse_plain`, and a second call
+    bit-equal (no atomics)."""
+    from repro_torch.kernels.flash_attention_kernel import (
+        attention_lse_plain,
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+    )
+
+    gen = torch.Generator(device=card).manual_seed(sq + hd)
+    q, k, v, do = CS.bwd_inputs(gen, card, b, hkv, g, hd, sq, sk, dtype)
+    lse = torch.empty((b, hkv, sq, g), device=card)
+    out = flash_attention_cuda(q, k, v, causal, lse)
+    want_lse = attention_lse_plain(q, k, causal)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, out, want_lse, do, causal)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == dtype
+        err = ((a.float() - w.float()).abs().max()
+               / w.float().abs().max()).item()
+        assert err <= tol
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+    assert all(torch.equal(a, x) for a, x in zip(got, again))
+
+
+def test_gradient_flows_through_the_attention_kernels(card):
+    """A loss through `ops.flash_attention` and `ops.full_attention` on
+    the card: autograd reaches q, k and v through the backward kernel
+    (one launch a call), equal to the plain versions' autograd on the
+    CPU within 1e-5 of the largest gradient."""
+    from repro_torch.kernels.flash_attention_kernel import (
+        flash_attention_bwd_cuda,
+    )
+
+    rng = np.random.default_rng(7)
+    for causal, sk in ((True, 96), (False, 200)):
+        q = rng.normal(size=(2, 2, 96, 3, 32)).astype(np.float32)
+        k = rng.normal(size=(2, 2, sk, 32)).astype(np.float32)
+        v = rng.normal(size=(2, 2, sk, 32)).astype(np.float32)
+        grads = []
+        for dev in (card, torch.device("cpu")):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                  for a in (q, k, v)]
+            f = (lambda *t: ops.flash_attention(*t, causal=True)) if causal \
+                else ops.full_attention
+            before = flash_attention_bwd_cuda.launches
+            loss = (f(*ts) ** 2).sum()
+            grads.append([g.cpu() for g in torch.autograd.grad(loss, ts)])
+            if dev == card:
+                assert flash_attention_bwd_cuda.launches == before + 1
+        for a, w in zip(*grads):
+            assert ((a - w).abs().max() / w.abs().max()).item() <= 1e-5
+
+
+def test_attention_kernels_refuse_a_gradient_they_would_drop(card):
+    """`flash_attention_cuda` (the bare forward launch) and the decode
+    kernel raise on an input that requires a gradient under grad mode,
+    and run under `no_grad`."""
+    rng = np.random.default_rng(3)
+    q, k, v = _model_views(rng, card, 1, 64, 2, 2, 16, torch.float32)
+    qg = q.detach().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(qg, k, v, True)
+    qd = torch.zeros((1, 2, 2, 16), device=card, requires_grad=True)
+    kd = torch.zeros((1, 2, 8, 16), device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(qd, kd, kd, 4)
+    with torch.no_grad():
+        flash_attention_cuda(qg, k, v, True)
+        ops.decode_attention(qd, kd, kd, 4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen3-moe-235b-a22b",
+                                  "whisper-large-v3", "llava-next-mistral-7b",
+                                  "jamba-v0.1-52b", "xlstm-350m"])
+def test_train_step_card_against_cpu(card, arch):
+    """One `make_train_step` step of the smoke config in float32 on the
+    card and the CPU (`chip_smoke.py`'s `train_step_card_vs_cpu`, which
+    raises): losses and grad norm within 1e-5 relative (MoE and xlstm: as
+    `losses_agree` says), parameters within 1e-5 where the gradient
+    exceeds 100 eps, kernel 6 and its backward once per attention call."""
+    gaps = CS.train_step_card_vs_cpu(card, CS.counters(), arch)
+    assert gaps["rel"] <= 1e-3

@@ -338,7 +338,7 @@ def test_ported_examples_import_only_the_port():
                           str(examples)], capture_output=True, text=True,
                          env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == 4
+    assert int(out.stdout.strip()) == 5  # distributed_train among them
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     hits = [f"{f}:{i}" for f in sorted(examples.glob("*.py"))
             for i, line in enumerate(f.read_text().splitlines(), 1)

@@ -86,11 +86,6 @@ def test_adamw_matches_reference(weight_decay):
         assert moved["sigma/0/b"] and moved["hash/level_0"]
 
 
-def test_adamw_quantized_moments_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        topt.adamw_init({"w": torch.zeros(2)}, moment_dtype="int8")
-
-
 @pytest.mark.parametrize("max_norm", [1e-3, 10.0, 1e6])
 def test_clip_by_global_norm_matches_reference(max_norm):
     tree = _tree(4)
