@@ -3596,7 +3596,11 @@ def phase_flash_backward(dev):
     """(d): the backward kernel against `flash_attention_bwd_plain` at
     every shape of `train_shapes()`, on the forward kernel's output and
     log-sum-exp (the plain version's from the same), within BWD_TOL; the
-    LSE against `attention_lse_plain` within 1e-5; then, at each bf16
+    LSE against `attention_lse_plain` within 1e-5; at each bf16 shape
+    also against the float32 gradient (autograd of
+    `flash_attention_plain` in f32 on the same inputs) within the same
+    BWD_TOL, which bounds what the tensor-core route's bf16 rounding
+    costs against the true gradient; then, at each bf16
     shape, the kernel timed beside the plain version, its bound, the
     forward and backward kernels back to back, and SDPA's forward plus
     backward (`enable_gqa`, a yardstick only). The entry's plain numbers
@@ -3606,6 +3610,7 @@ def phase_flash_backward(dev):
         flash_attention_bwd_cuda as kernel,
         flash_attention_bwd_plain as plain,
         flash_attention_cuda,
+        flash_attention_plain,
     )
 
     gen = torch.Generator(device=dev).manual_seed(24)
@@ -3639,6 +3644,19 @@ def phase_flash_backward(dev):
             worst_f32 = max(worst_f32, abs_err)
             continue
         worst = max(worst, abs_err)
+        qf, kf, vf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        exact = torch.autograd.grad(flash_attention_plain(qf, kf, vf, causal),
+                                    (qf, kf, vf), do)
+        del qf, kf, vf
+        err32 = max(((a.float() - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(got, exact))
+        del exact
+        print(f"  against the float32 gradient: max |diff| / max |grad| "
+              f"{err32:.3g} (tolerance {BWD_TOL[dtype]})")
+        if not err32 <= BWD_TOL[dtype]:
+            raise AssertionError(f"flash backward {name}: {err32} from the "
+                                 f"float32 gradient")
         H = Hkv * G
         qs = q.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).transpose(1, 2)
         dos = do.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd) \
@@ -3669,8 +3687,8 @@ def phase_flash_backward(dev):
         print(f"  kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}), forward + backward kernels "
               f"{t_fb:.4f} ms, SDPA forward + backward {t_l:.4f} ms")
-        timed[name] = dict(err=abs_err, rel=err, ms=t_k, plain_ms=t_p,
-                           bnd=bnd,
+        timed[name] = dict(err=abs_err, rel=err, rel32=err32, ms=t_k,
+                           plain_ms=t_p, bnd=bnd,
                            library_ms=t_l, fwd_bwd_ms=t_fb, call_ms=t_c)
     main = timed["qwen2"]
     e = entry("flash_attention_bwd",
@@ -3680,12 +3698,14 @@ def phase_flash_backward(dev):
               worst, main["ms"], main["plain_ms"], main["bnd"],
               main["library_ms"], main["call_ms"],
               fwd_bwd_ms=main["fwd_bwd_ms"], max_abs_err_f32=worst_f32,
-              max_err_over_max_grad=main["rel"])
+              max_err_over_max_grad=main["rel"],
+              max_err_over_max_grad_f32_gradient=main["rel32"])
     for name, t in timed.items():
         if name == "qwen2":
             continue
         e.update({f"max_abs_err_{name}": t["err"],
                   f"max_err_over_max_grad_{name}": t["rel"],
+                  f"max_err_over_max_grad_f32_gradient_{name}": t["rel32"],
                   f"ms_{name}": t["ms"],
                   f"plain_ms_{name}": t["plain_ms"],
                   f"bound_ms_{name}": t["bnd"][0],
@@ -3863,6 +3883,53 @@ def qwen2_run(dev, kern, moment_dtype: str):
     return params, opt, step, batch, dict(rows=rows, launches=launches)
 
 
+def print_attention_shares(by_name, busy: float) -> None:
+    """Kernel 6's forward and its backward's three kernels in a profiled
+    train step: device ms, launches, share of the step's device time."""
+    for part, label in (("flash_tc_kernel", "forward kernel"),
+                        ("bwd_dkdv", "backward dK/dV"),
+                        ("bwd_dq", "backward dQ"),
+                        ("bwd_delta", "backward D")):
+        n, t = by_name_sum(by_name, part)
+        print(f"  {label}: {t:.3f} ms over {n} launches, "
+              f"{100.0 * t / busy:.1f} % of the step's device time")
+
+
+def profile_whisper(dev):
+    """One whisper-large-v3 train step at (a)'s config (the seed-0 weights,
+    the pipeline's first batch), profiled after one unprofiled step: where
+    the step's device time goes, the attention kernels' share of it."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_batch_fn
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    spec = get_arch("whisper-large-v3")
+    model = spec.model
+    seq, accum = int(WHISPER_TRAIN[3]), int(WHISPER_TRAIN[7])
+    mb = int(WHISPER_TRAIN[5]) // accum
+    params = lm.init_params(model, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    opt = adamw_init(params, moment_dtype=spec.moment_dtype)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, weight_decay=0.1),
+                           moment_dtype=spec.moment_dtype)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=model.vocab_size, seq_len=seq, global_batch=mb, seed=0))
+    b = build_batch_fn(model, pipe, accum, mb, dev)()
+    params, opt, _ = step(params, opt, b)
+    busy, by_name, _ = profile(f"whisper-large-v3 train step ({accum} x "
+                               f"{mb} x {seq} tokens)",
+                               lambda: step(params, opt, b))
+    print_attention_shares(by_name, busy)
+    del params, opt, step, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_qwen2(dev, kern):
     """(b): `qwen2_run` with int8 moments (the run whose launches count),
     one more step of it profiled for the kernels' device time; then the
@@ -3875,13 +3942,7 @@ def train_qwen2(dev, kern):
     b = batch()
     busy, by_name, _ = profile("qwen2-7b 2-layer train step",
                                lambda: step(params, opt, b))
-    for part, label in (("flash_tc_kernel", "forward kernel"),
-                        ("bwd_dkdv", "backward dK/dV"),
-                        ("bwd_dq", "backward dQ"),
-                        ("bwd_delta", "backward D")):
-        n, t = by_name_sum(by_name, part)
-        print(f"  {label}: {t:.3f} ms over {n} launches, "
-              f"{100.0 * t / busy:.1f} % of the step's device time")
+    print_attention_shares(by_name, busy)
     del params, opt, step, b
     gc.collect()
     torch.cuda.empty_cache()
@@ -4100,9 +4161,9 @@ def train_step_card_vs_cpu(dev, kern, arch: str):
 
 
 def train_phase(dev, kern):
-    """Phase 13: (d) the backward kernel's checks and times, (a) whisper,
-    (b) qwen2-7b, (c) the ten smoke configs card vs CPU and the int8
-    moments card vs CPU. Returns (the
+    """Phase 13: (d) the backward kernel's checks and times, (a) whisper
+    and one of its steps profiled, (b) qwen2-7b, (c) the ten smoke
+    configs card vs CPU and the int8 moments card vs CPU. Returns (the
     backward's kernels entry, {run: launches})."""
     from repro_torch.configs import ARCH_IDS
 
@@ -4110,6 +4171,7 @@ def train_phase(dev, kern):
     bwd_entry = phase_flash_backward(dev)
     print(f"  backward kernel checks: {time.perf_counter() - t0:.2f} s")
     runs = {"train_whisper": train_whisper(dev, kern)}
+    profile_whisper(dev)
     runs["train_qwen2"] = train_qwen2(dev, kern)
     t1 = time.perf_counter()
     for arch in ARCH_IDS:
@@ -4129,7 +4191,8 @@ DETAIL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
 # Kernels whose tensor-core (HGMMA, HMMA, IMMA) and cp.async (LDGSTS)
 # instructions are counted in the SASS.
 SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_kernel",
-                "qmm_packed_kernel", "qmm_kernel")
+                "qmm_packed_kernel", "qmm_kernel", "bwd_dkdv_tc_kernel",
+                "bwd_dq_tc_kernel")
 
 
 def print_ptxas(log: str) -> None:
@@ -4179,14 +4242,15 @@ def sass_counts(lib) -> dict:
 
 
 def print_tensor_core_ops(lib) -> None:
-    """Print the SASS counts; the bf16 flash kernel must hold HGMMA, and
-    both quantized matmuls an s8 tensor-core instruction (IMMA or
-    HGMMA)."""
+    """Print the SASS counts; the bf16 flash kernels (the forward, the
+    backward's dK/dV and dQ) must hold HGMMA, and both quantized matmuls
+    an s8 tensor-core instruction (IMMA or HGMMA)."""
     counts = sass_counts(lib)
     for (kernel, op), n in sorted(counts.items()):
         print(f"  SASS {kernel}: {n} {op}")
-    if not counts.get(("flash_tc_kernel", "HGMMA")):
-        raise AssertionError("the bf16 flash kernel's SASS holds no HGMMA")
+    for k in ("flash_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel"):
+        if not counts.get((k, "HGMMA")):
+            raise AssertionError(f"the bf16 {k}'s SASS holds no HGMMA")
     for k in ("qmm_packed_kernel", "qmm_kernel"):
         if (k, "LDGSTS") not in counts:
             raise AssertionError(f"no {k} in the library's SASS")

@@ -50,6 +50,8 @@
 //   thread, 97 KB of shared memory a block), so one block's softmax runs
 //   while the other's products do: at the serve shapes on an NVIDIA H100
 //   80GB HBM3 (700 W) that is 1.2x faster than one block of 168 registers.
+//   The copies, swizzled panels, descriptors and wgmma forms are in
+//   wgmma_tile.cuh, shared with the backward (flash_attention_bwd.cu).
 // - float32: `flash_f32_kernel`, products on the CUDA cores in f32 out of
 //   shared memory (a 4 x 4 score and a 4 x 8 output micro-tile per
 //   thread). TF32 tensor cores would miss the float32 band (1e-4) that
@@ -67,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_tile.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;
@@ -82,108 +86,10 @@ struct Strides {
 constexpr int TC_ROWS = 128;              // query rows a block: 2 x 64
 constexpr int TC_KEYS = 64;               // keys a tile
 constexpr int TC_THREADS = 256;           // 2 warpgroups
-constexpr int PANEL = 64 * 128;           // 64 rows x 128 bytes (64 bf16)
 constexpr int Q_BYTES = 2 * 2 * PANEL;    // [warpgroup][hd panel] panels
 constexpr int KV_BYTES = 2 * PANEL;       // one K or V tile: 2 hd panels
 constexpr int STAGE_BYTES = 2 * KV_BYTES; // K then V
 constexpr int TC_SMEM = Q_BYTES + 2 * STAGE_BYTES + 1024;  // + alignment
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; only `bytes` (0..16) are read, the rest
-// of the 16 is zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Byte offset of 16-byte chunk `c` (0..15) of row `r` in a [rows][128]
-// tile stored as 128-byte-swizzled panels of 64 columns (the layout that
-// TMA's SWIZZLE_128B writes and wgmma's 128B descriptors read).
-__device__ __forceinline__ uint32_t swz(int r, int c, int panel_bytes) {
-  return (c >> 3) * panel_bytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo,
-                                           uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define F8(a, i)                                                        \
-  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),           \
-      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
-
-// d (64 x 64 f32) (+)= A (64 x 16, K-major in shared memory) *
-// B (16 x 64, K-major in shared memory).
-__device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t da,
-                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128 f32) += A (64 x 16 bf16, registers) * B (16 x 128, MN-major
-// in shared memory: the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_64x128(float (&d)[64],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
-        F8(d, 48), F8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x by the special-function unit (ex2.approx: relative error ~2^-22,
-// 2^(-1e30) = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // a / d correctly rounded, from r = 1 / d (correctly rounded): q = a r,
 // then one fused multiply-add on the exact remainder a - d q (Markstein's
@@ -193,28 +99,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ float quot(float a, float d, float r) {
   const float q = __fmul_rn(a, r);
   return fmaf(fmaf(-d, q, a), r, q);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Rows [0, 64) of a (rows, hd) operand at `src` (row stride `rs` elements)
-// into a 64 x 128 swizzled tile at `dst`; rows >= n_rows and columns >= hd
-// are zero-filled. 256 threads, 4 chunks each, 16 threads a row.
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long rs, int n_rows, int hd,
-                                          int tid) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = tid + i * TC_THREADS;
-    const int r = e >> 4, c = e & 15;
-    const int bytes = r < n_rows ? min(16, max(0, (hd - c * 8) * 2)) : 0;
-    const __nv_bfloat16* p = bytes ? src + r * rs + c * 8 : src;
-    cp_async16(dst + swz(r, c, PANEL), p, bytes);
-  }
 }
 
 __global__ void __launch_bounds__(TC_THREADS, 2)
@@ -251,14 +135,14 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* p = bytes ? qb + s * qs.s + g * qs.g + c * 8 : qb;
     cp_async16(sQ + (r >> 6) * 2 * PANEL + swz(r & 63, c, PANEL), p, bytes);
   }
-  load_tile(sKV, kb, ks.s, Sk, hd, tid);
-  load_tile(sKV + KV_BYTES, vb, vs.s, Sk, hd, tid);
+  load_tile<TC_THREADS>(sKV, kb, ks.s, Sk, hd, tid);
+  load_tile<TC_THREADS>(sKV + KV_BYTES, vb, vs.s, Sk, hd, tid);
   cp_async_commit();
   if (n_tiles > 1) {
-    load_tile(sKV + STAGE_BYTES, kb + TC_KEYS * ks.s, ks.s, Sk - TC_KEYS, hd,
-              tid);
-    load_tile(sKV + STAGE_BYTES + KV_BYTES, vb + TC_KEYS * vs.s, vs.s,
-              Sk - TC_KEYS, hd, tid);
+    load_tile<TC_THREADS>(sKV + STAGE_BYTES, kb + TC_KEYS * ks.s, ks.s,
+                          Sk - TC_KEYS, hd, tid);
+    load_tile<TC_THREADS>(sKV + STAGE_BYTES + KV_BYTES, vb + TC_KEYS * vs.s,
+                          vs.s, Sk - TC_KEYS, hd, tid);
   }
   cp_async_commit();
 
@@ -363,8 +247,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     if (t + 2 < n_tiles) {
       const int k2 = (t + 2) * TC_KEYS;
-      load_tile(sK, kb + k2 * ks.s, ks.s, Sk - k2, hd, tid);
-      load_tile(sV, vb + k2 * vs.s, vs.s, Sk - k2, hd, tid);
+      load_tile<TC_THREADS>(sK, kb + k2 * ks.s, ks.s, Sk - k2, hd, tid);
+      load_tile<TC_THREADS>(sV, vb + k2 * vs.s, vs.s, Sk - k2, hd, tid);
     }
     cp_async_commit();  // (possibly empty: keeps the group count in step)
   }

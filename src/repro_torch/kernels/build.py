@@ -39,7 +39,7 @@ SOURCES = (
     "flash_attention_bwd.cu",
     "decode_attention.cu",
 )
-HEADERS = ("qmm_tile.cuh",)  # included by sources; part of the build's hash
+HEADERS = ("qmm_tile.cuh", "wgmma_tile.cuh")  # included by sources; hashed
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -82,12 +82,12 @@ SIGNATURES: Dict[str, List] = {
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _L, _L, _L, _L, _I, _F, _I, _P],
-    # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, Hkv, S, Sk, G,
-    # hd, 28 strides (q, k, v, o, dO, dq, dk, dv), causal, scale, dtype,
-    # stream
+    # q, k, v, o, dO, lse, delta (scratch), dO in bf16 (scratch, or null
+    # in float32), dq, dk, dv, B, Hkv, S, Sk, G, hd, 28 strides (q, k, v,
+    # o, dO, dq, dk, dv), causal, scale, dtype, stream
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _LP, _I, _F, _I,
-                                  _P],
+                                  _P, _I, _I, _I, _I, _I, _I, _LP, _I, _F,
+                                  _I, _P],
     # q, k, v, length (device pointer or null), length (by value), out,
     # m_part, l_part, acc_part, tickets, B, Hkv, G, S, hd, q strides
     # (b, h, g), k strides (b, h, s), v strides (b, h, s), split, scale,

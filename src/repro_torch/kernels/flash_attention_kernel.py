@@ -180,11 +180,16 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     block; no atomics, so the result is the same bits every run):
     (dq, dk, dv) in the inputs' dtype, laid out as q, k and v are. `out`
     and `lse` are the forward's; `dout` is f32 with `out`'s shape. Raises
-    on anything the kernel does not take."""
+    on anything the kernel does not take; in bfloat16 (the tensor-core
+    route) that includes a q, k or v whose start or strides are not
+    16-byte aligned, as in the forward."""
     _check(q, k, v, causal)
     dev = q.device
     B, Hkv, S, G, hd = q.shape
     Sk = k.shape[2]
+    if q.dtype == torch.bfloat16:
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            require_aligned(t, name)
     require_rows(out, "out", torch.float32, 5, dev)
     require_rows(dout, "dout", torch.float32, 5, dev)
     require(lse, "lse", torch.float32, 4, dev)
@@ -195,12 +200,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(q.shape)}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, Hkv, S, G), dtype=torch.float32, device=dev)
+    dob = None  # the tensor-core route's scratch: dO rounded to bf16
+    if q.dtype == torch.bfloat16:
+        dob = torch.empty((B, Hkv, S * G, (hd + 7) // 8 * 8),
+                          dtype=torch.bfloat16, device=dev)
     strides = [t.stride(i) for t, n in ((q, 4), (k, 3), (v, 3), (out, 4),
                                         (dout, 4), (dq, 4), (dk, 3), (dv, 3))
                for i in range(n)]
     launch("repro_flash_attention_bwd", dev, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           delta.data_ptr(), None if dob is None else dob.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
            B, Hkv, S, Sk, G, hd, (ctypes.c_longlong * 28)(*strides),
            int(bool(causal)), 1.0 / math.sqrt(hd), _DTYPES[q.dtype])
     count_launch(flash_attention_bwd_cuda)

@@ -1244,7 +1244,14 @@ def test_other_block_families_card_against_cpu(card, arch):
 # ---------------------------------------------------------------------------
 BWD_CASES = [(1, 1, 1, 37, 37, 16, True), (2, 2, 3, 130, 130, 64, True),
              (2, 4, 7, 100, 100, 128, True), (1, 2, 2, 65, 65, 32, False),
-             (2, 3, 1, 20, 1001, 64, False), (1, 2, 7, 129, 64, 128, False)]
+             (2, 3, 1, 20, 1001, 64, False), (1, 2, 7, 129, 64, 128, False),
+             # whisper's cross and encoder shapes: a 28-key last tile
+             (1, 2, 1, 128, 1500, 64, False),
+             (1, 2, 1, 1500, 1500, 64, False),
+             # qwen2-7b's grouping: S * G (511, 7,168) off the 64-row tile
+             (1, 2, 7, 73, 73, 128, True), (1, 2, 7, 1024, 1024, 128, True),
+             # head dims padded to 64 and 128 in shared memory
+             (2, 2, 3, 100, 100, 48, True), (1, 2, 2, 90, 200, 96, False)]
 
 
 @pytest.mark.parametrize("b,hkv,g,sq,sk,hd,causal", BWD_CASES)
@@ -1278,6 +1285,44 @@ def test_flash_attention_backward_kernel_close(card, b, hkv, g, sq, sk, hd,
         assert err <= tol
     again = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
     assert all(torch.equal(a, x) for a, x in zip(got, again))
+
+
+def test_flash_attention_backward_bf16_refuses_unaligned_views(card):
+    """The backward's tensor-core route copies 16-byte pieces of q, k and
+    v rows, as the forward does: a view that starts off a 16-byte boundary
+    or has a stride that is not a multiple of 8 elements raises before any
+    launch; float32 keeps the CUDA-core route, which takes any strides."""
+    from repro_torch.kernels.flash_attention_kernel import (
+        flash_attention_bwd_cuda,
+        flash_attention_bwd_plain,
+    )
+
+    B, S, Hkv, G, hd = 1, 64, 2, 2, 16
+    rng = np.random.default_rng(7)
+    q, k, v = _model_views(rng, card, B, S, Hkv, G, hd, torch.bfloat16)
+    out = torch.zeros((B, Hkv, S, G, hd), device=card)
+    lse = torch.zeros((B, Hkv, S, G), device=card)
+    do = torch.zeros_like(out)
+    flat = torch.zeros(B * S * Hkv * hd + 1, dtype=torch.bfloat16,
+                       device=card)
+    shifted = flat[1:].view(B, S, Hkv, hd).permute(0, 2, 1, 3)  # 2-byte start
+    wide = torch.zeros((B, S, Hkv, hd + 4), dtype=torch.bfloat16, device=card)
+    odd = wide[..., :hd].permute(0, 2, 1, 3)  # h-stride 20: not 16 bytes
+    n = flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_cuda(q, shifted, v, out, lse, do)
+    with pytest.raises(ValueError, match="stride"):
+        flash_attention_bwd_cuda(q, k, odd, out, lse, do)
+    assert flash_attention_bwd_cuda.launches == n
+    widef = torch.randn((B, S, Hkv, hd + 3), device=card)
+    qf, kf = q.float(), widef[..., :hd].permute(0, 2, 1, 3)  # h-stride 19
+    lsef = torch.empty((B, Hkv, S, G), device=card)
+    outf = flash_attention_cuda(qf, kf, kf, True, lsef)
+    dof = torch.randn((B, Hkv, S, G, hd), device=card)
+    got = flash_attention_bwd_cuda(qf, kf, kf, outf, lsef, dof)
+    want = flash_attention_bwd_plain(qf, kf, kf, outf, lsef, dof)
+    for a, w in zip(got, want):
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 1e-5
 
 
 def test_gradient_flows_through_the_attention_kernels(card):

@@ -101,6 +101,12 @@ ATTN_CASES = [  # (causal, Sq, Sk, Hkv, G, hd)
     (False, 48, 48, 1, 2, 16),
     (False, 20, 45, 2, 2, 64),  # cross-attention: Sq != Sk
     (False, 70, 13, 1, 7, 16),
+    # the edges of the card's tensor-core backward: a key length off its
+    # 64-key tile, S * G (511) off its 64-row tile, padded head dims
+    (False, 20, 70, 2, 1, 64),
+    (True, 40, 40, 1, 3, 48),
+    (True, 73, 73, 1, 7, 128),
+    (False, 30, 70, 2, 2, 96),
 ]
 
 
