@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's NeRF training, the HERO search, its
 search -> compile -> serve pipeline, its two serving paths, the LM
 quantization search, the LM stack's other block families and LM
-training on one NVIDIA GPU.
+training, unplaced and placed over a one-rank mesh, on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, and exits non-zero, printing no result, without
@@ -228,6 +228,23 @@ Phases, each of which raises on failure:
    moments on the card against the CPU (losses and grad norms within
    1e-5, the moments' scales within 1e-5 and their values within one
    code step).
+14. Placement: a one-rank NCCL process group (a ``FileStore`` in a
+   temporary directory) and the mesh (1, 1) over it, which takes the
+   placed path (DTensor parameters and moments, the gather, the
+   reduce-scatter onto the accumulator's blocks, the norm and the int8
+   row scales reduced over the mesh): qwen2-7b at published width cut to
+   2 layers, f32 moments, PLACED_STEPS (3) steps of (b)'s batches placed
+   and unplaced
+   from the same weights, the first step's parameters and moments and
+   every step's loss and grad norm bit-equal, kernel 6 and its backward
+   launched by the placed steps (counts zeroed around them), the ms a
+   step each way (the median after the first) and peak memory, one more
+   step each way profiled (device time; the placed one's NCCL ranges and
+   device-to-device copies: at one rank DTensor's gather and
+   reduce-scatter move nothing, the loss's and norm's all-reduces reach
+   NCCL); then qwen2-7b's smoke config
+   with int8 moments placed and unplaced, bit-equal, and its placed
+   checkpoint (rank 0 writes) restored unplaced, bit-equal.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, and for the backward phase 13's whisper run, ``launches_revisit`` from the revisit stream,
@@ -238,7 +255,8 @@ PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_distributed`` from the thread-pool sweep,
 ``launches_lm_search`` from the LM closed loop,
 ``launches_serve_{whisper,llava,xlstm,jamba}`` from phase 12's serves,
-``launches_train_{whisper,qwen2}`` from phase 13's runs;
+``launches_train_{whisper,qwen2}`` from phase 13's runs,
+``launches_placed`` from phase 14's placed steps;
 the flash entry also carries the phase 12 shapes' numbers under
 ``*_{whisper_enc,cross_served,cross,ragged,cross_ragged,whisper_dec,
 llava_jamba}`` and the decode entry under
@@ -2261,7 +2279,11 @@ def answer(svc, requests):
 def profile(label: str, fn) -> None:
     """Run `fn` once under `torch.profiler` and print where its time went:
     wall time, device kernel time (busy share), launches, and the kernels
-    that took the most device time."""
+    that took the most device time. Ranges that a `record_function`
+    annotates on the device's timeline (NCCL's `nccl:*`) span kernels or
+    copies that are counted already: they are returned apart, {name:
+    (count, ms)} under "annotations", and add nothing to the device
+    time."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -2271,8 +2293,15 @@ def profile(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device
+               if not getattr(e, "is_user_annotation", False)]
+    annotations = {}
+    for e in device:
+        if getattr(e, "is_user_annotation", False):
+            n, t = annotations.get(e.name, (0, 0.0))
+            annotations[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3  # ms
     print(f"profiled {label}: wall {wall * 1e3:.2f} ms, device kernel time "
           f"{busy:.2f} ms ({100.0 * busy / (wall * 1e3):.1f} % busy), "
@@ -2284,7 +2313,8 @@ def profile(label: str, fn) -> None:
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {t:8.3f} ms {n:5d}x {name[:90]}")
     return busy, by_name, {"events": len(kernels), "device_ms": busy,
-                           "wall_ms": wall * 1e3}
+                           "wall_ms": wall * 1e3,
+                           "annotations": annotations}
 
 
 NERF_KERNELS = ("quant_matmul_packed", "hash_encode", "gather_composite",
@@ -4182,6 +4212,252 @@ def train_phase(dev, kern):
     return bwd_entry, runs
 
 
+# Phase 14: the train step placed over a one-rank NCCL mesh (1, 1), the
+# placed path itself (DTensor parameters and moments, DTensor's gather
+# and its redistribution of the gradients onto the accumulator's blocks,
+# the norm and the int8 row scales reduced over the mesh), held bit-equal
+# to the unplaced step:
+# phase 13's (b) at f32 moments (PLACED_STEPS steps, the first one's
+# state compared, the median of the others timed, one more profiled), then
+# INT8_STEPS steps of qwen2-7b's smoke config with int8 moments and a
+# placed checkpoint restored unplaced.
+PLACED_STEPS = 3
+
+
+def same_bits(label, got, want) -> None:
+    """Every leaf of `got` (placed or not; gathered to the host one leaf
+    at a time) bit-equal to the host tree `want`."""
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.tree_util import leaves_with_path
+
+    w = dict(leaves_with_path(want))
+    g = leaves_with_path(got)
+    if [k for k, _ in g] != list(w):
+        raise AssertionError(f"{label}: the trees differ")
+    bad = [k for k, t in g if not torch.equal(full_tensor(t).cpu(), w[k])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves differ, "
+                             f"{bad[:4]}")
+
+
+def placed_state(model, mesh, moment_dtype, params):
+    """(placed params, placed zero moments, the step) from whole
+    `params`, by the pruned specs of `mesh`."""
+    from repro_torch.distributed.sharding import (
+        ShardingConfig,
+        blocks,
+        from_blocks,
+        named,
+        param_pspecs,
+        place,
+    )
+    from repro_torch.launch.steps import make_train_step, opt_state_pspecs
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    pspec = param_pspecs(params, ShardingConfig(), mesh)
+    p = place(params, named(mesh, pspec))
+    o = from_blocks(adamw_init(blocks(p), moment_dtype),
+                    named(mesh, opt_state_pspecs(pspec, moment_dtype)))
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, weight_decay=0.1),
+                           moment_dtype=moment_dtype, grad_pspecs=pspec,
+                           mesh=mesh)
+    return p, o, step
+
+
+def collective_time(by_name, annotations):
+    """(device ms, events) of the profiled NCCL ranges (annotations that
+    span the collectives' kernels or copies) and of the device-to-device
+    copies (a one-rank NCCL collective moves its data as one)."""
+    nccl = [v for n, v in {**by_name, **annotations}.items()
+            if "nccl" in n.lower()]
+    copies = [v for n, v in by_name.items() if "dtod" in n.lower()]
+    return (sum(t for _, t in nccl), sum(n for n, _ in nccl),
+            sum(t for _, t in copies), sum(n for n, _ in copies))
+
+
+def placed_qwen2(dev, kern, mesh):
+    """qwen2-7b at published width cut to 2 layers, f32 moments, phase
+    13's batches: PLACED_STEPS unplaced steps, the first step's state to
+    the host; the same steps placed over `mesh`, counts zeroed around
+    them; the first step's state and every step's loss and grad norm
+    bit-equal. Prints each way's ms a step (the median after the first)
+    and peak memory, and one more step each way profiled: device time,
+    and the placed one's collectives. Returns the placed steps'
+    launches."""
+    import gc
+
+    from repro_torch.checkpoint.checkpoint import to_host
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    model = dataclasses.replace(get_arch("qwen2-7b").model,
+                                n_layers=QWEN_TRAIN_LAYERS)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=model.vocab_size, seq_len=QWEN_SEQ,
+        global_batch=QWEN_MB))
+    batches = [{"tokens": torch.from_numpy(np.stack(
+        [pipe.batch() for _ in range(QWEN_ACCUM)])).to(dev)}
+        for _ in range(PLACED_STEPS)]
+    weights = lambda: lm.init_params(  # noqa: E731
+        model, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def run(step, state, first=None):
+        """PLACED_STEPS steps from `state`, a list [params, opt state]
+        that it empties, so that the first step's inputs are freed as
+        the step replaces them, as in a training loop."""
+        p, o = state
+        state.clear()
+        torch.cuda.reset_peak_memory_stats()
+        rows, ms = [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0 and first is not None:
+                first(p, o)
+        return p, o, rows, ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    held = {}
+    state = [weights()]
+    state.append(adamw_init(state[0], "float32"))
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, weight_decay=0.1),
+                           moment_dtype="float32")
+    p, o, rows_u, ms_u, peak_u = run(
+        step, state, lambda p, o: held.update(s=to_host((p, o))))
+    busy_u = profile("unplaced qwen2-7b 2-layer train step",
+                     lambda: step(p, o, batches[0]))[0]
+    del p, o, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    *state, step = placed_state(model, mesh, "float32", weights())
+    zeroed(kern)
+    p, o, rows_p, ms_p, peak_p = run(
+        step, state, lambda p, o: same_bits("the placed qwen2-7b step",
+                                            (p, o), held.pop("s")))
+    launches = read(kern)
+    print(f"qwen2-7b at published width, {QWEN_TRAIN_LAYERS} layers, f32 "
+          f"moments, placed over a one-rank NCCL mesh {mesh.shape}: "
+          f"{PLACED_STEPS} steps of {QWEN_ACCUM} x {QWEN_MB} x {QWEN_SEQ} "
+          f"tokens, ms a step placed " + ", ".join(f"{t:.2f}" for t in ms_p)
+          + f" (median after the first {float(np.median(ms_p[1:])):.2f}, "
+          f"peak {peak_p:.2f} GiB), unplaced "
+          + ", ".join(f"{t:.2f}" for t in ms_u)
+          + f" (median after the first {float(np.median(ms_u[1:])):.2f}, "
+          f"peak {peak_u:.2f} GiB)"
+          + "; loss, grad norm " + "; ".join(
+              f"{l:.6f}, {g:.4f}" for l, g in rows_p)
+          + "; the first step's parameters and moments bit-equal")
+    if rows_p != rows_u:
+        raise AssertionError(f"the placed steps' metrics differ: {rows_p} "
+                             f"against {rows_u}")
+    check_train_launches("the placed qwen2-7b steps", launches,
+                         train_launches(model, QWEN_ACCUM * PLACED_STEPS))
+    busy, by_name, stats = profile("placed qwen2-7b 2-layer train step",
+                                   lambda: step(p, o, batches[0]))
+    t_n, n_n, t_c, n_c = collective_time(by_name, stats["annotations"])
+    print(f"  collectives: NCCL ranges {t_n:.3f} ms over {n_n} events, "
+          f"device-to-device copies {t_c:.3f} ms over {n_c} events "
+          f"({100.0 * t_c / busy:.1f} % of the step's device time); "
+          f"device time placed {busy:.2f} ms, unplaced {busy_u:.2f} ms")
+    print_attention_shares(by_name, busy)
+    del p, o, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def placed_smoke_int8(dev, mesh, tmp):
+    """qwen2-7b's smoke config with int8 moments, INT8_STEPS steps of
+    SMOKE batches placed over `mesh` and unplaced on the card: metrics,
+    parameters, codes and scales bit-equal. Then the placed state is
+    saved (`CheckpointManager`, rank 0 writes), restored unplaced
+    (`launch.train.restore_state`) and held bit-equal to it."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import to_host
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import checkpoint_state, restore_state
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_arch(INT8_ARCH).smoke
+    rng = np.random.default_rng(41)
+    batches = []
+    for _ in range(INT8_STEPS):
+        parts = [item8_batch(cfg, rng, SMOKE_MB, SMOKE_SEQ)
+                 for _ in range(SMOKE_ACCUM)]
+        batches.append({k: torch.from_numpy(np.stack([q[k] for q in parts]))
+                        .to(dev) for k in parts[0]})
+    weights = lambda: lm.init_params(  # noqa: E731
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p = weights()
+    o = adamw_init(p, "int8")
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, weight_decay=0.1),
+                           moment_dtype="int8")
+    rows_u, rows_p = [], []
+    for b in batches:
+        p, o, m = step(p, o, b)
+        rows_u.append((float(m["loss"]), float(m["grad_norm"])))
+    want = to_host((p, o))
+    p, o, step = placed_state(cfg, mesh, "int8", weights())
+    for b in batches:
+        p, o, m = step(p, o, b)
+        rows_p.append((float(m["loss"]), float(m["grad_norm"])))
+    if rows_p != rows_u:
+        raise AssertionError(f"{INT8_ARCH} smoke, int8 moments: the placed "
+                             f"metrics {rows_p} differ from {rows_u}")
+    same_bits(f"{INT8_ARCH} smoke placed, int8 moments", (p, o), want)
+    ckpt = Path(tmp) / "placed_ckpt"
+    mgr = CheckpointManager(ckpt, async_write=True)
+    mgr.save(INT8_STEPS, checkpoint_state(p, o, cfg),
+             {"train_step": INT8_STEPS})
+    mgr.close()
+    like_o = adamw_init(weights(), "int8")
+    (rp, ro), extra = restore_state(ckpt, weights(), like_o, cfg, dev)
+    if extra != {"train_step": INT8_STEPS}:
+        raise AssertionError(f"the placed checkpoint's extra: {extra}")
+    same_bits("the placed checkpoint restored unplaced", (rp, ro), want)
+    print(f"{INT8_ARCH} smoke, int8 moments, {INT8_STEPS} steps placed over "
+          f"{mesh.shape} and unplaced on the card: loss, grad norm "
+          + "; ".join(f"{l:.6f}, {g:.6f}" for l, g in rows_p)
+          + "; parameters, codes and scales bit-equal; the placed "
+          "checkpoint restored unplaced bit-equal")
+
+
+def placement_phase(dev, kern):
+    """Phase 14: a one-rank NCCL process group (rendezvous through a
+    `FileStore` in a temporary directory), the placed mesh (1, 1), the
+    two checks above; the group is destroyed after them. Returns
+    {"placed": the placed qwen2-7b steps' launches}."""
+    import os
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: loopback
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(dev, rank=0, world_size=1,
+                         store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            if not mesh.placed:
+                raise AssertionError("the one-rank mesh is not placed")
+            launches = placed_qwen2(dev, kern, mesh)
+            placed_smoke_int8(dev, mesh, tmp)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 14 (placement): {time.perf_counter() - t0:.2f} s")
+    return {"placed": launches}
+
+
 # Sources whose ptxas lines are printed in full (kernel names, stack and
 # spill bytes, wgmma notes); for the others only the register counts.
 DETAIL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
@@ -4404,6 +4680,7 @@ def main() -> int:
     bwd_entry, train_runs = train_phase(dev, kern)
     entries.append(bwd_entry)
     psnr_launches.update(train_runs)
+    psnr_launches.update(placement_phase(dev, kern))
     # The backward's main path is phase 13's whisper run.
     launches["flash_attention_bwd"] = \
         train_runs["train_whisper"]["flash_attention_bwd"]

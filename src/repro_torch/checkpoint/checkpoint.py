@@ -17,6 +17,11 @@ long as the tree has the same structure.
 - *async*: `CheckpointManager(async_write=True)` copies the tree to the
   host, then a writer thread writes it.
 - *exact data resume*: the data pipeline's counter rides in `extra`.
+- *placed*: a tree of placed tensors (DTensors) is gathered leaf by leaf
+  to rank 0's host memory and written by rank 0 alone, in the layout a
+  one-process run writes; the other ranks wait at a barrier. A restore
+  given `shardings` of `NamedSharding` leaves keeps each rank's block,
+  whatever mesh wrote the checkpoint (elastic restore).
 
 bfloat16: numpy has no bfloat16, and `np.savez` stores the reference's
 (ml_dtypes) bfloat16 leaves as raw 2-byte voids (`|V2`) under the
@@ -38,7 +43,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import full_tensor, place
 from repro_torch.tree_util import leaves_with_path, map_with_path
 
 _BF16_VOID = np.dtype("V2")
@@ -68,12 +75,30 @@ def _sha(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process
+    group, or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def to_host(tree):
     """The tree with every tensor in host memory: a card's tensors are
     copied, host tensors are taken as they are (a saved tree is not
-    updated in place afterwards: the train step returns new tensors)."""
-    return map_with_path(lambda _, v: v.detach().to("cpu")
-                         if isinstance(v, torch.Tensor) else v, tree)
+    updated in place afterwards: the train step returns new tensors).
+    A placed tensor is gathered (every rank takes part), one leaf at a
+    time, into rank 0's host memory; the other ranks keep its shape on
+    the meta device."""
+    from torch.distributed.tensor import DTensor
+
+    def host(_, v):
+        if not isinstance(v, torch.Tensor) or v.device.type == "meta":
+            return v
+        if isinstance(v, DTensor):
+            whole = full_tensor(v).detach()
+            return whole.to("cpu") if _writes() else whole.to("meta")
+        return v.detach().to("cpu")
+
+    return map_with_path(host, tree)
 
 
 def save_checkpoint(directory: str | Path, step: int, tree: Any,
@@ -131,8 +156,10 @@ def restore_checkpoint(directory: str | Path, step: Optional[int] = None,
                        verify: bool = True):
     """Restore (tree, extra). `like` supplies the tree's structure (its
     leaves, e.g. meta tensors, are not read); `shardings` is where the
-    leaves go: one device for all, or a tree of devices mirroring `like`
-    (None: host memory). Without `like`, the tree is {key: tensor}."""
+    leaves go: one device for all, or a tree mirroring `like` of devices
+    or of `NamedSharding`s (`distributed.sharding.named`: each rank keeps
+    its block, as a DTensor); None: host memory. Without `like`, the tree
+    is {key: tensor}."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -170,7 +197,7 @@ def restore_checkpoint(directory: str | Path, step: Optional[int] = None,
         if key not in meta:
             raise KeyError(f"checkpoint missing leaf {key}")
         t = _to_tensor(arrays.pop(key), meta[key]["dtype"])
-        values[key] = t if dev is None else t.to(dev)
+        values[key] = t if dev is None else place(t, dev)
     return map_with_path(lambda p, _: values[p], like), manifest["extra"]
 
 
@@ -187,7 +214,7 @@ class CheckpointManager:
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
         self._worker: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        if async_write:
+        if async_write and _writes():
             self._worker = threading.Thread(target=self._loop, daemon=True)
             self._worker.start()
 
@@ -220,18 +247,21 @@ class CheckpointManager:
             raise e
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
+        """Under a process group every rank calls it: rank 0 writes."""
         self._raise()
         host = to_host(tree)  # device -> host now
-        if self.async_write:
+        if _writes() and self.async_write:
             self._q.put((step, host, extra))
-        else:
+        elif _writes():
             save_checkpoint(self.directory, step, host, extra)
             self._gc()
+        _barrier()
 
     def wait(self):
         """Block until every queued checkpoint is on disk."""
         if self._worker is not None:
             self._q.join()
+        _barrier()
         self._raise()
 
     def close(self):
@@ -240,4 +270,10 @@ class CheckpointManager:
             self._q.put(None)
             self._worker.join()
             self._worker = None
+        _barrier()
         self._raise()
+
+
+def _barrier():
+    if dist.is_initialized():
+        dist.barrier()

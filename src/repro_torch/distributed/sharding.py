@@ -3,9 +3,12 @@
 The counterpart of `repro/distributed/sharding.py`: the same rule table
 and the same specs. A spec is a `PartitionSpec`, a tuple of mesh axis
 names with `None` for a replicated dimension, equal as a tuple to
-`tuple(P)` of the reference's. What a spec places is one card: on a mesh
-whose axes all have size 1 every spec puts the whole tensor there
-(`named`), and a mesh of more than one card raises (ROADMAP item 9b).
+`tuple(P)` of the reference's. On a mesh without a process group every
+spec puts the whole tensor on the mesh's one device (`named`). On a mesh
+over ranks (`launch.mesh.init_distributed`) `named` gives each spec its
+DTensor placements: each rank holds the block of every dimension that
+names mesh axes (`place`, `gather`), and the train step reduces its
+gradients onto those blocks (`reduce_to_block`, ZeRO-2).
 
 Axis roles:
   pod    — pure data parallelism across pods;
@@ -28,6 +31,8 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.tree_util import map_with_path
@@ -211,17 +216,190 @@ def data_pspecs(batch, mesh: Mesh,
         lambda _, leaf: P(*((b,) + (None,) * (leaf.ndim - 1))), batch)
 
 
+def _dim_axes(spec, ndim: int) -> List[Tuple[str, ...]]:
+    """The mesh axes that shard each of `ndim` dimensions, outermost
+    first."""
+    entries = list(spec)[:ndim] + [None] * (ndim - len(tuple(spec)))
+    return [() if a is None else (a if isinstance(a, tuple) else (a,))
+            for a in entries]
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """`spec` over a mesh of ranks: a dimension that names mesh axes is
+    split in prod(their sizes) blocks and this rank holds the block at its
+    coordinates along them (the first axis outermost, as a tuple of axes
+    shards in `jax.sharding`); every other dimension is whole. Dimensions
+    must divide: prune the spec first (`param_pspecs(..., mesh)`)."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        names, seen = self.mesh.axis_names, []
+        for axes in self.axes(len(self.spec)):
+            idx = [names.index(a) if a in names else -1 for a in axes]
+            if -1 in idx or idx != sorted(idx):
+                raise ValueError(f"{self.spec}: {axes} are not axes of the "
+                                 f"mesh {names} in its order")
+            seen += axes
+        if len(set(seen)) != len(seen):
+            raise ValueError(f"{self.spec} names a mesh axis twice")
+
+    def axes(self, ndim: int) -> List[Tuple[str, ...]]:
+        return _dim_axes(self.spec, ndim)
+
+    def placements(self) -> list:
+        """The DTensor placements: `Shard(dim)` along each mesh axis that
+        a dimension names, `Replicate()` along the others."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        by_axis = {a: d for d, axes in enumerate(self.axes(len(self.spec)))
+                   for a in axes}
+        return [Shard(by_axis[a]) if a in by_axis else Replicate()
+                for a in self.mesh.axis_names]
+
+    def block_slices(self, shape) -> Tuple[slice, ...]:
+        out = []
+        for d, axes in enumerate(self.axes(len(shape))):
+            n, idx = 1, 0
+            for a in axes:
+                size = self.mesh.axis_size(a)
+                idx, n = idx * size + self.mesh.coordinate(a), n * size
+            if shape[d] % n:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                                 f"split over {axes} ({n} ways)")
+            b = shape[d] // n
+            out.append(slice(idx * b, (idx + 1) * b))
+        return tuple(out)
+
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor `t` (a view)."""
+        return t[self.block_slices(t.shape)]
+
+
 def named(mesh: Mesh, tree_specs):
-    """The device each spec places its tensor on: the mesh's one card (or
-    the CPU) for every leaf. A mesh of more than one card raises: placing
-    shards or replicas over several cards (DTensor or FSDP, and the ZeRO-2
-    reduce-scatter of the gradient) is ROADMAP item 9b."""
+    """Where each spec places its tensor: a `NamedSharding` on a mesh of
+    ranks, the mesh's one device (the card or the CPU) on a mesh without
+    a process group. A mesh of several devices needs a process group."""
+    if mesh.placed:
+        return map_with_path(lambda _, s: NamedSharding(mesh, s), tree_specs)
     if mesh.size != 1:
-        raise NotImplementedError(
-            f"placement over a mesh of {mesh.size} devices {mesh.shape} is "
-            "not ported (ROADMAP item 9b: multi-card placement)")
+        raise ValueError(
+            f"a mesh of {mesh.size} devices {mesh.shape} places tensors over "
+            "ranks: start a process group first (torchrun, or "
+            "launch.mesh.init_distributed)")
     dev = mesh.devices.reshape(-1)[0]
     return map_with_path(lambda _, s: dev, tree_specs)
+
+
+def _own(t: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous tensor of its own on `device` with `t`'s values."""
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    return out.copy_(t)
+
+
+def _wrap(local: torch.Tensor, sh: NamedSharding, shape) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(
+        local, sh.mesh.device_mesh, sh.placements(), run_check=False,
+        shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def place(tree, placements):
+    """Each whole tensor of `tree` where `placements` (from `named`) puts
+    it: this rank's block as a DTensor, or a copy on the one device. Each
+    leaf gets a tensor of its own (no view of its input)."""
+
+    def put(_, t, where):
+        if isinstance(where, NamedSharding):
+            return _wrap(_own(where.block(t), where.mesh.device), where,
+                         t.shape)
+        return _own(t, where)
+
+    return map_with_path(put, tree, placements)
+
+
+def from_blocks(tree, placements):
+    """`place` for a tree of this rank's blocks (as `blocks` gives them)."""
+
+    def put(_, t, where):
+        if isinstance(where, NamedSharding):
+            shape = [n * int(np.prod([where.mesh.axis_size(a) for a in axes]))
+                     for n, axes in zip(t.shape, where.axes(t.ndim))]
+            return _wrap(t, where, shape)
+        return t.to(where)
+
+    return map_with_path(put, tree, placements)
+
+
+def blocks(tree):
+    """This rank's block of each placed leaf; other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    return map_with_path(lambda _, t: t.to_local()
+                         if isinstance(t, DTensor) else t, tree)
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole of a placed tensor (`DTensor.full_tensor`: gathered over
+    the mesh axes that split it); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def gather(tree):
+    """The whole local tensor of each leaf (`full_tensor`)."""
+    return map_with_path(lambda _, t: full_tensor(t), tree)
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axes, op=None) -> torch.Tensor:
+    """`t` reduced in place over the ranks that differ along `axes` (a sum
+    unless `op` says otherwise)."""
+    for a in axes:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
+                        group=mesh.group(a))
+    return t
+
+
+def reduce_to_block(g: torch.Tensor, sh: NamedSharding, over) -> torch.Tensor:
+    """This rank's block (by `sh`) of the sum of the whole tensors `g`
+    that the ranks differing along the axes `over` hold: `g` as a partial
+    sum over those axes, redistributed to `sh`'s placements (a
+    reduce-scatter along the dimensions they split, ZeRO-2; an all-reduce
+    where they split none; a local cut along the dimensions other axes
+    split). The sum runs in `g`'s dtype."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    dm = sh.mesh.device_mesh
+    src = [Partial() if a in over else Replicate()
+           for a in sh.mesh.axis_names]
+    return DTensor.from_local(g, dm, src, run_check=False).redistribute(
+        dm, sh.placements()).to_local()
+
+
+def owns(t: torch.Tensor) -> bool:
+    """Whether this rank is the first holder of the placed tensor `t`'s
+    block: coordinate 0 along every mesh axis that does not split it."""
+    from torch.distributed.tensor import Shard
+
+    dm = t.device_mesh
+    return all(dm.get_local_rank(i) == 0
+               for i, p in enumerate(t.placements) if not isinstance(p, Shard))
+
+
+def sum_over_shards(values: List[torch.Tensor], owners: List[bool]
+                    ) -> List[torch.Tensor]:
+    """The global sums of per-block sums `values` (one 0-d tensor a
+    placed tensor; `owners`: whether this rank owns that block, `owns`):
+    each block counted once (the replicas that do not own theirs add
+    zero), one all-reduce over every rank."""
+    own = torch.tensor(owners, device=values[0].device)
+    v = torch.where(own, torch.stack(values), 0.0)
+    dist.all_reduce(v, op=dist.ReduceOp.SUM)
+    return list(torch.unbind(v))
 
 
 def validate_divisibility(params_specs, shapes, mesh: Mesh) -> List[str]:

@@ -2,23 +2,34 @@
 serve steps (prefill and decode), with the spec trees of their operands.
 
 The counterpart of `repro/launch/steps.py`. The reference's steps are pure
-functions that `jit` compiles and shards; the port's run eagerly on one
-card. The train step takes the gradient of `lm.loss_fn` with autograd
-(through the attention kernels' backward on the card), and the decode
-step updates its cache in place (the counterpart of the reference's
-donated cache buffer).
+functions that `jit` compiles and shards; the port's run eagerly. The
+train step takes the gradient of `lm.loss_fn` with autograd (through the
+attention kernels' backward on the card), on one device or, given a mesh
+of ranks, placed over it (`make_train_step`'s `mesh`); the decode step
+updates its cache in place (the counterpart of the reference's donated
+cache buffer).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (
+    NamedSharding,
     P,
     ShardingConfig,
+    all_reduce,
     batch_axes,
+    blocks,
+    full_tensor,
+    named,
+    owns,
     param_pspecs,
+    reduce_to_block,
+    sum_over_shards,
 )
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
@@ -35,7 +46,9 @@ from repro_torch.tree_util import leaves_with_path, map_with_path
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     moment_dtype: str = "f32", grad_clip: float = 1.0,
-                    accum_dtype: torch.dtype = torch.float32) -> Callable:
+                    accum_dtype: torch.dtype = torch.float32,
+                    grad_pspecs=None, mesh: Optional[Mesh] = None
+                    ) -> Callable:
     """batch leaves are (A, microbatch, ...): `loss_fn` runs on each of
     the A microbatches, its autograd gradients summed into an
     `accum_dtype` accumulator, which is divided by A, clipped to
@@ -44,7 +57,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     `train_step(params, opt_state, batch) -> (params, opt_state, metrics)`
     returns new trees (the old ones are not updated in place); metrics
     `{"loss": mean microbatch loss, "grad_norm": pre-clip norm}` are 0-d
-    tensors on the params' device, and the step makes no host sync."""
+    tensors on the params' device, and the step makes no host sync.
+
+    On a mesh of ranks (`mesh.placed`) the step is placed over it: see
+    `_placed_train_step`; `grad_pspecs` (the parameters' spec tree, as
+    the reference's argument) places the accumulator like the parameters
+    (ZeRO-2), and without it the accumulator is whole on every rank (an
+    all-reduce a microbatch). Elsewhere `grad_pspecs` places nothing: on
+    one device every spec is that device."""
+    if mesh is not None and mesh.placed:
+        return _placed_train_step(cfg, opt_cfg, moment_dtype, grad_clip,
+                                  accum_dtype, grad_pspecs, mesh)
 
     def train_step(params, opt_state: AdamWState, batch: Dict):
         paths = [p for p, _ in leaves_with_path(params)]
@@ -76,6 +99,126 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _valid_labels(mb: Dict) -> torch.Tensor:
+    """The labels `lm.loss_fn` averages over in microbatch `mb`."""
+    if "labels" in mb:
+        return torch.sum(mb["labels"] >= 0)
+    t = mb["tokens"]
+    return torch.tensor(t[:, 1:].numel(), device=t.device)
+
+
+def _placed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                       moment_dtype: str, grad_clip: float,
+                       accum_dtype: torch.dtype, grad_pspecs, mesh: Mesh
+                       ) -> Callable:
+    """The train step over a mesh of ranks. Parameters and moments are
+    DTensors placed by their specs (ZeRO-1 moments); one step:
+
+    (a) gathers the parameters once, a whole tree (ZeRO-3 gather on use),
+        so `loss_fn` and the attention kernels see plain tensors;
+    (b) gives each rank its block of every microbatch over the batch axes
+        (`pod`, `data`);
+    (c) weights each rank's loss by its share of the microbatch's valid
+        labels, so the summed gradient is the one-process mean's;
+    (d) reduces each microbatch's gradient onto the accumulator's blocks
+        (`reduce_to_block`: a reduce-scatter where the spec splits a
+        dimension over a batch axis, ZeRO-2), divides by A, clips by the
+        global norm over the blocks and runs AdamW on the blocks (int8
+        row scales reduced over the axes that split a row);
+    (e) returns placed parameters and moments; the metrics are 0-d and
+        equal on every rank.
+
+    The `model` axis places tensors but splits no computation: every rank
+    of a `data` coordinate computes that coordinate's whole block, and a
+    mixture of experts over a split batch raises (ROADMAP item 9c)."""
+    scfg = ShardingConfig()
+    over = batch_axes(mesh, scfg)
+    n_rows = int(np.prod([mesh.axis_size(a) for a in over]))
+    if cfg.moe is not None and n_rows > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a mixture of experts over a batch split {n_rows} "
+            f"ways (axes {over}) is not ported: its router's aux loss and "
+            "capacity are functions of the whole microbatch (ROADMAP item "
+            "9c)")
+
+    acc_sh = dict(leaves_with_path(named(mesh, grad_pspecs))) \
+        if grad_pspecs is not None else None
+    whole = NamedSharding(mesh, P())
+
+    def train_step(params, opt_state: AdamWState, batch: Dict):
+        placed = dict(leaves_with_path(params))
+        paths = list(placed)
+        acc_of = acc_sh or {p: whole for p in paths}
+        live = map_with_path(
+            lambda _, p: full_tensor(p).detach().requires_grad_(True), params)
+        leaves = dict(leaves_with_path(live))
+        acc = {p: torch.zeros(acc_of[p].block(leaves[p]).shape,
+                              dtype=accum_dtype, device=leaves[p].device)
+               for p in paths}
+        rows = dict(leaves_with_path(named(mesh, accum_batch_pspecs(
+            batch, mesh, scfg))))
+        A = next(iter(batch.values())).shape[0]
+        losses = []
+        for a in range(A):
+            mb = {k: rows[k].block(v)[a] for k, v in batch.items()}
+            count = _valid_labels(mb)
+            total = all_reduce(count.clone(), mesh, over)
+            w = count.to(torch.float32) / total.to(torch.float32)
+            with torch.enable_grad():
+                loss, _ = lm.loss_fn(live, mb, cfg)
+                grads = torch.autograd.grad(loss * w,
+                                            [leaves[p] for p in paths])
+            for p, g in zip(paths, grads):
+                acc[p].add_(reduce_to_block(g, acc_of[p], over))
+            del grads
+            losses.append(all_reduce(loss.detach() * w, mesh, over))
+        del live, leaves
+        for g in acc.values():
+            g.div_(A)
+
+        def param_block(p, t):
+            g = acc.pop(p)
+            if tuple(acc_of[p].placements()) == tuple(t.placements):
+                return g
+            dm = mesh.device_mesh
+            return _placed_like(g, t, acc_of[p].placements()).redistribute(
+                dm, t.placements).to_local()
+
+        grads, gnorm = clip_by_global_norm(
+            map_with_path(param_block, params), grad_clip,
+            reduce=lambda sq: sum_over_shards(
+                sq, [owns(placed[p]) for p in paths]))
+
+        def row_max(path):
+            t = placed[path]
+            last = [a for a, pl in zip(mesh.axis_names, t.placements)
+                    if pl.is_shard(t.ndim - 1)]
+            return lambda m: all_reduce(m, mesh, last, dist.ReduceOp.MAX)
+
+        new_p, new_o = adamw_update(grads, blocks(opt_state), blocks(params),
+                                    opt_cfg, moment_dtype=moment_dtype,
+                                    row_max=row_max)
+        metrics = {"loss": torch.mean(torch.stack(losses)),
+                   "grad_norm": gnorm}
+        return (map_with_path(lambda _, n, t: _placed_like(n, t), new_p,
+                              params),
+                map_with_path(lambda _, n, t: _placed_like(n, t), new_o,
+                              opt_state), metrics)
+
+    return train_step
+
+
+def _placed_like(local: torch.Tensor, like: torch.Tensor, placements=None):
+    """`local` as this rank's block of a placed tensor of `like`'s mesh,
+    shape and stride, by `placements` (by default `like`'s)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(
+        local, like.device_mesh,
+        like.placements if placements is None else placements,
+        run_check=False, shape=like.shape, stride=like.stride())
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int) -> Callable:

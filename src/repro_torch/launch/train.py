@@ -4,9 +4,14 @@ The counterpart of `repro/launch/train.py`: config registry -> data
 pipeline -> init -> train step (gradient accumulation, global-norm clip,
 AdamW with the arch's moment dtype) -> checkpoints (atomic, async, exact
 data resume) -> the loop, with the reference's flags and per-step line.
-It runs on the card unless `--device cpu` asks for the CPU, and on one
-device: the sharding layer gives every spec that device, and a mesh of
-more than one card raises (ROADMAP item 9b).
+It runs on the card unless `--device cpu` asks for the CPU. Run alone it
+trains on one device: the sharding layer gives every spec that device.
+Under `torchrun --nproc-per-node N` (NCCL between cards, gloo on the CPU)
+it trains over the host mesh (1, N): the same weights on every rank,
+placed by the parameter specs, moments by theirs (ZeRO-1), the gradient
+reduced onto the parameters' blocks (ZeRO-2); each rank builds the same
+global batch and keeps its block; rank 0 prints and writes checkpoints.
+The `model` axis places but splits no computation (ROADMAP item 9c).
 
 Checkpoints are written in the reference's layout and files
 (`to_reference_layout`), so a run of either package resumes from the
@@ -15,6 +20,8 @@ fresh port run starts from other weights than the reference's.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --smoke --device cpu --steps 20 --ckpt-dir build/train_ckpt --resume
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch qwen2-7b --smoke --device cpu
 
 `--resume` picks up the newest checkpoint in `--ckpt-dir`, whichever run
 wrote it: give a fresh run an empty directory.
@@ -22,11 +29,13 @@ wrote it: give a fresh run an empty directory.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (
     CheckpointManager,
@@ -38,12 +47,19 @@ from repro_torch.configs import get_arch
 from repro_torch.data import TokenPipeline, TokenPipelineConfig
 from repro_torch.distributed.sharding import (
     ShardingConfig,
+    blocks,
+    from_blocks,
     named,
     param_pspecs,
+    place,
 )
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import (
+    init_distributed,
+    make_host_mesh,
+    make_production_mesh,
+)
+from repro_torch.launch.steps import make_train_step, opt_state_pspecs
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init
@@ -88,22 +104,27 @@ def checkpoint_state(params, opt_state: AdamWState, model: ModelConfig):
 
 
 def restore_state(directory, params, opt_state: AdamWState,
-                  model: ModelConfig, device, step: Optional[int] = None):
+                  model: ModelConfig, device, step: Optional[int] = None,
+                  placement=None):
     """((params, opt_state), extra) from the checkpoint in `directory`
     (the newest, or `step`), structured like `params` and `opt_state`, on
-    `device`. The stacked leaves are read into host memory and unstacked
-    there; each layer's leaf then goes to `device` as a tensor of its own,
-    as a fresh run allocates it (a view into a stacked tensor could take
-    another matmul route, and the resumed run would not repeat the
-    uninterrupted one bit for bit)."""
-    like = _ref_state(*tree_map(lambda t: t.to("meta"),
-                                (params, opt_state)), model)
+    `device`, or placed by `placement` (a pair of `named` trees for the
+    parameters and the optimizer state: each rank keeps its block,
+    whatever mesh wrote the checkpoint). The stacked leaves are read into
+    host memory and unstacked there; each layer's leaf then goes to its
+    device as a tensor of its own, as a fresh run allocates it (a view
+    into a stacked tensor could take another matmul route, and the
+    resumed run would not repeat the uninterrupted one bit for bit)."""
+    meta = lambda t: torch.empty(t.shape, dtype=t.dtype,  # noqa: E731
+                                 device="meta")
+    like = _ref_state(*tree_map(meta, (params, opt_state)), model)
     (p, o), extra = restore_checkpoint(directory, step=step, like=like)
-    own = lambda t: tree_map(  # noqa: E731
-        lambda x: x.to(device, copy=True),
-        lm.from_reference_layout(t, model))
-    return (own(p), AdamWState(o.step.to(device), own(o.mu), own(o.nu))), \
-        extra
+    state = (lm.from_reference_layout(p, model),
+             AdamWState(o.step, lm.from_reference_layout(o.mu, model),
+                        lm.from_reference_layout(o.nu, model)))
+    if placement is None:
+        placement = tree_map(lambda _: device, state)
+    return tuple(place(t, w) for t, w in zip(state, placement)), extra
 
 
 def main(argv=None, log: Optional[List[Dict]] = None):
@@ -127,7 +148,18 @@ def main(argv=None, log: Optional[List[Dict]] = None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    ranked = not dist.is_initialized() and "WORLD_SIZE" in os.environ
+    dev = init_distributed(args.device) if ranked \
+        else resolve_device(args.device)
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    try:
+        return _train(args, dev, writer, log)
+    finally:
+        if ranked:
+            dist.destroy_process_group()
+
+
+def _train(args, dev: torch.device, writer: bool, log: Optional[List[Dict]]):
     spec = get_arch(args.arch)
     model = spec.smoke if args.smoke else spec.model
     mesh = make_production_mesh() if args.production_mesh \
@@ -143,15 +175,20 @@ def main(argv=None, log: Optional[List[Dict]] = None):
                                    global_batch=microbatch, seed=0)
     pipe = TokenPipeline(pipe_cfg)
 
-    # --- init, placed where the param specs put it (one device) --------
+    # --- init (the same weights on every rank), placed by the specs ----
     params = lm.init_params(model, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
-    placement = named(mesh, param_pspecs(params, scfg, mesh))
-    params = tree_map(lambda t, d: t.to(d), params, placement)
-    opt_state = adamw_init(params, moment_dtype=spec.moment_dtype)
+    pspec = param_pspecs(params, scfg, mesh)
+    placement = (named(mesh, pspec),
+                 named(mesh, opt_state_pspecs(pspec, spec.moment_dtype)))
+    params = place(params, placement[0])
+    opt_state = from_blocks(adamw_init(blocks(params),
+                                       moment_dtype=spec.moment_dtype),
+                            placement[1])
 
     opt_cfg = AdamWConfig(lr=args.lr, weight_decay=0.1)
-    step_fn = make_train_step(model, opt_cfg, moment_dtype=spec.moment_dtype)
+    step_fn = make_train_step(model, opt_cfg, moment_dtype=spec.moment_dtype,
+                              grad_pspecs=pspec, mesh=mesh)
 
     start = 0
     mgr = None
@@ -159,10 +196,12 @@ def main(argv=None, log: Optional[List[Dict]] = None):
         mgr = CheckpointManager(args.ckpt_dir, keep=3, async_write=True)
         if args.resume and latest_step(args.ckpt_dir) is not None:
             (params, opt_state), extra = restore_state(
-                args.ckpt_dir, params, opt_state, model, dev)
+                args.ckpt_dir, params, opt_state, model, dev,
+                placement=placement)
             pipe = TokenPipeline.from_state(pipe_cfg, extra)
             start = int(extra["train_step"])
-            print(f"resumed at step {start} (data step {pipe.step})")
+            if writer:
+                print(f"resumed at step {start} (data step {pipe.step})")
 
     next_batch = build_batch_fn(model, pipe, args.accum, microbatch, dev)
     for step in range(start, args.steps):
@@ -172,8 +211,9 @@ def main(argv=None, log: Optional[List[Dict]] = None):
         loss = float(metrics["loss"])
         gnorm = float(metrics["grad_norm"])
         dt = time.time() - t0
-        print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
-              f"dt {dt:.2f}s")
+        if writer:
+            print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                  f"dt {dt:.2f}s")
         if log is not None:
             log.append({"step": step, "loss": loss, "grad_norm": gnorm,
                         "seconds": dt})

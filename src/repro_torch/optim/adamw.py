@@ -12,7 +12,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.optim.state_codec import moment_codecs
+from repro_torch.optim.state_codec import RowMax, moment_codecs
 from repro_torch.tree_util import map_with_path, tree_leaves, tree_map
 
 
@@ -53,11 +53,14 @@ def adamw_init(params: Any, moment_dtype: str = "param") -> AdamWState:
 def adamw_update(grads: Any, state: AdamWState, params: Any,
                  config: AdamWConfig,
                  lr_schedule: Optional[Callable] = None,
-                 moment_dtype: str = "param"):
+                 moment_dtype: str = "param",
+                 row_max: Optional[Callable[[str], Optional[RowMax]]] = None):
     """One AdamW step. Returns (new_params, new_state); nothing is updated
     in place. The bias corrections are 1 - b ** step in float32, as the
     reference computes them. `moment_dtype` must match what `adamw_init`
-    was called with."""
+    was called with. The update is elementwise, so the leaves may be
+    blocks of placed tensors; then `row_max(path)` gives the int8 codec
+    the leaf's row-absmax reduction (`MomentCodec.encode`)."""
     step = state.step + 1
     lr = config.lr if lr_schedule is None else lr_schedule(step) * config.lr
     b1, b2 = config.b1, config.b2
@@ -84,7 +87,8 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
                 s in path for s in config.no_decay_substrings):
             update = update + config.weight_decay * p
         if quantized:
-            m, v = mu_c.encode(m, p), nu_c.encode(v, p)
+            rm = None if row_max is None else row_max(path)
+            m, v = mu_c.encode(m, p, rm), nu_c.encode(v, p, rm)
         new_mu[path], new_nu[path] = m, v
         return (p - lr * update).to(p.dtype)
 

@@ -10,7 +10,7 @@ shape; scales keep the last axis as 1.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -22,10 +22,16 @@ class Quantized(NamedTuple):
     scale: torch.Tensor  # f32, shape[:-1] + (1,)
 
 
-def _encode(x: torch.Tensor) -> Quantized:
+# A row absmax over a block of the last axis -> over the whole row.
+RowMax = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _encode(x: torch.Tensor, row_max: Optional[RowMax] = None) -> Quantized:
     x = x.to(torch.float32)
-    a = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0
-    a = torch.clamp_min(a, 1e-12)
+    a = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    if row_max is not None:
+        a = row_max(a)
+    a = torch.clamp_min(a / 127.0, 1e-12)
     return Quantized(torch.round(x / a).to(torch.int8), a)
 
 
@@ -41,7 +47,12 @@ class MomentCodec:
         self.kind = kind
         self.sqrt_domain = sqrt_domain
 
-    def encode(self, x: torch.Tensor, like: torch.Tensor):
+    def encode(self, x: torch.Tensor, like: torch.Tensor,
+               row_max: Optional[RowMax] = None):
+        """`x` in this codec's storage. Under int8, where `x` is a block of
+        a placed tensor whose last axis is split, `row_max` takes each
+        row's absmax over the block to the whole row's (an all-reduce),
+        so codes and scales are those of the whole tensor."""
         if self.kind == "param":
             return x.to(like.dtype)
         if self.kind in ("f32", "float32"):
@@ -51,7 +62,7 @@ class MomentCodec:
         if self.kind == "int8":
             y = torch.sqrt(torch.clamp_min(x, 0.0)) if self.sqrt_domain \
                 else x
-            return _encode(y)
+            return _encode(y, row_max)
         raise ValueError(self.kind)
 
     def decode(self, s) -> torch.Tensor:

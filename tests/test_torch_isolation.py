@@ -1,6 +1,9 @@
 """The port stands alone: no module of `repro_torch`, nor `chip_smoke.py`,
 imports JAX or the JAX package, and entry points asked for the default
-device (the card) raise without one instead of carrying on on the CPU."""
+device (the card) raise without one instead of carrying on on the CPU.
+Its packages re-export what the reference's do, but for the recorded
+divergences (ROADMAP section 3)."""
+import importlib
 import os
 import re
 import subprocess
@@ -344,3 +347,33 @@ def test_ported_examples_import_only_the_port():
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert not hits
+
+
+# Reference package names the port's package does not re-export, each for
+# a recorded reason: the counterpart has another name, or it belongs to
+# ROADMAP item 10 (the reference's abstract shape trees and HLO analysis).
+_NOT_MIRRORED = {
+    "hwsim": {"mlp_cycles_jnp": "mlp_cycles_torch"},
+    "distributed": {"population_mesh": "population_devices",
+                    **dict.fromkeys(("ChipSpec", "CollectiveStats",
+                                     "RooflineTerms", "parse_collectives",
+                                     "op_census", "roofline_terms"))},
+    "models": dict.fromkeys(("param_specs", "cache_specs")),
+}
+
+
+@pytest.mark.parametrize("package", ["nerf", "quant", "models", "kernels",
+                                     "distributed", "hwsim"])
+def test_port_packages_reexport_the_reference_names(package):
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    skip = _NOT_MIRRORED.get(package, {})
+    want = [n for n in ref.__all__ if n not in skip]
+    assert [n for n in want if not hasattr(port, n)] == []
+    assert set(want) <= set(port.__all__)
+    for name, counterpart in skip.items():
+        assert not hasattr(port, name)
+        if counterpart is not None:
+            assert counterpart in port.__all__ and hasattr(port, counterpart)
+    from repro_torch.distributed import param_pspecs  # noqa: F401
+    from repro_torch.nerf import train_ngp  # noqa: F401

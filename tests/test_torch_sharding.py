@@ -8,10 +8,13 @@ storage (`FakeTensorMode`) and stacked into the reference's layout
 (`lm.to_reference_layout`); in the port's own layout (one dict a layer)
 each spec is the reference's without the period axis. Data, batch,
 optimizer-state (int8 codes and scales) and train-step spec trees, and
-`validate_divisibility` on a 16 x 16 mesh, equal too. `named` places
-every leaf on the one device of a 1 x 1 mesh and raises on a mesh of two
-(ROADMAP item 9b); `make_production_mesh` raises without 256 cards, and
-`make_host_mesh()` without a card.
+`validate_divisibility` on a 16 x 16 mesh, equal too. Without a process
+group `named` places every leaf on the one device of a 1 x 1 mesh and a
+mesh of two asks for a process group; under a one-rank gloo group the
+1 x 1 mesh carries a `DeviceMesh` and `named` gives each spec its DTensor
+placements (meshes over several ranks: `tests/test_torch_placement.py`);
+`make_production_mesh` raises without 256 cards, and `make_host_mesh()`
+without a card.
 """
 import types
 
@@ -32,7 +35,7 @@ from repro_torch.distributed import sharding as tsh
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import lm as tlm
-from repro_torch.tree_util import map_with_path
+from repro_torch.tree_util import leaves_with_path, map_with_path
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -166,18 +169,50 @@ def test_validate_divisibility_matches_the_reference():
         jsh.param_pspecs(j_params), j_params, fake))
 
 
-def test_placement_is_one_device():
+def test_placement_is_one_device(tmp_path):
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
     _, t_params, tm = _shapes("qwen2-7b", "smoke")
     t_mesh = tmesh.make_host_mesh("cpu")
     assert t_mesh.shape == (1, 1) and t_mesh.axis_names == ("data", "model")
+    assert not t_mesh.placed
     placed = tsh.named(t_mesh, tsh.param_pspecs(t_params, mesh=t_mesh))
     devs = set()
     map_with_path(lambda _, d: devs.add(d), placed)
     assert devs == {torch.device("cpu")}
     two = tmesh.Mesh((1, 2), ("data", "model"),
                      np.array([[torch.device("cpu")] * 2], dtype=object))
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(ValueError, match="process group"):
         tsh.named(two, tsh.param_pspecs(t_params))
+
+    # A one-rank gloo group: the same mesh is placed.
+    tmesh.init_distributed("cpu", rank=0, world_size=1,
+                           store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = tmesh.make_host_mesh("cpu")
+        assert mesh.placed and mesh.shape == (1, 1)
+        assert mesh.device_mesh.mesh_dim_names == ("data", "model")
+        params = tlm.init_params(tm, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        specs = tsh.param_pspecs(params, mesh=mesh)
+        where = tsh.named(mesh, specs)
+        got = tsh.place(params, where)
+        whole = tsh.gather(got)
+        flat = lambda t: dict(leaves_with_path(t))  # noqa: E731
+        flat_where, flat_got = flat(where), flat(got)
+        flat_whole, flat_p = flat(whole), flat(params)
+        for path, spec in _t_flat(specs).items():
+            want = [Shard(spec.index(a)) if a in spec else Replicate()
+                    for a in ("data", "model")]
+            assert flat_where[path].placements() == want, path
+            assert list(flat_got[path].placements) == want, path
+            assert flat_got[path].to_local().shape == flat_p[path].shape
+            assert torch.equal(flat_whole[path], flat_p[path]), path
+        with pytest.raises(ValueError, match="needs 4 devices"):
+            tmesh.make_mesh((2, 2), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_meshes_refuse_what_the_host_does_not_have(monkeypatch):
