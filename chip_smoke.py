@@ -3747,9 +3747,11 @@ def phase_flash_backward(dev):
 
 def train_launches(model, microbatches: int):
     """Kernel 6's launches (forward, backward) in `microbatches` training
-    microbatches of `model`: one of each per attention call."""
+    microbatches of `model`: one of each per attention call, and a second
+    forward where `model.remat` recomputes each period in backward."""
     n = attention_launches(model)[0] * microbatches
-    return {"flash_attention": n, "flash_attention_bwd": n}
+    return {"flash_attention": n * (2 if model.remat else 1),
+            "flash_attention_bwd": n}
 
 
 def check_train_launches(label, got, want):
@@ -4213,14 +4215,19 @@ def train_phase(dev, kern):
 
 
 # Phase 14: the train step placed over a one-rank NCCL mesh (1, 1), the
-# placed path itself (DTensor parameters and moments, DTensor's gather
-# and its redistribution of the gradients onto the accumulator's blocks,
-# the norm and the int8 row scales reduced over the mesh), held bit-equal
-# to the unplaced step:
+# placed path itself (DTensor parameters and moments, each layer's
+# weights gathered where it uses them by `gather_on_use` inside its
+# rematerialised period, Megatron's operators over `model`, the
+# redistribution of the gradients onto the accumulator's blocks, the norm
+# and the int8 row scales reduced over the mesh), held bit-equal to the
+# unplaced step:
 # phase 13's (b) at f32 moments (PLACED_STEPS steps, the first one's
 # state compared, the median of the others timed, one more profiled), then
 # INT8_STEPS steps of qwen2-7b's smoke config with int8 moments and a
-# placed checkpoint restored unplaced.
+# placed checkpoint restored unplaced; then phase 13's (b) with int8
+# moments, PLACED_STEPS steps with `remat` on and off: ms a step, peak
+# memory, the metrics compared; and one microbatch's forward and backward
+# of it and of whisper-large-v3, remat on and off: the memory they add.
 PLACED_STEPS = 3
 
 
@@ -4275,6 +4282,35 @@ def collective_time(by_name, annotations):
             sum(t for _, t in copies), sum(n for n, _ in copies))
 
 
+class PlacedCalls:
+    """Counts the calls of the placed path's model-side collectives
+    (`gather_on_use`, and `Placement`'s operators over `model`) while
+    active; at one rank each returns its input and moves nothing."""
+    NAMES = ("copy_to_model", "reduce_from_model", "gather_model")
+
+    def __enter__(self):
+        from repro_torch.distributed import sharding
+
+        self.mod, self.n = sharding, {"gather_on_use": 0}
+        self.saved = [(sharding, "gather_on_use",
+                       sharding.gather_on_use)] + [
+            (sharding.Placement, n, getattr(sharding.Placement, n))
+            for n in self.NAMES]
+        for owner, name, fn in self.saved:
+            self.n[name] = 0
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.n[_name] += 1
+                return _fn(*a, **kw)
+
+            setattr(owner, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
 def placed_qwen2(dev, kern, mesh):
     """qwen2-7b at published width cut to 2 layers, f32 moments, phase
     13's batches: PLACED_STEPS unplaced steps, the first step's state to
@@ -4289,6 +4325,7 @@ def placed_qwen2(dev, kern, mesh):
     from repro_torch.checkpoint.checkpoint import to_host
     from repro_torch.configs import get_arch
     from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.backend import power_limit
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -4338,10 +4375,18 @@ def placed_qwen2(dev, kern, mesh):
 
     *state, step = placed_state(model, mesh, "float32", weights())
     zeroed(kern)
-    p, o, rows_p, ms_p, peak_p = run(
-        step, state, lambda p, o: same_bits("the placed qwen2-7b step",
-                                            (p, o), held.pop("s")))
+    with PlacedCalls() as calls:
+        p, o, rows_p, ms_p, peak_p = run(
+            step, state, lambda p, o: same_bits("the placed qwen2-7b step",
+                                                (p, o), held.pop("s")))
     launches = read(kern)
+    print(f"  the placed steps' model-side calls: "
+          + ", ".join(f"{n} {v}" for n, v in calls.n.items())
+          + f" ({model.remat=}: each period's gathers run again in its "
+          f"backward)")
+    if not calls.n["gather_on_use"] or not calls.n["reduce_from_model"]:
+        raise AssertionError(f"the placed step did not gather on use or "
+                             f"reduce over model: {calls.n}")
     print(f"qwen2-7b at published width, {QWEN_TRAIN_LAYERS} layers, f32 "
           f"moments, placed over a one-rank NCCL mesh {mesh.shape}: "
           f"{PLACED_STEPS} steps of {QWEN_ACCUM} x {QWEN_MB} x {QWEN_SEQ} "
@@ -4353,7 +4398,8 @@ def placed_qwen2(dev, kern, mesh):
           f"peak {peak_u:.2f} GiB)"
           + "; loss, grad norm " + "; ".join(
               f"{l:.6f}, {g:.4f}" for l, g in rows_p)
-          + "; the first step's parameters and moments bit-equal")
+          + "; the first step's parameters and moments bit-equal "
+          f"({power_limit()})")
     if rows_p != rows_u:
         raise AssertionError(f"the placed steps' metrics differ: {rows_p} "
                              f"against {rows_u}")
@@ -4431,11 +4477,147 @@ def placed_smoke_int8(dev, mesh, tmp):
           "checkpoint restored unplaced bit-equal")
 
 
+def remat_qwen2(dev):
+    """Phase 13's (b) with int8 moments, PLACED_STEPS unplaced steps from
+    the seed-0 weights with `ModelConfig.remat` on (the configs' default,
+    as in the reference) and off, the same batches: ms a step (the median
+    after the first), peak memory, the loss and grad norm of each step.
+    Fails unless every metric is finite and the two agree within 1e-3
+    relative; prints whether they are bit-equal and the largest gap."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.backend import power_limit
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=get_arch("qwen2-7b").model.vocab_size, seq_len=QWEN_SEQ,
+        global_batch=QWEN_MB))
+    batches = [{"tokens": torch.from_numpy(np.stack(
+        [pipe.batch() for _ in range(QWEN_ACCUM)])).to(dev)}
+        for _ in range(PLACED_STEPS)]
+    out = {}
+    for remat in (True, False):
+        model = dataclasses.replace(get_arch("qwen2-7b").model,
+                                    n_layers=QWEN_TRAIN_LAYERS, remat=remat)
+        p = lm.init_params(model, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        o = adamw_init(p, "int8")
+        step = make_train_step(model, AdamWConfig(lr=TRAIN_LR,
+                                                  weight_decay=0.1),
+                               moment_dtype="int8")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        out[remat] = (rows, ms, torch.cuda.max_memory_allocated() / 2 ** 30)
+        del p, o, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (r_on, ms_on, pk_on), (r_off, ms_off, pk_off) = out[True], out[False]
+    gap = max(abs(a / b - 1) for x, y in zip(r_on, r_off)
+              for a, b in zip(x, y))
+    print(f"qwen2-7b at published width, {QWEN_TRAIN_LAYERS} layers, int8 "
+          f"moments, {PLACED_STEPS} steps of {QWEN_ACCUM} x {QWEN_MB} x "
+          f"{QWEN_SEQ} tokens: remat on ms a step "
+          + ", ".join(f"{t:.2f}" for t in ms_on)
+          + f" (median after the first {float(np.median(ms_on[1:])):.2f}), "
+          f"peak {pk_on:.2f} GiB; remat off "
+          + ", ".join(f"{t:.2f}" for t in ms_off)
+          + f" (median after the first {float(np.median(ms_off[1:])):.2f}), "
+          f"peak {pk_off:.2f} GiB; loss, grad norm on "
+          + "; ".join(f"{l:.6f}, {g:.4f}" for l, g in r_on) + ", off "
+          + "; ".join(f"{l:.6f}, {g:.4f}" for l, g in r_off)
+          + f"; bit-equal {r_on == r_off}, largest relative gap {gap:.3g} "
+          f"({power_limit()})")
+    if not all(np.isfinite(v) for r in r_on + r_off for v in r) \
+            or not gap <= 1e-3:
+        raise AssertionError(f"remat on and off disagree: {r_on} against "
+                             f"{r_off}")
+
+
+def remat_backward_peaks(dev):
+    """One microbatch's `loss_fn` and autograd gradient, remat on and off,
+    from the seed-0 weights: qwen2-7b at 2 layers (QWEN_MB x QWEN_SEQ
+    tokens) and whisper-large-v3 at full depth (phase 13's microbatch:
+    4 x 128 tokens beside 1,500 zero frames). Prints the memory the
+    forward and backward add over the resident weights at their peak,
+    and their ms (synchronised, the second of two calls). The optimizer
+    plays no part: this is the activations' share that remat moves."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.backend import power_limit
+    from repro_torch.launch.train import build_batch_fn
+    from repro_torch.models import lm
+    from repro_torch.tree_util import leaves_with_path, map_with_path
+
+    seq, accum = int(WHISPER_TRAIN[3]), int(WHISPER_TRAIN[7])
+    runs = (("qwen2-7b", dataclasses.replace(
+        get_arch("qwen2-7b").model, n_layers=QWEN_TRAIN_LAYERS), QWEN_MB,
+        QWEN_SEQ), ("whisper-large-v3", get_arch("whisper-large-v3").model,
+                    int(WHISPER_TRAIN[5]) // accum, seq))
+    for arch, model, mb, s in runs:
+        params = lm.init_params(model, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        b = build_batch_fn(model, TokenPipeline(TokenPipelineConfig(
+            vocab_size=model.vocab_size, seq_len=s, global_batch=mb,
+            seed=0)), 1, mb, dev)()
+        mbatch = {k: v[0] for k, v in b.items()}
+        got = {}
+        for remat in (True, False):
+            cfg = dataclasses.replace(model, remat=remat)
+
+            def once():
+                live = map_with_path(
+                    lambda _, t: t.detach().requires_grad_(True), params)
+                loss, _ = lm.loss_fn(live, mbatch, cfg)
+                torch.autograd.grad(loss, [t for _, t in
+                                           leaves_with_path(live)])
+                return float(loss.detach())
+
+            once()
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = once()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            got[remat] = (loss, ms, (torch.cuda.max_memory_allocated()
+                                     - base) / 2 ** 30)
+        (l_on, ms_on, gb_on), (l_off, ms_off, gb_off) = got[True], got[False]
+        print(f"{arch} ({model.n_layers} layers), one microbatch of {mb} x "
+              f"{s} tokens, forward and backward: remat on adds "
+              f"{gb_on:.2f} GiB over the resident weights at its peak in "
+              f"{ms_on:.2f} ms, off {gb_off:.2f} GiB in {ms_off:.2f} ms; "
+              f"loss {l_on:.6f} / {l_off:.6f} ({power_limit()})")
+        if not (np.isfinite(l_on) and abs(l_on / l_off - 1) <= 1e-3):
+            raise AssertionError(f"{arch}: remat on and off give the losses "
+                                 f"{l_on} and {l_off}")
+        del params, b, mbatch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def placement_phase(dev, kern):
     """Phase 14: a one-rank NCCL process group (rendezvous through a
     `FileStore` in a temporary directory), the placed mesh (1, 1), the
-    two checks above; the group is destroyed after them. Returns
-    {"placed": the placed qwen2-7b steps' launches}."""
+    two checks above; the group is destroyed after them. Then
+    `remat_qwen2` and `remat_backward_peaks`, unplaced. Returns {"placed": the placed qwen2-7b
+    steps' launches}."""
     import os
     import torch.distributed as dist
 
@@ -4454,6 +4636,8 @@ def placement_phase(dev, kern):
             placed_smoke_int8(dev, mesh, tmp)
         finally:
             dist.destroy_process_group()
+    remat_qwen2(dev)
+    remat_backward_peaks(dev)
     print(f"phase 14 (placement): {time.perf_counter() - t0:.2f} s")
     return {"placed": launches}
 

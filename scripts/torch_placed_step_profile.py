@@ -20,7 +20,9 @@ device-to-device copies by name, the rest together); the host calls of
 each collective operator (`c10d`, `_c10d_functional`), also per parameter
 leaf and per microbatch; and the host time (inclusive) of the placed
 step's parts, each wrapped in a `record_function` range: the parameters'
-gather (`full_tensor`), the reductions onto the accumulator
+whole-tree gather where the tree still has one (`full_tensor`; since the
+gathers moved into the model, a layer at a time, no step has), the
+reductions onto the accumulator
 (`reduce_to_block`), the placed outputs (`_placed_like`, or
 `from_blocks` in a tree that has no `_placed_like`), the norm's and the
 loss's all-reduces (`sum_over_shards`, `all_reduce`). Then the card's

@@ -10,6 +10,16 @@ DTensor placements: each rank holds the block of every dimension that
 names mesh axes (`place`, `gather`), and the train step reduces its
 gradients onto those blocks (`reduce_to_block`, ZeRO-2).
 
+The placed train step hands the model its blocks with a `Placement`,
+which carries the collectives the model calls, each an autograd function
+over the mesh's axis groups: `gather_on_use` (all-gather over the FSDP
+axes, reduce-scatter backward), Megatron's `copy_to_model` (identity
+forward, all-reduce backward) and `reduce_from_model` (all-reduce
+forward, identity backward), `gather_model` (all-gather over `model`,
+backward cut to the block, summed first where each rank used a part),
+and the sums over the batch axes that MoE routing reads. At `model` size
+1 the operators over `model` return their input.
+
 Axis roles:
   pod    — pure data parallelism across pods;
   data   — batch DP within a pod + FSDP weight sharding + ZeRO-1
@@ -272,6 +282,9 @@ class NamedSharding:
             out.append(slice(idx * b, (idx + 1) * b))
         return tuple(out)
 
+    def block_shape(self, shape) -> Tuple[int, ...]:
+        return tuple(s.stop - s.start for s in self.block_slices(shape))
+
     def block(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole tensor `t` (a view)."""
         return t[self.block_slices(t.shape)]
@@ -364,20 +377,245 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axes, op=None) -> torch.Tensor:
     return t
 
 
-def reduce_to_block(g: torch.Tensor, sh: NamedSharding, over) -> torch.Tensor:
-    """This rank's block (by `sh`) of the sum of the whole tensors `g`
-    that the ranks differing along the axes `over` hold: `g` as a partial
-    sum over those axes, redistributed to `sh`'s placements (a
-    reduce-scatter along the dimensions they split, ZeRO-2; an all-reduce
-    where they split none; a local cut along the dimensions other axes
-    split). The sum runs in `g`'s dtype."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+def spec_of(t: torch.Tensor) -> PartitionSpec:
+    """The spec of a placed tensor, read from its DTensor placements: the
+    mesh axes that shard each dimension, in the mesh's order."""
+    from torch.distributed.tensor import Shard
 
-    dm = sh.mesh.device_mesh
-    src = [Partial() if a in over else Replicate()
-           for a in sh.mesh.axis_names]
-    return DTensor.from_local(g, dm, src, run_check=False).redistribute(
-        dm, sh.placements()).to_local()
+    dims = [[] for _ in range(t.ndim)]
+    for a, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if isinstance(pl, Shard):
+            dims[pl.dim].append(a)
+    return P(*(None if not d else d[0] if len(d) == 1 else tuple(d)
+               for d in dims))
+
+
+def reduce_to_block(g: torch.Tensor, src: NamedSharding, dst: NamedSharding,
+                    over) -> torch.Tensor:
+    """`g`, this rank's block by `src` of a gradient that is complete along
+    the axes `src` splits and a partial sum along the axes `over` it does
+    not split (its batch rows), summed over `over` and redistributed to
+    `dst`'s placements (an all-reduce where `dst` splits no dimension along
+    an axis of `over`, a reduce-scatter where it does, ZeRO-2; an
+    all-gather along the dimensions `src` splits and `dst` does not). The
+    sum runs in `g`'s dtype; with nothing to sum or move, `g` itself (a
+    partial sum over an axis of one rank is the sum)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    dm, mesh = src.mesh.device_mesh, src.mesh
+    pls = [Partial() if a in over and pl.is_replicate()
+           and mesh.axis_size(a) > 1 else pl
+           for a, pl in zip(mesh.axis_names, src.placements())]
+    if pls == dst.placements():
+        return g
+    return DTensor.from_local(g, dm, pls, run_check=False).redistribute(
+        dm, dst.placements()).to_local()
+
+
+# ---------------------------------------------------------------------------
+# The collectives the model calls in a placed train step
+# ---------------------------------------------------------------------------
+def _gather_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The blocks `t` of the `n` ranks of `group`, joined along `dim` in
+    the group's rank order."""
+    out = torch.empty((n,) + t.shape, dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out.flatten(0, 1), t.contiguous(),
+                                group=group)
+    return out.movedim(0, dim).reshape(
+        t.shape[:dim] + (n * t.shape[dim],) + t.shape[dim + 1:])
+
+
+def _scatter_dim(g: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of the `n` ranks' `g`."""
+    b = g.shape[dim] // n
+    parts = g.reshape(g.shape[:dim] + (n, b) + g.shape[dim + 1:]) \
+        .movedim(dim, 0).contiguous()
+    out = torch.empty(parts.shape[1:], dtype=g.dtype, device=g.device)
+    dist.reduce_scatter_tensor(out, parts.flatten(0, 1), group=group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along `dim` over one mesh axis. Backward: the gradient
+    summed over the axis and cut to this rank's block (a reduce-scatter)
+    where every rank's use of the whole is its own part of the gradient,
+    or only cut where every rank computes the same whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n, idx, summed):
+        ctx.args = dim, group, n, idx, summed
+        return _gather_dim(t, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n, idx, summed = ctx.args
+        if summed:
+            return _scatter_dim(g, dim, group, n), None, None, None, None, \
+                None
+        b = g.shape[dim] // n
+        return g.narrow(dim, idx * b, b).contiguous(), None, None, None, \
+            None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over a process group. Backward: the identity (`back=False`:
+    Megatron's g, each rank's gradient is already the whole one) or the
+    same sum (`back=True`: every rank's loss reads the sum, so each rank's
+    input takes the gradients of all of them)."""
+
+    @staticmethod
+    def forward(ctx, t, groups, back):
+        ctx.args = groups, back
+        out = t.float() if t.dtype == torch.bfloat16 else t.clone()
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        groups, back = ctx.args
+        if back:
+            g = g.clone()
+            for group in groups:
+                dist.all_reduce(g, group=group)
+        return g, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; backward, the gradient summed
+    over the group (each rank's use of the input is a part of the
+    whole)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def gather_on_use(t: torch.Tensor, spec, placement: "Placement"
+                  ) -> torch.Tensor:
+    """The parameter block `t` (its `spec`) gathered over the axes of the
+    FSDP role that split it (every axis the spec names but the tensor
+    parallel one): the tensor a layer computes on, still split over
+    `model`. Backward: the gradient reduce-scattered back onto the block
+    over those axes (a sum over their ranks' batch rows). Where no such
+    axis has more than one rank, `t` itself."""
+    for dim, axes in enumerate(_dim_axes(spec, t.ndim)):
+        for a in reversed(axes):
+            n = placement.mesh.axis_size(a)
+            if a != placement.tp_axis and n > 1:
+                t = _Gather.apply(t, dim, placement.mesh.group(a), n,
+                                  placement.mesh.coordinate(a), True)
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """What the model reads of a placed train step: the mesh, the spec of
+    each parameter block it is handed (`specs`, the parameters' tree),
+    the tensor-parallel axis and the batch axes. `tp` and `tp_rank` are
+    this rank's `model` size and coordinate (1 and 0 on a mesh without
+    that axis). At `tp == 1` every operator over `model` is the identity
+    and makes no collective call."""
+    mesh: Mesh
+    specs: object
+    batch: Tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.axis_size(self.tp_axis) \
+            if self.tp_axis in self.mesh.axis_names else 1
+
+    @property
+    def tp_rank(self) -> int:
+        return self.mesh.coordinate(self.tp_axis) if self.tp > 1 else 0
+
+    @property
+    def rows(self) -> int:
+        """The ways the batch is split (the batch axes' ranks)."""
+        return int(np.prod([self.mesh.axis_size(a) for a in self.batch]))
+
+    def batch_row(self) -> int:
+        """This rank's block of the batch among the `rows` (the first
+        batch axis outermost, as `data_pspecs` splits it)."""
+        i = 0
+        for a in self.batch:
+            i = i * self.mesh.axis_size(a) + self.mesh.coordinate(a)
+        return i
+
+    def _tp_group(self):
+        return self.mesh.group(self.tp_axis)
+
+    def use(self, tree, specs):
+        """`gather_on_use` on each leaf of `tree` by its spec in `specs`."""
+        return map_with_path(lambda _, t, s: gather_on_use(t, s, self),
+                             tree, specs)
+
+    def whole(self, tree, specs):
+        """Each leaf of `tree` (gathered by `use`) gathered over `model`
+        too where its spec splits it, for a layer that every `model` rank
+        computes whole: backward cuts this rank's block of the gradient,
+        which every rank computes the same."""
+        def one(_, t, s):
+            for dim, axes in enumerate(_dim_axes(s, t.ndim)):
+                if self.tp_axis in axes:
+                    t = self.gather_model(t, dim)
+            return t
+
+        return map_with_path(one, tree, specs) if self.tp > 1 else tree
+
+    def gather_model(self, t: torch.Tensor, dim: int, summed: bool = False
+                     ) -> torch.Tensor:
+        """All-gather along `dim` over `model`; backward cuts this rank's
+        block, summed over `model` first where `summed` (each rank's use
+        is its own part of the gradient)."""
+        if self.tp == 1:
+            return t
+        return _Gather.apply(t, dim, self._tp_group(), self.tp,
+                             self.tp_rank, summed)
+
+    def copy_to_model(self, t: torch.Tensor) -> torch.Tensor:
+        """Megatron's f over `model`: identity forward, all-reduce
+        backward."""
+        return t if self.tp == 1 else _CopyToModel.apply(t, self._tp_group())
+
+    def reduce_from_model(self, t: torch.Tensor) -> torch.Tensor:
+        """Megatron's g over `model`: all-reduce forward (bfloat16 summed
+        in float32), identity backward."""
+        if self.tp == 1:
+            return t
+        return _AllReduce.apply(t, (self._tp_group(),), False)
+
+    def max_over_model(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over `model` of a tensor without gradient."""
+        if self.tp > 1:
+            t = t.clone()
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._tp_group())
+        return t
+
+    def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the batch axes of a statistic that every rank's
+        loss reads whole: backward sums the gradients over them too."""
+        groups = tuple(self.mesh.group(a) for a in self.batch
+                       if self.mesh.axis_size(a) > 1)
+        return _AllReduce.apply(t, groups, True) if groups else t
+
+    def gather_over_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """(rows, *t.shape): every batch rank's `t` (no gradient), in the
+        order of their rows of the batch (the first batch axis outermost)."""
+        out = t[None]
+        for a in reversed(self.batch):
+            n = self.mesh.axis_size(a)
+            if n > 1:
+                out = _gather_dim(out, 0, self.mesh.group(a), n)
+        return out.reshape((self.rows,) + t.shape)
 
 
 def owns(t: torch.Tensor) -> bool:

@@ -5,7 +5,9 @@ The counterpart of `repro/launch/steps.py`. The reference's steps are pure
 functions that `jit` compiles and shards; the port's run eagerly. The
 train step takes the gradient of `lm.loss_fn` with autograd (through the
 attention kernels' backward on the card), on one device or, given a mesh
-of ranks, placed over it (`make_train_step`'s `mesh`); the decode step
+of ranks, placed over it (`make_train_step`'s `mesh`: the layers gather
+their weights where they use them and `model` splits their compute, as
+GSPMD splits the reference's by the same specs); the decode step
 updates its cache in place (the counterpart of the reference's donated
 cache buffer).
 """
@@ -13,22 +15,22 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (
     NamedSharding,
     P,
+    Placement,
     ShardingConfig,
     all_reduce,
     batch_axes,
     blocks,
-    full_tensor,
     named,
     owns,
     param_pspecs,
     reduce_to_block,
+    spec_of,
     sum_over_shards,
 )
 from repro_torch.launch.mesh import Mesh
@@ -116,33 +118,33 @@ def _placed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """The train step over a mesh of ranks. Parameters and moments are
     DTensors placed by their specs (ZeRO-1 moments); one step:
 
-    (a) gathers the parameters once, a whole tree (ZeRO-3 gather on use),
-        so `loss_fn` and the attention kernels see plain tensors;
+    (a) hands `loss_fn` this rank's parameter blocks as plain tensors with
+        their specs (`Placement`): each layer gathers its weights over
+        the FSDP axes where it uses them (`gather_on_use`, inside the
+        period's checkpoint), and the `model` axis splits the compute
+        (attention heads, FFN units, experts, the vocabulary: see
+        `models.lm`);
     (b) gives each rank its block of every microbatch over the batch axes
-        (`pod`, `data`);
+        (`pod`, `data`); a mixture of experts routes the whole
+        microbatch (its aux loss, capacity and positions from small
+        collectives over those axes);
     (c) weights each rank's loss by its share of the microbatch's valid
-        labels, so the summed gradient is the one-process mean's;
-    (d) reduces each microbatch's gradient onto the accumulator's blocks
-        (`reduce_to_block`: a reduce-scatter where the spec splits a
-        dimension over a batch axis, ZeRO-2), divides by A, clips by the
-        global norm over the blocks and runs AdamW on the blocks (int8
-        row scales reduced over the axes that split a row);
+        labels, so the summed gradient is the one-process mean's (the aux
+        term, the same on every rank, sums its gradient over the batch
+        axes in its own backward and so counts once);
+    (d) takes each microbatch's gradient on the blocks: complete along
+        the axes a block's spec splits (reduce-scattered by
+        `gather_on_use`'s backward) and along `model` (Megatron's
+        operators sum what each `model` rank computes in part), a partial
+        sum along the batch axes it does not split, which
+        `reduce_to_block` sums onto the accumulator's blocks (ZeRO-2);
+        divides by A, clips by the global norm over the blocks and runs
+        AdamW on the blocks (int8 row scales reduced over the axes that
+        split a row);
     (e) returns placed parameters and moments; the metrics are 0-d and
-        equal on every rank.
-
-    The `model` axis places tensors but splits no computation: every rank
-    of a `data` coordinate computes that coordinate's whole block, and a
-    mixture of experts over a split batch raises (ROADMAP item 9c)."""
+        equal on every rank, the loss summed over the batch axes."""
     scfg = ShardingConfig()
     over = batch_axes(mesh, scfg)
-    n_rows = int(np.prod([mesh.axis_size(a) for a in over]))
-    if cfg.moe is not None and n_rows > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a mixture of experts over a batch split {n_rows} "
-            f"ways (axes {over}) is not ported: its router's aux loss and "
-            "capacity are functions of the whole microbatch (ROADMAP item "
-            "9c)")
-
     acc_sh = dict(leaves_with_path(named(mesh, grad_pspecs))) \
         if grad_pspecs is not None else None
     whole = NamedSharding(mesh, P())
@@ -151,10 +153,14 @@ def _placed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         placed = dict(leaves_with_path(params))
         paths = list(placed)
         acc_of = acc_sh or {p: whole for p in paths}
+        specs = map_with_path(lambda _, t: spec_of(t), params)
+        own = {p: NamedSharding(mesh, s)
+               for p, s in leaves_with_path(specs)}
         live = map_with_path(
-            lambda _, p: full_tensor(p).detach().requires_grad_(True), params)
+            lambda _, p: p.to_local().detach().requires_grad_(True), params)
         leaves = dict(leaves_with_path(live))
-        acc = {p: torch.zeros(acc_of[p].block(leaves[p]).shape,
+        where = Placement(mesh, specs, over, scfg.tp_axis)
+        acc = {p: torch.zeros(acc_of[p].block_shape(placed[p].shape),
                               dtype=accum_dtype, device=leaves[p].device)
                for p in paths}
         rows = dict(leaves_with_path(named(mesh, accum_batch_pspecs(
@@ -167,11 +173,11 @@ def _placed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             total = all_reduce(count.clone(), mesh, over)
             w = count.to(torch.float32) / total.to(torch.float32)
             with torch.enable_grad():
-                loss, _ = lm.loss_fn(live, mb, cfg)
+                loss, _ = lm.loss_fn(live, mb, cfg, placement=where)
                 grads = torch.autograd.grad(loss * w,
                                             [leaves[p] for p in paths])
             for p, g in zip(paths, grads):
-                acc[p].add_(reduce_to_block(g, acc_of[p], over))
+                acc[p].add_(reduce_to_block(g, own[p], acc_of[p], over))
             del grads
             losses.append(all_reduce(loss.detach() * w, mesh, over))
         del live, leaves

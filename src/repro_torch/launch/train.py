@@ -11,7 +11,9 @@ it trains over the host mesh (1, N): the same weights on every rank,
 placed by the parameter specs, moments by theirs (ZeRO-1), the gradient
 reduced onto the parameters' blocks (ZeRO-2); each rank builds the same
 global batch and keeps its block; rank 0 prints and writes checkpoints.
-The `model` axis places but splits no computation (ROADMAP item 9c).
+On (1, N) every rank sits on `model`: each layer's compute is split N
+ways (attention heads, FFN units, experts, the vocabulary), as GSPMD
+splits the reference's on the same mesh.
 
 Checkpoints are written in the reference's layout and files
 (`to_reference_layout`), so a run of either package resumes from the

@@ -22,9 +22,18 @@ reference's chunked jnp softmax:
   not copied. `decode_cross_attention` reads the static cross cache the
   same way over all of its rows, the zero padding past the encoder's
   length included, as the reference's unmasked softmax does.
+
+In a placed train step (`distributed.sharding.Placement`) whose `model`
+axis splits the query heads, `attention` computes this rank's heads
+alone (`wq`/`bq` by columns, `wo` by rows) on its input copied to
+`model`, and sums the output over `model`. Where `model` splits the KV
+heads too, the rank's KV heads are its own; where it does not (fewer KV
+heads than ranks), the rank gathers `wk`/`wv` whole and keeps the KV
+heads its query heads read, their gradient summed back to the owners.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -149,18 +158,66 @@ def cross_attention(params: Dict, x: torch.Tensor, kv: Dict,
         @ params["wo"]
 
 
+def _own_heads(params: Dict, cfg: ModelConfig, placement):
+    """(this rank's projections, the config of its heads) where `model`
+    splits the query heads (at one `model` rank, every head), else None.
+    Rank r holds query heads
+    [r H/tp, (r+1) H/tp); query head h reads KV head h // (H / Hkv). Where
+    `model` does not split the KV heads, `wk`/`wv` (and their biases) are
+    gathered whole with their gradient summed over `model`, and the rank
+    keeps the KV heads its query heads read: each once where they group
+    evenly, else one for each query head."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if placement is None or params["wq"].shape[1] * placement.tp != H * hd:
+        return None
+    tp = placement.tp
+    hl = H // tp
+    own = dict(params)
+    n_kv = Hkv // tp
+    if Hkv % tp:
+        G = H // Hkv
+        read = [(placement.tp_rank * hl + i) // G for i in range(hl)]
+        kept = sorted(set(read))
+        even = [kept[i // (hl // len(kept))] for i in range(hl)] \
+            if hl % len(kept) == 0 else None
+        sel = kept if even == read else read
+        idx = torch.tensor(sel, device=params["wk"].device)
+        for name in ("wk", "wv", "bk", "bv"):
+            if name not in params:
+                continue
+            w = params[name]
+            w = placement.gather_model(w, w.ndim - 1, summed=True) \
+                if w.shape[-1] != Hkv * hd else placement.copy_to_model(w)
+            own[name] = w.unflatten(-1, (Hkv, hd)).index_select(
+                -2, idx).flatten(-2)
+        n_kv = len(sel)
+    return own, dataclasses.replace(cfg, n_heads=hl, n_kv_heads=n_kv,
+                                    d_head=hd)
+
+
 def attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
               use_rope: bool = True,
-              x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+              x_kv: Optional[torch.Tensor] = None,
+              placement=None) -> torch.Tensor:
     """Full-sequence attention (training / prefill). x: (B, S, d); with
     `x_kv` (B, Skv, d) cross-attention over it (non-causal, the keys not
-    turned by the rotary embedding)."""
+    turned by the rotary embedding). Under a `placement` that splits the
+    heads over `model`, this rank's heads (`_own_heads`) between
+    Megatron's two operators."""
+    own = _own_heads(params, cfg, placement)
+    if own is not None:
+        params, cfg = own
+        x = placement.copy_to_model(x)
+        if x_kv is not None:
+            x_kv = placement.copy_to_model(x_kv)
     if x_kv is not None:
-        return cross_attention(params, x, precompute_cross_kv(params, x_kv,
-                                                              cfg),
-                               cfg, positions, use_rope)
-    return self_attention(params, x, cfg, positions, causal, use_rope)[0]
+        out = cross_attention(params, x, precompute_cross_kv(params, x_kv,
+                                                             cfg),
+                              cfg, positions, use_rope)
+    else:
+        out = self_attention(params, x, cfg, positions, causal, use_rope)[0]
+    return out if own is None else placement.reduce_from_model(out)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,12 @@ gates. All routing is integer work, and each (expert, slot) holds at most
 one token, so the float scatters add a value to zeros only: exact on the
 card too. The combine adds up to `top_k` contributions a token, in the
 order of the slots on the CPU and in any order on the card.
+
+In a placed train step (`distributed.sharding.Placement`) the dense FFN
+is Megatron's column/row-parallel pair over `model`, the experts are
+split over `model` (expert parallelism), and the routing of a batch
+split over ranks is the whole microbatch's: its statistics and each
+rank's expert counts come from small collectives over the batch axes.
 """
 from __future__ import annotations
 
@@ -40,7 +46,16 @@ def init_ffn(generator: torch.Generator, cfg: ModelConfig,
             for name, shape in ffn_param_shapes(cfg, d_ff).items()}
 
 
-def ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+        placement=None) -> torch.Tensor:
+    """The dense FFN of x (..., d). Under a `placement` whose `model` axis
+    splits the hidden units (`w_gate`/`w_in` by columns, `w_out` by rows:
+    Megatron's column- and row-parallel pair), this rank's units of the
+    input copied to `model`, their partial output summed over it."""
+    if placement is not None \
+            and params["w_in"].shape[1] * placement.tp == cfg.d_ff:
+        x = placement.copy_to_model(x)
+        return placement.reduce_from_model(ffn(params, x, cfg))
     if cfg.ffn_type == "swiglu":
         h = ACT_FNS["silu"](x @ params["w_gate"]) * (x @ params["w_in"])
     elif cfg.ffn_type == "geglu":
@@ -108,13 +123,16 @@ class MoERouting:
     slot_gate: torch.Tensor  # (E, C) f32 gate of each slot; 0 = empty
     capacity: int
     aux_loss: torch.Tensor  # () Switch-style load-balancing loss
+    mine: torch.Tensor  # (T*k,) bool: kept, in the slot maps' experts
 
     def dropped_share(self) -> float:
         """Share of (token, slot) pairs over capacity."""
         return float(1.0 - self.keep.float().mean())
 
 
-def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERouting:
+def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig,
+              placement=None, experts: Tuple[int, int] = (0, 0)
+              ) -> MoERouting:
     """Route the tokens xt (T, d): router softmax in the router's dtype,
     top-k gates renormalized to sum 1, the aux loss E * sum(mean(probs) *
     frac(top-1)), each pair's global position in its expert (a
@@ -122,13 +140,22 @@ def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERouting:
     mask against the global capacity C = `moe_capacity(T)`, and the slot
     maps: the (expert, slot) -> token map by an integer `amin` scatter
     (dropped pairs offer the sentinel T) and the slot gates by an exact
-    add into zeros."""
+    add into zeros.
+
+    Under a `placement` that splits the batch, xt is this rank's rows of
+    the microbatch and the routing is the whole microbatch's: the sums of
+    `probs` and the top-1 counts are summed over the batch axes, C is the
+    capacity of all T_global tokens, and a pair's position is its local
+    one plus the counts of the ranks before this one (their rows come
+    first in the one-process order). The slot maps then hold this rank's
+    own slots of each expert, min(C, T) an expert (an expert takes each
+    token at most once). `experts` (first, count) restricts the slot maps
+    to a range of experts, expert parallelism's; count 0 means all."""
     m = cfg.moe
     T = xt.shape[0]
     E, k = m.n_experts, m.top_k
-    G = m.dispatch_groups if T % max(m.dispatch_groups, 1) == 0 else 1
-    Tg = T // G
     dev = xt.device
+    rows = 1 if placement is None else placement.rows
     rdt = getattr(torch, m.router_dtype)
     logits = xt.to(rdt) @ params["router"].to(rdt)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -136,10 +163,19 @@ def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERouting:
     gate_vals = gate_vals / torch.clamp_min(
         torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
 
-    me = torch.mean(probs, dim=0)  # (E,)
-    ce = torch.mean(F.one_hot(expert_ids[:, 0], E).to(torch.float32), dim=0)
+    top1 = F.one_hot(expert_ids[:, 0], E).to(torch.float32)
+    if rows == 1:
+        me = torch.mean(probs, dim=0)  # (E,)
+        ce = torch.mean(top1, dim=0)
+        G = m.dispatch_groups if T % max(m.dispatch_groups, 1) == 0 else 1
+    else:
+        n = T * rows
+        me = placement.sum_over_batch(torch.sum(probs, dim=0)) / n
+        ce = placement.sum_over_batch(torch.sum(top1, dim=0)) / n
+        G = 1  # any grouping gives the flat order
     aux_loss = E * torch.sum(me * ce)
 
+    Tg = T // G
     ids_g = expert_ids.reshape(G, Tg * k)  # (G, Tg*k)
     onehot = F.one_hot(ids_g, E)  # (G, Tg*k, E) int64
     pos_local = torch.cumsum(onehot, dim=1) - onehot  # exclusive, per group
@@ -149,41 +185,64 @@ def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERouting:
     base = torch.gather(group_base, 1, ids_g)  # (G, Tg*k)
     flat_pos = (pos + base).reshape(-1)
     flat_ids = expert_ids.reshape(-1)
-    C = moe_capacity(T, m)
+    if rows == 1:
+        C = moe_capacity(T, m)
+        C_buf, buf_pos = C, flat_pos
+    else:
+        every = placement.gather_over_batch(counts[0])  # (rows, E)
+        before = torch.cumsum(every, dim=0) - every
+        me_row = placement.batch_row()
+        C = moe_capacity(T * rows, m)
+        C_buf, buf_pos = min(C, T), flat_pos
+        flat_pos = flat_pos + before[me_row][flat_ids]
     keep = flat_pos < C
-    slot = flat_ids * C + torch.where(keep, flat_pos, 0)  # (T*k,)
+    e0, n_e = experts if experts[1] else (0, E)
+    mine = keep & (flat_ids >= e0) & (flat_ids < e0 + n_e)
+    slot = (flat_ids - e0) * C_buf + torch.where(mine, buf_pos, 0)
+    if n_e != E:
+        slot = torch.where(mine, slot, 0)
+        gate_vals = placement.copy_to_model(gate_vals)
 
     tok_idx = torch.arange(T, device=dev).repeat_interleave(k)
-    slot_tok = torch.full((E * C,), T, dtype=torch.int64, device=dev)
-    slot_tok.scatter_reduce_(0, slot, torch.where(keep, tok_idx, T),
+    slot_tok = torch.full((n_e * C_buf,), T, dtype=torch.int64, device=dev)
+    slot_tok.scatter_reduce_(0, slot, torch.where(mine, tok_idx, T),
                              reduce="amin")
-    slot_gate = torch.zeros((E * C,), dtype=torch.float32, device=dev)
-    slot_gate.index_add_(0, slot, gate_vals.reshape(-1) * keep)
+    slot_gate = torch.zeros((n_e * C_buf,), dtype=torch.float32, device=dev)
+    slot_gate.index_add_(0, slot, gate_vals.reshape(-1) * mine)
     return MoERouting(gate_vals=gate_vals, expert_ids=expert_ids,
                       flat_pos=flat_pos, keep=keep, slot=slot,
-                      slot_tok=slot_tok.view(E, C),
-                      slot_gate=slot_gate.view(E, C), capacity=C,
-                      aux_loss=aux_loss)
+                      slot_tok=slot_tok.view(n_e, C_buf),
+                      slot_gate=slot_gate.view(n_e, C_buf), capacity=C,
+                      aux_loss=aux_loss, mine=mine)
 
 
-def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+            placement=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (out, aux_loss); the dense residual FFN is
-    added when the config has one."""
+    added when the config has one. Under a `placement` the routing is the
+    whole microbatch's (`moe_route`), and where `model` splits the experts
+    (expert parallelism) this rank runs its experts' slots alone, on its
+    input copied to `model`, and the combine is summed over `model`: the
+    one-process combine is a sum over experts, and every `model` rank of
+    a batch row holds that row's tokens, so no all-to-all is needed."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     E, k = m.n_experts, m.top_k
     xt = x.reshape(T, d)
-    r = moe_route(params, xt, cfg)
-    C = r.capacity
+    n_e = params["experts_in"].shape[0]
+    ep = placement is not None and n_e * placement.tp == E
+    r = moe_route(params, xt, cfg, placement,
+                  (placement.tp_rank * n_e, n_e) if ep else (0, 0))
+    C = r.slot_tok.shape[1]
+    xe = placement.copy_to_model(xt) if ep else xt
 
     # Dispatch: each kept pair's token row into its (expert, slot); a
     # dropped pair adds a zero row at its expert's slot 0.
-    contrib = xt.repeat_interleave(k, dim=0) * r.keep[:, None].to(xt.dtype)
-    buf = torch.zeros((E * C, d), dtype=xt.dtype, device=x.device)
+    contrib = xe.repeat_interleave(k, dim=0) * r.mine[:, None].to(xt.dtype)
+    buf = torch.zeros((n_e * C, d), dtype=xt.dtype, device=x.device)
     buf.index_add_(0, r.slot, contrib)
-    buf = buf.view(E, C, d)
+    buf = buf.view(n_e, C, d)
 
     glu = cfg.ffn_type in ("swiglu", "geglu")
     act = ACT_FNS["silu"] if cfg.ffn_type == "swiglu" else ACT_FNS["gelu"]
@@ -194,14 +253,16 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
         h = ACT_FNS["relu2"](torch.bmm(buf, params["experts_in"]))
     else:
         h = act(torch.bmm(buf, params["experts_in"]))
-    out_buf = torch.bmm(h, params["experts_out"])  # (E, C, d)
+    out_buf = torch.bmm(h, params["experts_out"])  # (n_e, C, d)
 
     # Combine: each slot's gated output back to its token; row T takes
     # the empty slots' zeros and is cut off.
     weighted = out_buf * r.slot_gate[..., None].to(out_buf.dtype)
     out = torch.zeros((T + 1, d), dtype=out_buf.dtype, device=x.device)
-    out.index_add_(0, r.slot_tok.reshape(-1), weighted.reshape(E * C, d))
+    out.index_add_(0, r.slot_tok.reshape(-1), weighted.reshape(n_e * C, d))
     out = out[:T]
+    if ep:
+        out = placement.reduce_from_model(out)
     if m.dense_residual:
-        out = out + ffn(params["dense"], xt, cfg)
+        out = out + ffn(params["dense"], xt, cfg, placement)
     return out.reshape(B, S, d), r.aux_loss

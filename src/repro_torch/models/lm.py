@@ -23,6 +23,25 @@ paper's quantizers (`quant.linear_quant`, `quant.qat.ste_fake_quant`),
 whatever the model's dtype, and cast back, as the reference's promotion
 does. Bits >= 16 are the full-precision sentinel: the quantized value is
 still computed and then not selected, so a degenerate range never leaks.
+
+Rematerialisation: where `cfg.remat` is set and autograd records, each
+period's blocks (`period(cfg)` consecutive layers, the reference's scan
+body; one layer of whisper's encoder) run under
+`torch.utils.checkpoint`: between forward and backward only each
+period's input is kept, and backward runs the period again. Nothing
+random runs inside a block, so no RNG state is restored.
+
+Placed training (`placement`, a `distributed.sharding.Placement`): the
+parameters are this rank's blocks, gathered over the FSDP axes where
+they are used (`gather_on_use`; a period's inside its checkpoint, so
+backward gathers them again and at most one period's are alive at a
+time). Over `model`: the embedding is vocab-parallel (each rank looks up
+its rows, zeros elsewhere, summed over `model`), the head gives
+vocab-split logits and `loss_fn` takes a vocab-parallel cross entropy;
+attention splits its heads, the dense FFN its hidden units, MoE its
+experts (`models.attention`, `models.ffn`). Attention whose query heads
+`model` does not divide, and the Mamba and xLSTM mixers, compute on
+their weights gathered over `model` as well.
 """
 from __future__ import annotations
 
@@ -31,6 +50,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
@@ -352,44 +372,72 @@ def _store(cache: Dict, state: Dict) -> None:
 # ---------------------------------------------------------------------------
 # Forward (training shape / scoring)
 # ---------------------------------------------------------------------------
+def _used(params: Dict, name: str, placement):
+    """Top-level parameter `name` as a layer computes on it: gathered over
+    the FSDP axes under a placement."""
+    t = params[name]
+    return t if placement is None else placement.use(t, placement.specs[name])
+
+
 def _embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-                  spec: Optional[LMQuantSpec] = None) -> torch.Tensor:
-    table = params["embed"]
+                  spec: Optional[LMQuantSpec] = None,
+                  placement=None) -> torch.Tensor:
+    table = _used(params, "embed", placement)
     if spec is not None:
         table = quant_embedding(table, spec.embed_bits, spec.paper_exact)
-    return table[tokens]
+    n = table.shape[0]
+    if n == cfg.vocab_size:
+        return table[tokens]
+    # vocab-parallel: this rank's rows, zeros for the others' tokens
+    local = tokens - placement.tp_rank * n
+    mine = (local >= 0) & (local < n)
+    x = table[torch.where(mine, local, 0)]
+    return placement.reduce_from_model(
+        torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)))
 
 
 def _embed_inputs(params: Dict, batch: Dict, cfg: ModelConfig,
-                  spec: Optional[LMQuantSpec] = None) -> torch.Tensor:
+                  spec: Optional[LMQuantSpec] = None,
+                  placement=None) -> torch.Tensor:
     """The token embeddings, behind llava's patch embeddings."""
-    x = _embed_tokens(params, batch["tokens"], cfg, spec)
+    x = _embed_tokens(params, batch["tokens"], cfg, spec, placement)
     if cfg.embed_frontend == "prefix_patches":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     return x
 
 
-def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = apply_norm(params["final_norm"], x, cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+          placement=None) -> torch.Tensor:
+    """The logits of x: (B, S, V), or this rank's vocabulary columns where
+    `model` splits the head."""
+    x = apply_norm(_used(params, "final_norm", placement), x, cfg)
+    if cfg.tie_embeddings:
+        head = _used(params, "embed", placement).T
+    else:
+        head = _used(params, "lm_head", placement)
+    if head.shape[1] != cfg.vocab_size:
+        x = placement.copy_to_model(x)
     return x @ head
 
 
-def _ffn(bp: Dict, h: torch.Tensor, cfg: ModelConfig, has_moe: bool
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _ffn(bp: Dict, h: torch.Tensor, cfg: ModelConfig, has_moe: bool,
+         placement=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on its normed input: (out, aux loss or None)."""
     if has_moe:
-        return ffn_mod.moe_ffn(bp["moe"], h, cfg)
-    return ffn_mod.ffn(bp["ffn"], h, cfg), None
+        return ffn_mod.moe_ffn(bp["moe"], h, cfg, placement)
+    return ffn_mod.ffn(bp["ffn"], h, cfg, placement), None
 
 
 def _mixer(bp: Dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
-           positions: Optional[torch.Tensor]) -> torch.Tensor:
+           positions: Optional[torch.Tensor], placement=None
+           ) -> torch.Tensor:
     """The block's sequence mixer over the full sequence of normed h."""
     if kind in ("attn", "dec", "enc"):
         return attn_mod.attention(bp["attn"], h, cfg, positions=positions,
                                   causal=kind != "enc",
-                                  use_rope=cfg.pos_embed == "rope")
+                                  use_rope=cfg.pos_embed == "rope",
+                                  placement=placement)
     if kind == "mamba":
         return ssm_mod.ssm_forward(bp["ssm"], h, cfg)
     if kind == "mlstm":
@@ -402,8 +450,8 @@ def _mixer(bp: Dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
 def _apply_block(bp: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                  has_moe: bool, a_bits: Optional[torch.Tensor],
                  enc_out: Optional[torch.Tensor] = None,
-                 positions: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 positions: Optional[torch.Tensor] = None,
+                 placement=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block over the full sequence: (x, aux loss). The mixer's and
     the FFN's inputs are fake-quantized at `a_bits[0]` and `a_bits[2]`
     when given; a decoder block ("dec") attends over `enc_out` between
@@ -412,88 +460,150 @@ def _apply_block(bp: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     h = apply_norm(bp["ln1"], x, cfg)
     if a_bits is not None:
         h = _maybe_quant_a(h, a_bits[0])
-    x = x + _mixer(bp, h, cfg, kind, positions)
+    x = x + _mixer(bp, h, cfg, kind, positions, placement)
     if kind == "dec":
         h = apply_norm(bp["ln_x"], x, cfg)
         x = x + attn_mod.attention(bp["xattn"], h, cfg, causal=False,
-                                   use_rope=False, x_kv=enc_out)
+                                   use_rope=False, x_kv=enc_out,
+                                   placement=placement)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x, cfg)
         if a_bits is not None:
             h = _maybe_quant_a(h, a_bits[2])
-        h, a = _ffn(bp, h, cfg, has_moe)
+        h, a = _ffn(bp, h, cfg, has_moe, placement)
         if a is not None:
             aux = aux + a
         x = x + h
     return x, aux
 
 
+def _placed_block(bp: Dict, specs: Dict, cfg: ModelConfig, placement
+                  ) -> Dict:
+    """Block `bp` (this rank's blocks, their `specs`) as it computes:
+    gathered over the FSDP axes; the Mamba and xLSTM mixers, and
+    attention whose query heads `model` does not divide, gathered over
+    `model` too (computed whole on every `model` rank)."""
+    bp = placement.use(bp, specs)
+    if placement.tp > 1:
+        whole = ["ssm", "mlstm", "slstm"]
+        if cfg.n_heads % placement.tp:
+            whole += ["attn", "xattn"]
+        for name in whole:
+            if name in bp:
+                bp[name] = placement.whole(bp[name], specs[name])
+    return bp
+
+
 def _run_blocks(blocks: List[Dict], x: torch.Tensor, cfg: ModelConfig,
                 kinds: List[str], moe: List[bool],
                 spec: Optional[LMQuantSpec], row0: int,
                 enc_out: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None,
+                per: int = 1, placement=None, specs=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blocks in order, block l of kind kinds[l], under spec row
     row0 + l (its weights fake-quantized as it runs: one block's copies
-    live at a time): (x, summed aux loss)."""
+    live at a time): (x, summed aux loss). They run `per` at a time (a
+    period), each period under `checkpoint` where `cfg.remat` is set and
+    autograd records; under a `placement` a block's parameters are
+    gathered inside its period (`_placed_block`, `specs` their specs)."""
+    def run(lo, x, aux):
+        for l in range(lo, min(lo + per, len(blocks))):
+            bp, a_bits = blocks[l], None
+            if placement is not None:
+                bp = _placed_block(bp, specs[l], cfg, placement)
+            if spec is not None:
+                bp = _quant_block_weights(bp, spec.w_bits[row0 + l],
+                                          spec.paper_exact)
+                a_bits = spec.a_bits[row0 + l]
+            x, a = _apply_block(bp, x, cfg, kinds[l], moe[l], a_bits,
+                                enc_out, positions, placement)
+            aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l, bp in enumerate(blocks):
-        a_bits = None
-        if spec is not None:
-            bp = _quant_block_weights(bp, spec.w_bits[row0 + l],
-                                      spec.paper_exact)
-            a_bits = spec.a_bits[row0 + l]
-        x, a = _apply_block(bp, x, cfg, kinds[l], moe[l], a_bits, enc_out,
-                            positions)
-        aux = aux + a
+    for lo in range(0, len(blocks), per):
+        if remat:
+            x, aux = checkpoint(run, lo, x, aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = run(lo, x, aux)
     return x, aux
 
 
 def encode_source(params: Dict, frames: torch.Tensor, cfg: ModelConfig,
-                  spec: Optional[LMQuantSpec] = None) -> torch.Tensor:
+                  spec: Optional[LMQuantSpec] = None,
+                  placement=None) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings (B, S_src, d): full
     self-attention, learned positions; under a spec its layers take the
     spec's first `encoder_layers` rows."""
     S = frames.shape[1]
-    x = frames + params["enc_pos_embed"][:S]
+    x = frames + _used(params, "enc_pos_embed", placement)[:S]
     n = len(params["enc_blocks"])
     x, _ = _run_blocks(params["enc_blocks"], x, cfg, ["enc"] * n,
-                       [False] * n, spec, 0)
-    return apply_norm(params["enc_final_norm"], x, cfg)
+                       [False] * n, spec, 0, placement=placement,
+                       specs=placement and placement.specs["enc_blocks"])
+    return apply_norm(_used(params, "enc_final_norm", placement), x, cfg)
 
 
 def forward(params: Dict, batch: Dict, cfg: ModelConfig,
-            spec: Optional[LMQuantSpec] = None
+            spec: Optional[LMQuantSpec] = None, placement=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V), aux_loss). batch keys: tokens (B, S_text);
     patches (B, P, d) [llava], whose positions lead the sequence; frames
     (B, S_src, d) [whisper]. Under a spec, each layer's weights are
-    fake-quantized at its `w_bits` row as the layer runs."""
-    x = _embed_inputs(params, batch, cfg, spec)
+    fake-quantized at its `w_bits` row as the layer runs. Under a
+    `placement` (placed training: `params` are this rank's blocks, the
+    batch this rank's rows) the logits are this rank's vocabulary columns
+    where `model` splits the head."""
+    if spec is not None and placement is not None and placement.tp > 1:
+        raise ValueError("a quantization spec takes each weight's range "
+                         "over the whole tensor: it does not run over a "
+                         "model axis that splits the weights")
+    x = _embed_inputs(params, batch, cfg, spec, placement)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"][:S]
+        x = x + _used(params, "pos_embed", placement)[:S]
     enc_out = None
     if cfg.pattern == "encdec":
-        enc_out = encode_source(params, batch["frames"], cfg, spec)
+        enc_out = encode_source(params, batch["frames"], cfg, spec,
+                                placement)
     L = len(params["blocks"])
     x, aux = _run_blocks(
         params["blocks"], x, cfg, [_layer_kind(cfg, l) for l in range(L)],
         [_layer_has_moe(cfg, l) for l in range(L)], spec, cfg.encoder_layers,
-        enc_out, positions)
-    return _head(params, x, cfg), aux
+        enc_out, positions, period(cfg), placement,
+        placement and placement.specs["blocks"])
+    return _head(params, x, cfg, placement), aux
+
+
+def _vocab_parallel_nll(lg: torch.Tensor, labels: torch.Tensor, placement
+                        ) -> torch.Tensor:
+    """logsumexp(logits) - logits[label] from this rank's vocabulary
+    columns `lg` (..., V / tp) f32, without gathering the logits: the max
+    over `model` (no gradient: it cancels), the sum of exponentials and
+    the gold logit (from the rank that holds it) summed over `model`."""
+    n = lg.shape[-1]
+    top = placement.max_over_model(torch.amax(lg.detach(), dim=-1))
+    logz = top + torch.log(placement.reduce_from_model(
+        torch.sum(torch.exp(lg - top[..., None]), dim=-1)))
+    local = labels.long() - placement.tp_rank * n
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(lg, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    return logz - placement.reduce_from_model(torch.where(mine, gold, 0.0))
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
-            spec: Optional[LMQuantSpec] = None, aux_weight: float = 0.01
-            ) -> Tuple[torch.Tensor, Dict]:
+            spec: Optional[LMQuantSpec] = None, aux_weight: float = 0.01,
+            placement=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross entropy plus `aux_weight` times the MoE aux loss:
     (loss, {"ce", "aux"}). labels = tokens shifted inside, or explicit
     batch["labels"] (negative = no loss). For llava, patch positions
-    carry no loss."""
-    logits, aux = forward(params, batch, cfg, spec)
+    carry no loss. Under a `placement`, this rank's rows' loss (see
+    `forward`)."""
+    logits, aux = forward(params, batch, cfg, spec, placement)
     tokens = batch["tokens"]
     if cfg.embed_frontend == "prefix_patches":
         logits = logits[:, batch["patches"].shape[1]:]
@@ -507,9 +617,12 @@ def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
         lg = logits[:, :-1]
         valid = torch.ones_like(labels, dtype=torch.bool)
     lg = lg.float()
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
-    nll = (logz - gold) * valid
+    if lg.shape[-1] == cfg.vocab_size:
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+        nll = (logz - gold) * valid
+    else:
+        nll = _vocab_parallel_nll(lg, labels, placement) * valid
     loss = torch.sum(nll) / torch.clamp_min(torch.sum(valid), 1)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 

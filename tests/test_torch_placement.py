@@ -4,13 +4,17 @@ One spawn of four gloo ranks on the CPU (one thread each, rendezvous
 through a `FileStore` under the test's temporary directory) runs every
 scenario, on the meshes (4, 1), (2, 2) and (1, 4) over ("data",
 "model"): two steps of two microbatches of qwen2-7b's smoke config with
-float32 and with int8 moments and of llama3-405b's (int8 moments), from
-the seed-0 weights placed by their pruned specs; qwen3-moe's smoke config
-(float32), which runs where the batch is not split and raises naming
-ROADMAP item 9c where it is; and a checkpoint written on (2, 2) after two
-steps, then two more steps there (the uninterrupted run), the same
-checkpoint restored on (4, 1) and trained two steps, and restored by
-`restore_checkpoint` onto (4, 1)'s blocks directly.
+float32 and with int8 moments, of llama3-405b's (int8 moments) and of
+qwen3-moe's (float32; its routing over a split batch is the whole
+microbatch's), from the seed-0 weights placed by their pruned specs;
+whisper's (cross-attention split over `model`) and jamba's (Mamba
+gathered over `model`, attention and MoE split) on (2, 2); two head
+layouts whose `model` split falls inside a head; the compute of one step
+at (1, 4) counted (`FlopCounterMode`); and a checkpoint written on (2, 2)
+after two steps, then two more steps there (the uninterrupted run), the
+same checkpoint restored on (4, 1) and trained two steps, and restored
+by `restore_checkpoint` onto (4, 1)'s blocks directly. Every rank counts
+the gathered parameter bytes alive at once (`gather_on_use`'s outputs).
 
 Against the one-process step (`make_train_step` without a mesh) from the
 same weights and batches: loss and grad norm within 1e-5 relative (equal
@@ -28,9 +32,10 @@ two ranks under torchrun as it does alone.
 Against the reference: a fifth process beside the ranks runs the
 reference's own train step (`repro.launch.steps.make_train_step` with
 `grad_pspecs`, jitted with `train_shardings`: GSPMD) over the meshes
-(2, 2) and (4, 1) of four forced host devices, from the port's seed-0
-weights in the reference's layout and the same batches. The placed steps
-of the three cases equal it at the limits above, the parameters held
+(2, 2), (4, 1) and (1, 4) of four forced host devices (qwen3-moe's on
+the first two), from the port's seed-0 weights in the reference's layout
+and the same batches. The placed steps equal it at the limits above, the
+parameters held
 within 1e-5 where the reference's gradient exceeds 100 eps at both steps
 and its int8 codes agree with the port's after the first. qwen2-7b's
 smoke config with bfloat16 parameters runs placed on both meshes too:
@@ -48,6 +53,7 @@ import os
 import socket
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 from typing import NamedTuple
 
@@ -62,11 +68,23 @@ AXES = ("data", "model")
 CASES = (("qwen2-7b", "float32"), ("qwen2-7b", "int8"),
          ("llama3-405b", "int8"))
 MOE = ("qwen3-moe-235b-a22b", "float32")
+# The other block families, on (2, 2): cross-attention split over `model`
+# (whisper), Mamba gathered over it beside split attention and MoE (jamba)
+FAMILIES = (("whisper-large-v3", "float32"), ("jamba-v0.1-52b", "float32"))
+FAMILY_MESH = (2, 2)
+# Head layouts whose `model` split falls inside a head (qwen2-7b's smoke
+# config with other head counts): (name, mesh, n_heads, n_kv_heads). Two
+# query heads on four `model` ranks (wq's columns split mid-head: the
+# attention computes whole on every rank); six query heads over three KV
+# heads on two (each rank's three query heads read two KV heads unevenly:
+# one KV head a query head).
+INSIDE_HEADS = (("mid-head", (1, 4), 2, 1), ("uneven-kv", (2, 2), 6, 3))
 CKPT_MESH, RESUME_MESH = (2, 2), (4, 1)
 # The reference's GSPMD step runs CASES and BF16 (qwen2-7b's smoke config
 # with bfloat16 parameters, f32 moments) on these meshes of four forced
-# host devices; the ranks run BF16 on them too.
-REF_MESHES = ((2, 2), (4, 1))
+# host devices, and MOE on the first two; the ranks run BF16 on them too.
+REF_MESHES = ((2, 2), (4, 1), (1, 4))
+REF_MOE_MESHES = REF_MESHES[:2]
 BF16 = ("qwen2-7b", "float32")
 BF16_EPS = 2.0 ** -7  # bfloat16's spacing at 1 (8 significand bits)
 STEPS, ACCUM, MB, SEQ = 2, 2, 4, 32
@@ -80,26 +98,38 @@ def key(shape, arch, md) -> str:
 
 
 def batches(cfg, n: int, seed: int = 0):
-    """n (A, MB, SEQ) token stacks, the same in every process."""
+    """n (A, MB, SEQ) token stacks (and whisper's (A, MB, S_src, d)
+    frames), the same in every process."""
     rng = np.random.default_rng(seed)
-    return [{"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (ACCUM, MB, SEQ)).astype(np.int32))}
-        for _ in range(n)]
+    out = []
+    for _ in range(n):
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (ACCUM, MB, SEQ)).astype(np.int32))}
+        if cfg.embed_frontend == "stub_frames":
+            b["frames"] = torch.from_numpy((rng.normal(size=(
+                ACCUM, MB, cfg.max_source_len, cfg.d_model)) * 0.02)
+                .astype(np.float32))
+        out.append(b)
+    return out
 
 
-def smoke(arch: str, dtype: str = "float32"):
-    """The smoke config, its parameters in `dtype`."""
+def smoke(arch: str, dtype: str = "float32", heads=None):
+    """The smoke config, its parameters in `dtype`; `heads` (n_heads,
+    n_kv_heads) replaces its head counts."""
     from repro_torch.configs import get_arch
 
-    return dataclasses.replace(get_arch(arch).smoke, dtype=dtype)
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype=dtype)
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
+    return cfg
 
 
-def init(arch: str, dtype: str = "float32"):
-    """The smoke config (its parameters in `dtype`) and its seed-0
-    weights."""
+def init(arch: str, dtype: str = "float32", heads=None):
+    """The smoke config (its parameters in `dtype`, `heads` as `smoke`
+    takes them) and its seed-0 weights."""
     from repro_torch.models import lm
 
-    cfg = smoke(arch, dtype)
+    cfg = smoke(arch, dtype, heads)
     return cfg, lm.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
 
@@ -125,11 +155,12 @@ def train(step, p, o, bs, each=None):
 # One rank of the spawn
 # ---------------------------------------------------------------------------
 def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
-               dtype="float32", each=None):
-    """Train `bs` placed over `mesh` from the seed-0 weights (in `dtype`),
-    the accumulator placed like the parameters (or, `grad_pspecs=False`,
-    whole on every rank); `each` as `train` takes it. Returns (params, opt state, rows, the pruned
-    specs, {path: local shape})."""
+               dtype="float32", each=None, heads=None):
+    """Train `bs` placed over `mesh` from the seed-0 weights (in `dtype`;
+    `heads` as `smoke` takes them), the accumulator placed like the
+    parameters (or, `grad_pspecs=False`, whole on every rank); `each` as
+    `train` takes it. Returns (params, opt state, rows, the pruned specs,
+    {path: local shape})."""
     from repro_torch.distributed.sharding import (
         ShardingConfig,
         blocks,
@@ -142,7 +173,7 @@ def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
     from repro_torch.optim import adamw_init
     from repro_torch.tree_util import leaves_with_path
 
-    cfg, params = init(arch, dtype)
+    cfg, params = init(arch, dtype, heads)
     pspec = param_pspecs(params, ShardingConfig(), mesh)
     p = place(params, named(mesh, pspec))
     o = from_blocks(adamw_init(blocks(p), md),
@@ -160,27 +191,61 @@ def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
 
 def rank_main(rank: int, store: str, out: str) -> None:
     import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
     from repro_torch.distributed import sharding
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.launch.train import checkpoint_state, restore_state
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
     from repro_torch.tree_util import leaves_with_path
 
     torch.set_num_threads(1)
     init_distributed("cpu", rank=rank, world_size=WORLD,
                      store=dist.FileStore(store, WORLD))
-    record = []  # (whole gradient shape, block shape, dtype) a call
+    record = []  # (gradient block shape, accumulator block, dtype) a call
     reduce = steps_mod.reduce_to_block
 
-    def recording(g, sh, over):
-        b = reduce(g, sh, over)
+    def recording(g, src, dst, over):
+        b = reduce(g, src, dst, over)
         record.append((tuple(g.shape), tuple(b.shape), str(g.dtype)))
         return b
 
     steps_mod.reduce_to_block = recording
+    alive = [0, 0]  # gathered parameter bytes alive, the most since reset
+    gather = sharding.gather_on_use
+
+    def tracking(t, spec, placement):
+        g = gather(t, spec, placement)
+        if g is not t:
+            n = g.numel() * g.element_size()
+            alive[0] += n
+            alive[1] = max(alive[1], alive[0])
+            weakref.finalize(g, lambda: alive.__setitem__(0, alive[0] - n))
+        return g
+
+    sharding.gather_on_use = tracking
+    heads = []  # the query shapes handed to ops.flash_attention
+    flash = attn_mod.ops.flash_attention
+
+    def counting(q, k, v, causal=True):
+        heads.append(tuple(q.shape))
+        return flash(q, k, v, causal)
+
+    attn_mod.ops.flash_attention = counting
+
+    def run(mesh, arch, md, bs, **kw):
+        """`placed_run`, the most gathered bytes alive during it and the
+        query head counts its flash calls took."""
+        alive[1] = alive[0]
+        del heads[:]
+        p, o, rows, specs, local = placed_run(mesh, arch, md, bs, record,
+                                              **kw)
+        return p, o, rows, specs, local, {
+            "peak": alive[1], "heads": sorted({q[1] * q[3] for q in heads})}
+
     gathered = lambda t: sharding.gather(t) if rank == 0 \
         else sharding.gather(t) and None  # noqa: E731
     res = {}
@@ -188,33 +253,53 @@ def rank_main(rank: int, store: str, out: str) -> None:
         mesh = make_mesh(shape, AXES, "cpu")
         for arch, md in CASES + (MOE,):
             cfg, mids = init(arch)[0], []
-            try:
-                p, o, rows, specs, local = placed_run(
-                    mesh, arch, md, batches(cfg, STEPS), record,
-                    each=lambda p, o: mids.append(gathered(o)))
-            except NotImplementedError as e:
-                res[key(shape, arch, md)] = {"raised": str(e)}
-                continue
+            p, o, rows, specs, local, seen = run(
+                mesh, arch, md, batches(cfg, STEPS),
+                each=lambda p, o: mids.append(gathered(o)))
             res[key(shape, arch, md)] = {
                 "rows": rows, "specs": specs, "local": local,
                 "accumulator": list(record), "state": gathered((p, o)),
-                "mids": mids}
+                "mids": mids, **seen}
         # without grad_pspecs the accumulator is whole on every rank
         arch, md = CASES[0]
-        p, o, rows, _, _ = placed_run(mesh, arch, md,
-                                      batches(init(arch)[0], STEPS), record,
-                                      grad_pspecs=False)
+        p, o, rows, _, _, _ = run(mesh, arch, md,
+                                  batches(init(arch)[0], STEPS),
+                                  grad_pspecs=False)
         res[key(shape, arch, md) + "/whole"] = {
             "rows": rows, "accumulator": list(record),
             "state": gathered((p, o))}
+
+    mesh = make_mesh(FAMILY_MESH, AXES, "cpu")
+    for arch, md in FAMILIES:
+        mids = []
+        _, _, rows, _, _, seen = run(
+            mesh, arch, md, batches(init(arch)[0], STEPS),
+            each=lambda p, o: mids.append(gathered((p, o))))
+        res[key(FAMILY_MESH, arch, md)] = {"rows": rows, "mids": mids,
+                                           **seen}
+
+    for name, shape, h, kv in INSIDE_HEADS:
+        arch, md, mids = *CASES[0], []
+        _, _, rows, _, _, seen = run(
+            make_mesh(shape, AXES, "cpu"), arch, md,
+            batches(init(arch)[0], STEPS), heads=(h, kv),
+            each=lambda p, o: mids.append(gathered((p, o))))
+        res[name] = {"rows": rows, "mids": mids, **seen}
+
+    # one step's compute at (1, 4), counted
+    mesh = make_mesh((1, 4), AXES, "cpu")
+    for arch, md in (CASES[0], MOE):
+        with FlopCounterMode(display=False) as fc:
+            *_, seen = run(mesh, arch, md, batches(init(arch)[0], 1))
+        res["flops/" + arch] = {"flops": fc.get_total_flops(), **seen}
 
     # bfloat16 parameters, against the reference's GSPMD step
     for shape in REF_MESHES:
         arch, md = BF16
         mesh = make_mesh(shape, AXES, "cpu")
-        p, o, rows, _, _ = placed_run(mesh, arch, md,
-                                      batches(init(arch)[0], STEPS), record,
-                                      dtype="bfloat16")
+        p, o, rows, _, _, _ = run(mesh, arch, md,
+                                  batches(init(arch)[0], STEPS),
+                                  dtype="bfloat16")
         res[key(shape, arch, md) + "/bf16"] = {
             "rows": rows, "accumulator": list(record),
             "state": gathered((p, o))}
@@ -276,7 +361,8 @@ def reference_main(out: str) -> None:
     """The reference's train step (`repro.launch.steps.make_train_step`
     with `grad_pspecs` = its pruned parameter specs, jitted with the
     shardings of `train_shardings`, as its launcher runs it) over each of
-    REF_MESHES of four forced host devices, on CASES and BF16 from the
+    REF_MESHES of four forced host devices, on CASES and BF16 (and MOE on
+    REF_MOE_MESHES) from the
     port's seed-0 weights in the reference's layout and the same batches.
     Saves {key: {"rows", "state"}} with each state a (params, AdamWState)
     tree in the reference's layout, as tensors."""
@@ -319,8 +405,11 @@ def reference_main(out: str) -> None:
     res = {}
     for shape in REF_MESHES:
         mesh = make_mesh_compat(shape, AXES)
-        for (arch, md), dtype, tag in [(c, "float32", "") for c in CASES] \
-                + [(BF16, "bfloat16", "/bf16")]:
+        runs = [(c, "float32", "") for c in CASES] \
+            + [(BF16, "bfloat16", "/bf16")]
+        if shape in REF_MOE_MESHES:
+            runs.append((MOE, "float32", ""))
+        for (arch, md), dtype, tag in runs:
             cfg, params = init(arch, dtype)
             model = dataclasses.replace(j_get_arch(arch).smoke, dtype=dtype)
             jp = {k: v for k, v in lm.to_reference_layout(params, cfg).items()}
@@ -402,15 +491,15 @@ def spawn(tmp_path_factory):
                  torch.load(tmp / "reference.pt", weights_only=False))
 
 
-def one_process(arch, md, bs, p=None, o=None):
+def one_process(arch, md, bs, p=None, o=None, heads=None, each=None):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
 
-    cfg, params = init(arch)
+    cfg, params = init(arch, heads=heads)
     p = params if p is None else p
     o = adamw_init(p, md) if o is None else o
     step = make_train_step(cfg, opt_cfg(), moment_dtype=md)
-    return train(step, p, o, bs)
+    return train(step, p, o, bs, each)
 
 
 def _decoded(m, md):
@@ -474,29 +563,45 @@ def expected_block(shape, spec, mesh_shape):
     return tuple(out)
 
 
-def pruned_specs(arch, mesh_shape):
+def pruned_specs(arch, mesh_shape, heads=None):
     from repro_torch.distributed.sharding import param_pspecs, prune_pspecs
     from repro_torch.launch.mesh import Mesh
     from repro_torch.tree_util import leaves_with_path
 
-    params = init(arch)[1]
+    params = init(arch, heads=heads)[1]
     mesh = Mesh(mesh_shape, AXES, np.empty(mesh_shape, dtype=object))
     return {k: tuple(s) for k, s in leaves_with_path(prune_pspecs(
         param_pspecs(params), params, mesh))}, params
 
 
+def assert_equals_one_process(ranks, name, arch, md, heads=None,
+                              first=False):
+    """The placed run `name`: metrics equal on every rank, and the
+    one-process step's at the limits above; its state after the last
+    step, or (`first`) after the first one. An entry whose first gradient
+    is rounding noise (below eps) takes a first AdamW update of up to lr
+    either way; in the deeper or odder layouts (`first`) those entries
+    move the second step's gradients by more than REL of a leaf, while
+    the metrics of every step still agree."""
+    got = ranks[0][name]
+    for r in range(1, WORLD):  # the metrics are equal on every rank
+        assert ranks[r][name]["rows"] == got["rows"]
+    after = []
+    p, o, rows = one_process(arch, md, batches(init(arch)[0], STEPS),
+                             heads=heads,
+                             each=lambda p, o: after.append((p, o)))
+    for (l1, g1), (l2, g2) in zip(got["rows"], rows):
+        assert abs(l1 / l2 - 1) <= REL and abs(g1 / g2 - 1) <= REL
+    if first:
+        assert_states_close(got["mids"][0], after[0], md)
+    else:
+        assert_states_close(got["state"], (p, o), md)
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}")
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_placed_steps_equal_the_one_process_step(spawn, shape, case):
-    ranks = spawn.ranks
-    arch, md = case
-    got = ranks[0][key(shape, arch, md)]
-    for r in range(1, WORLD):  # the metrics are equal on every rank
-        assert ranks[r][key(shape, arch, md)]["rows"] == got["rows"]
-    p, o, rows = one_process(arch, md, batches(init(arch)[0], STEPS))
-    for (l1, g1), (l2, g2) in zip(got["rows"], rows):
-        assert abs(l1 / l2 - 1) <= REL and abs(g1 / g2 - 1) <= REL
-    assert_states_close(got["state"], (p, o), md)
+    assert_equals_one_process(spawn.ranks, key(shape, *case), *case)
 
 
 def reference_layout(state, arch, dtype="float32"):
@@ -529,9 +634,7 @@ def code_flips(got_opts, want_opts):
     return out
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}")
-@pytest.mark.parametrize("shape", REF_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_placed_steps_equal_the_reference_gspmd_step(spawn, shape, case):
+def assert_equals_the_reference(spawn, shape, case):
     """The placed step against the reference's own step over the same
     mesh (GSPMD over four forced host devices, `reference_main`), from
     the same weights and batches, at the limits of the one-process
@@ -546,6 +649,21 @@ def test_placed_steps_equal_the_reference_gspmd_step(spawn, shape, case):
                        want["opts"][:-1])
     assert_states_close(reference_layout(got["state"], arch), want["state"],
                         md, [o.mu for o in want["opts"]], flips)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("shape", REF_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_placed_steps_equal_the_reference_gspmd_step(spawn, shape, case):
+    assert_equals_the_reference(spawn, shape, case)
+
+
+@pytest.mark.parametrize("shape", REF_MOE_MESHES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_placed_moe_equals_the_reference_gspmd_step(spawn, shape):
+    """qwen3-moe over a split batch against the reference's GSPMD step,
+    whose routing is the whole microbatch's: the aux loss, the capacity
+    and each pair's position in its expert."""
+    assert_equals_the_reference(spawn, shape, MOE)
 
 
 def bf16_spacing(x: torch.Tensor) -> torch.Tensor:
@@ -654,7 +772,9 @@ def assert_blocks(local, specs, params, mesh_shape):
 def test_each_rank_holds_its_blocks(spawn, shape):
     """Parameters, moments (int8 codes and row scales) and the gradient
     accumulator: each rank's local shape is the block of its pruned
-    spec, and the step reduced every microbatch's gradient onto it."""
+    spec, and every microbatch's gradient came out of autograd on the
+    parameter's block (never the whole tensor) and was reduced onto the
+    accumulator's."""
     from repro_torch.tree_util import leaves_with_path
 
     ranks = spawn.ranks
@@ -671,19 +791,25 @@ def test_each_rank_holds_its_blocks(spawn, shape):
             for i, (g, b, dt) in enumerate(acc):
                 assert dt == "torch.float32"
                 path = paths[i % len(paths)]
-                assert g == tuple(full[path].shape)
-                assert b == expected_block(g, want[path], shape), path
+                block = expected_block(tuple(full[path].shape), want[path],
+                                       shape)
+                assert g == b == block, path
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_a_whole_accumulator_gives_the_same_step(spawn, shape):
     """`grad_pspecs=None`, as in the reference: the accumulator is whole
-    on every rank (an all-reduce a microbatch), the update still runs on
-    the parameters' blocks, and the step is the one-process step."""
+    on every rank (each block's gradient gathered and summed over the
+    batch a microbatch), the update still runs on the parameters'
+    blocks, and the step is the one-process step."""
+    from repro_torch.tree_util import leaves_with_path
+
     ranks = spawn.ranks
     arch, md = CASES[0]
     got = ranks[0][key(shape, arch, md) + "/whole"]
-    assert all(g == b for g, b, _ in got["accumulator"])
+    whole = [tuple(t.shape) for _, t in leaves_with_path(init(arch)[1])]
+    assert [b for _, b, _ in got["accumulator"]] \
+        == whole * (ACCUM * STEPS)
     p, o, rows = one_process(arch, md, batches(init(arch)[0], STEPS))
     for (l1, g1), (l2, g2) in zip(got["rows"], rows):
         assert abs(l1 / l2 - 1) <= REL and abs(g1 / g2 - 1) <= REL
@@ -691,22 +817,135 @@ def test_a_whole_accumulator_gives_the_same_step(spawn, shape):
 
 
 def test_moe_on_a_model_mesh_equals_one_process(spawn):
-    ranks = spawn.ranks
-    arch, md = MOE
-    got = ranks[0][key((1, 4), arch, md)]
-    p, o, rows = one_process(arch, md, batches(init(arch)[0], STEPS))
-    for (l1, g1), (l2, g2) in zip(got["rows"], rows):
-        assert abs(l1 / l2 - 1) <= REL and abs(g1 / g2 - 1) <= REL
-    assert_states_close(got["state"], (p, o), md)
+    """qwen3-moe over (1, 4): expert parallelism, one expert a rank."""
+    assert_equals_one_process(spawn.ranks, key((1, 4), *MOE), *MOE)
 
 
 @pytest.mark.parametrize("shape", [(4, 1), (2, 2)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
-def test_moe_over_a_split_batch_raises_naming_item_9c(spawn, shape):
-    ranks = spawn.ranks
+def test_moe_over_a_split_batch_equals_one_process(spawn, shape):
+    """qwen3-moe over a batch split 4 and 2 ways: the routing is the whole
+    microbatch's (aux loss, capacity, positions), and the aux term's
+    gradient counts once under the ranks' loss weights."""
+    assert_equals_one_process(spawn.ranks, key(shape, *MOE), *MOE)
+
+
+@pytest.mark.parametrize("case", FAMILIES, ids=lambda c: c[0])
+def test_placed_families_equal_the_one_process_step(spawn, case):
+    """whisper (its encoder, and its decoder's cross-attention, split over
+    `model`) and jamba (Mamba gathered over `model`, attention and MoE
+    split) on (2, 2)."""
+    assert_equals_one_process(spawn.ranks, key(FAMILY_MESH, *case), *case,
+                              first=True)
+
+
+@pytest.mark.parametrize("case", INSIDE_HEADS, ids=lambda c: c[0])
+def test_splits_inside_a_head(spawn, case):
+    """`prune_pspecs` keeps a `model` split of wq, wk or wv that falls
+    inside a head (qwen2-7b's 28 heads on the production mesh's 16 do
+    this). Two query heads on four `model` ranks: the attention computes
+    on weights gathered over `model`, every head on every rank. Six query
+    heads over three KV heads on two: each rank its three query heads,
+    their KV heads gathered, one a query head. Both equal the
+    one-process step."""
+    name, shape, h, kv = case
+    arch, md = CASES[0]
+    specs = pruned_specs(arch, shape, (h, kv))[0]
+    assert "model" in specs["blocks/0/attn/wq"]
+    assert "model" in specs["blocks/0/attn/wk"]
+    tp = shape[1]
     for r in range(WORLD):
-        got = ranks[r][key(shape, *MOE)]
-        assert "item 9c" in got["raised"]
+        want = h if h % tp else h // tp
+        assert spawn.ranks[r][name]["heads"] == [want]
+    assert_equals_one_process(spawn.ranks, name, arch, md, (h, kv),
+                              first=True)
+
+
+def replicated_flops(cfg, tokens: int, tp: int) -> int:
+    """The matmul FLOPs a `model` rank computes beyond its 1/tp share in
+    `tokens` tokens of training (forward, the checkpoint's recompute and
+    the two backward products: 4 x the forward): the KV heads it keeps
+    where `model` does not divide them (each rank's query heads read a
+    whole KV head), and the router of every MoE layer (every rank routes
+    every token)."""
+    from repro_torch.models import lm
+
+    d, hd, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    extra = 0.0
+    for l in range(cfg.n_layers):
+        if Hkv % tp:
+            kept = len({i // (H // Hkv) for i in range(H // tp)})
+            extra += 2 * d * hd * (kept - Hkv / tp)  # wk and wv
+        if lm._layer_has_moe(cfg, l):
+            extra += d * cfg.moe.n_experts * (1 - 1 / tp)
+    return int(4 * 2 * tokens * extra)
+
+
+@pytest.mark.parametrize("case", (CASES[0], MOE), ids=lambda c: c[0])
+def test_the_model_axis_splits_the_compute(spawn, case):
+    """One step at (1, 4): each rank's matmul FLOPs (`FlopCounterMode`:
+    attention projections and kernel 6's plain version, FFN, experts,
+    head) are at least a quarter of the one-process step's and at most a
+    quarter plus the parts computed replicated (`replicated_flops`), and
+    every flash call took H / 4 query heads."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    arch, md = case
+    cfg = init(arch)[0]
+    with FlopCounterMode(display=False) as fc:
+        one_process(arch, md, batches(cfg, 1))
+    full = fc.get_total_flops()
+    extra = replicated_flops(cfg, ACCUM * MB * SEQ, 4)
+    for r in range(WORLD):
+        got = spawn.ranks[r]["flops/" + arch]
+        assert full <= 4 * got["flops"] <= full + 4 * extra, (
+            r, got["flops"], full, extra)
+        assert got["heads"] == [cfg.n_heads // 4]
+
+
+def gathered_bound(arch, shape) -> tuple:
+    """(the bound, the whole tree) in bytes of the parameters gathered
+    over `data` (their `model` blocks): the largest period of blocks (a
+    whisper encoder layer is a period) plus every leaf outside the
+    blocks (embedding, head, norms, position tables)."""
+    from repro_torch.models import lm
+    from repro_torch.tree_util import leaves_with_path
+
+    cfg, params = init(arch)
+    specs = pruned_specs(arch, shape)[0]
+
+    def size(path, t):
+        ways = shape[1] if "model" in specs[path] else 1
+        return t.numel() * t.element_size() // ways
+
+    per = {"blocks": lm.period(cfg), "enc_blocks": 1}
+    periods, top = {}, 0
+    for path, t in leaves_with_path(params):
+        part = path.split("/")
+        if part[0] in per:
+            at = (part[0], int(part[1]) // per[part[0]])
+            periods[at] = periods.get(at, 0) + size(path, t)
+        else:
+            top += size(path, t)
+    return max(periods.values()) + top, sum(periods.values()) + top
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_gathered_parameters_stay_within_a_period(spawn, shape):
+    """`gather_on_use` counted on every rank: the gathered parameter bytes
+    alive at once never exceed one period's plus the leaves outside the
+    blocks, which is less than the whole tree (remat: backward gathers
+    each period again); at (1, 4) nothing is gathered over `data`."""
+    runs = [(key(shape, *c), c[0]) for c in CASES + (MOE,)]
+    if shape == FAMILY_MESH:
+        runs += [(key(shape, *c), c[0]) for c in FAMILIES]
+    for name, arch in runs:
+        bound, tree = gathered_bound(arch, shape)
+        assert bound < tree
+        for r in range(WORLD):
+            peak = spawn.ranks[r][name]["peak"]
+            assert peak <= bound, (name, r, peak, bound)
+            assert (peak == 0) == (shape[0] == 1), (name, r, peak)
 
 
 def _resumed_one_process(ckpt):

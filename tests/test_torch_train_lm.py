@@ -22,6 +22,8 @@
   (~1e-9 against a largest 1e-2: MoE experts, a Mamba out_proj, an sLSTM
   bias) move by up to lr * g/eps, 1.8e-5 apart at lr 3e-4 in these runs,
   and are held to 2 lr, the most two steps can differ.
+- `ModelConfig.remat` on and off (one smoke config a family): the loss
+  and gradients bit-equal, and autograd saves fewer bytes.
 - `MomentCodec` and `adamw_update` for the param, f32, bf16 and int8
   moments against the reference's: int8 codes exact, scales within 1
   ulp, `torch.round`'s half-to-even.
@@ -244,6 +246,48 @@ def test_train_step_matches_the_reference(arch):
         steady = want_mu[k].abs() / 0.1 > 100 * 1e-8  # |g| > 100 eps
         assert float(torch.where(steady, gap, 0.0).max()) <= 1e-5, k
         assert float(gap.max()) <= 2 * ocfg["lr"], k
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_remat_keeps_the_gradient_and_saves_less(arch):
+    """`ModelConfig.remat` (set in every config, as in the reference):
+    each period's blocks run under `torch.utils.checkpoint`. Against remat
+    off, from the same weights and microbatch: the loss and every gradient
+    bit-equal, and autograd saves under half the bytes outside the
+    checkpoints (`saved_tensors_hooks`: the periods' inputs and the head
+    instead of every block's intermediates). The forward draws nothing
+    from the RNG, so a period recomputed without restoring its RNG state
+    computes what it did."""
+    from repro_torch.models import lm
+    from repro_torch.tree_util import map_with_path
+
+    model = dataclasses.replace(get_arch(arch).smoke, dtype="float32")
+    params = lm.init_params(model, torch.Generator().manual_seed(0),
+                            device="cpu")
+    mb = {k: torch.from_numpy(v[0]) for k, v in _train_batch(model).items()}
+    runs = []
+    for remat in (True, False):
+        live = map_with_path(lambda _, t: t.detach().requires_grad_(True),
+                             params)
+        saved = [0]
+
+        def pack(t):
+            saved[0] += t.numel() * t.element_size()
+            return t
+
+        rng = torch.get_rng_state()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = lm.loss_fn(live, mb, dataclasses.replace(
+                model, remat=remat))
+        assert torch.equal(torch.get_rng_state(), rng)
+        leaves = [t for _, t in leaves_with_path(live)]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        runs.append((loss, grads, saved[0]))
+    (l1, g1, n1), (l2, g2, n2) = runs
+    assert torch.equal(l1, l2)
+    for a, b in zip(g1, g2):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert 0 < n1 < 0.5 * n2, (n1, n2)
 
 
 # ---------------------------------------------------------------------------
