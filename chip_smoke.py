@@ -244,7 +244,16 @@ Phases, each of which raises on failure:
    reduce-scatter move nothing, the loss's and norm's all-reduces reach
    NCCL); then qwen2-7b's smoke config
    with int8 moments placed and unplaced, bit-equal, and its placed
-   checkpoint (rank 0 writes) restored unplaced, bit-equal.
+   checkpoint (rank 0 writes) restored unplaced, bit-equal; then the
+   Mamba and xLSTM mixers on the placed path (split over `model` by
+   their channels and heads, the identity at one rank): xlstm-350m at
+   full width and depth (f32 moments) and jamba-v0.1-52b at published
+   widths cut to its two first layers, both Mamba (int8 moments),
+   MIXER_STEPS (2) steps each placed and unplaced from the same weights,
+   bit-equal as above, ms a step, peak memory, the model-side calls
+   (`sum_over_model` among them), and one more placed step profiled:
+   the device time of the Mamba conv and scan, the mLSTM mixer and the
+   sLSTM time loop (``record_function`` ranges).
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, and for the backward phase 13's whisper run, ``launches_revisit`` from the revisit stream,
@@ -256,7 +265,8 @@ PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_lm_search`` from the LM closed loop,
 ``launches_serve_{whisper,llava,xlstm,jamba}`` from phase 12's serves,
 ``launches_train_{whisper,qwen2}`` from phase 13's runs,
-``launches_placed`` from phase 14's placed steps;
+``launches_placed`` from phase 14's placed steps, ``launches_placed_mixers``
+from its placed mixers' steps (0: no kernel lies on them);
 the flash entry also carries the phase 12 shapes' numbers under
 ``*_{whisper_enc,cross_served,cross,ragged,cross_ragged,whisper_dec,
 llava_jamba}`` and the decode entry under
@@ -2283,7 +2293,8 @@ def profile(label: str, fn) -> None:
     annotates on the device's timeline (NCCL's `nccl:*`) span kernels or
     copies that are counted already: they are returned apart, {name:
     (count, ms)} under "annotations", and add nothing to the device
-    time."""
+    time. Under "ranges", {name: (calls, ms)} of each `record_function`
+    range on the host: the device time of the kernels its calls ran."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -2303,6 +2314,12 @@ def profile(label: str, fn) -> None:
             n, t = annotations.get(e.name, (0, 0.0))
             annotations[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3  # ms
+    ranges = {}  # a `record_function` range's calls: the kernels they ran
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU \
+                and getattr(e, "is_user_annotation", False):
+            n, t = ranges.get(e.name, (0, 0.0))
+            ranges[e.name] = (n + 1, t + e.device_time_total / 1e3)
     print(f"profiled {label}: wall {wall * 1e3:.2f} ms, device kernel time "
           f"{busy:.2f} ms ({100.0 * busy / (wall * 1e3):.1f} % busy), "
           f"{len(kernels)} device events (kernel launches and copies)")
@@ -2314,7 +2331,7 @@ def profile(label: str, fn) -> None:
         print(f"  {t:8.3f} ms {n:5d}x {name[:90]}")
     return busy, by_name, {"events": len(kernels), "device_ms": busy,
                            "wall_ms": wall * 1e3,
-                           "annotations": annotations}
+                           "annotations": annotations, "ranges": ranges}
 
 
 NERF_KERNELS = ("quant_matmul_packed", "hash_encode", "gather_composite",
@@ -4286,7 +4303,8 @@ class PlacedCalls:
     """Counts the calls of the placed path's model-side collectives
     (`gather_on_use`, and `Placement`'s operators over `model`) while
     active; at one rank each returns its input and moves nothing."""
-    NAMES = ("copy_to_model", "reduce_from_model", "gather_model")
+    NAMES = ("copy_to_model", "reduce_from_model", "sum_over_model",
+             "gather_model")
 
     def __enter__(self):
         from repro_torch.distributed import sharding
@@ -4309,6 +4327,28 @@ class PlacedCalls:
     def __exit__(self, *exc):
         for owner, name, fn in self.saved:
             setattr(owner, name, fn)
+
+
+def run_steps(step, state, batches, first=None):
+    """`step` over `batches` from `state`, a list [params, opt state]
+    that it empties, so that the first step's inputs are freed as the
+    step replaces them, as in a training loop; `first(p, o)` after the
+    first step. Returns (params, opt state, [(loss, grad norm)], ms a
+    step, peak GiB)."""
+    p, o = state
+    state.clear()
+    torch.cuda.reset_peak_memory_stats()
+    rows, ms = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0 and first is not None:
+            first(p, o)
+    return p, o, rows, ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def placed_qwen2(dev, kern, mesh):
@@ -4340,33 +4380,13 @@ def placed_qwen2(dev, kern, mesh):
         for _ in range(PLACED_STEPS)]
     weights = lambda: lm.init_params(  # noqa: E731
         model, torch.Generator(device=dev).manual_seed(0), device=dev)
-
-    def run(step, state, first=None):
-        """PLACED_STEPS steps from `state`, a list [params, opt state]
-        that it empties, so that the first step's inputs are freed as
-        the step replaces them, as in a training loop."""
-        p, o = state
-        state.clear()
-        torch.cuda.reset_peak_memory_stats()
-        rows, ms = [], []
-        for i, b in enumerate(batches):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p, o, m = step(p, o, b)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
-            rows.append((float(m["loss"]), float(m["grad_norm"])))
-            if i == 0 and first is not None:
-                first(p, o)
-        return p, o, rows, ms, torch.cuda.max_memory_allocated() / 2 ** 30
-
     held = {}
     state = [weights()]
     state.append(adamw_init(state[0], "float32"))
     step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, weight_decay=0.1),
                            moment_dtype="float32")
-    p, o, rows_u, ms_u, peak_u = run(
-        step, state, lambda p, o: held.update(s=to_host((p, o))))
+    p, o, rows_u, ms_u, peak_u = run_steps(
+        step, state, batches, lambda p, o: held.update(s=to_host((p, o))))
     busy_u = profile("unplaced qwen2-7b 2-layer train step",
                      lambda: step(p, o, batches[0]))[0]
     del p, o, step
@@ -4376,9 +4396,9 @@ def placed_qwen2(dev, kern, mesh):
     *state, step = placed_state(model, mesh, "float32", weights())
     zeroed(kern)
     with PlacedCalls() as calls:
-        p, o, rows_p, ms_p, peak_p = run(
-            step, state, lambda p, o: same_bits("the placed qwen2-7b step",
-                                                (p, o), held.pop("s")))
+        p, o, rows_p, ms_p, peak_p = run_steps(
+            step, state, batches, lambda p, o: same_bits(
+                "the placed qwen2-7b step", (p, o), held.pop("s")))
     launches = read(kern)
     print(f"  the placed steps' model-side calls: "
           + ", ".join(f"{n} {v}" for n, v in calls.n.items())
@@ -4612,12 +4632,181 @@ def remat_backward_peaks(dev):
         torch.cuda.empty_cache()
 
 
+# The Mamba and xLSTM mixers on the placed path, split over
+# `model` by their inner channels and heads (at one rank every cut keeps
+# the whole leaf and every operator over `model` returns its input):
+# xlstm-350m at full width and depth (bf16, f32 moments) and
+# jamba-v0.1-52b at published widths cut to its first two layers, both
+# Mamba (layer 0 with the dense SwiGLU FFN, layer 1 with the 16-expert
+# MoE: ~3.7 B parameters; bf16, int8 moments: f32 moments need ~30 GB
+# more, and the update keeps the old and new moments alive at once).
+# (arch, layers (None: all), moment dtype, sequences, positions) of the
+# one microbatch of each of MIXER_STEPS steps. xlstm's step is host-bound
+# by the sLSTM's cell steps (169k device events a step at 4 x 128, which
+# the profiler took ~90 s to read), hence its 32 positions.
+MIXER_RUNS = (("xlstm-350m", None, "float32", 4, 32),
+              ("jamba-v0.1-52b", 2, "int8", 2, 256))
+MIXER_STEPS = 2
+
+
+class MixerRanges:
+    """While active, each mixer part in PARTS runs inside a
+    `torch.profiler.record_function` range of its label, so that
+    `profile` reads the device time of the kernels its calls ran (the
+    forward and the checkpoint's recompute; backward runs outside
+    them)."""
+    PARTS = (("ssm", "_causal_conv", "Mamba conv"),
+             ("ssm", "_selective_scan_chunked", "Mamba scan"),
+             ("xlstm_blocks", "mlstm_forward", "mLSTM mixer"),
+             ("xlstm_blocks", "_slstm_scan", "sLSTM time loop"))
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for mod, name, label in self.PARTS:
+            m = importlib.import_module(f"repro_torch.models.{mod}")
+            fn = getattr(m, name)
+
+            def ranged(*a, _fn=fn, _label=label, **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+
+            self.saved.append((m, name, fn))
+            setattr(m, name, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def mixer_model(arch, layers, dev):
+    """(config, a function that draws its seed-0 weights on `dev`): the
+    published config, cut to its first `layers` layers where given
+    (`lm.init_params` draws whole periods, jamba's 8 layers: the cut
+    draws the embedding, norm and head, then each layer)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    model = get_arch(arch).model
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    if layers is None:
+        return model, lambda: lm.init_params(model, gen(), device=dev)
+    model = dataclasses.replace(model, n_layers=layers)
+
+    def weights():
+        g = gen()
+        params = lm.init_params(dataclasses.replace(model, n_layers=0), g,
+                                device=dev)
+        params["blocks"] = [lm._init_block(g, model, lm._layer_kind(model, l),
+                                           lm._layer_has_moe(model, l))
+                            for l in range(layers)]
+        return params
+
+    return model, weights
+
+
+def mixer_shares(label, busy, ranges) -> str:
+    """Each MixerRanges part's device ms and share of a profiled step's
+    device time `busy`."""
+    return f"{label}: " + ", ".join(
+        f"{name} {ranges[name][1]:.3f} ms over {ranges[name][0]} calls "
+        f"({100.0 * ranges[name][1] / busy:.1f} %)"
+        for _, _, name in MixerRanges.PARTS if name in ranges)
+
+
+def placed_mixers(dev, kern, mesh):
+    """For each of MIXER_RUNS: MIXER_STEPS unplaced steps from the seed-0
+    weights (the first step's state to the host); the same steps placed
+    over `mesh`, counts zeroed around them, and one more profiled. The
+    first step's parameters and moments and every
+    step's loss and grad norm bit-equal. Prints ms a step each way, peak
+    memory, the placed steps' model-side calls (`sum_over_model`,
+    Mamba's, among them), and the device time of the Mamba conv and
+    scan, the mLSTM mixer and the sLSTM time loop in the profiled step
+    (`MixerRanges`). No kernel of the port lies on these layers (jamba's
+    two hold no attention): every count stays 0. Returns the placed
+    steps' launches."""
+    import gc
+
+    from repro_torch.checkpoint.checkpoint import to_host
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.backend import power_limit
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree_util import tree_leaves
+
+    total = {n: 0 for n in kern}
+    for arch, layers, md, mb, seq in MIXER_RUNS:
+        model, weights = mixer_model(arch, layers, dev)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab_size=model.vocab_size, seq_len=seq, global_batch=mb))
+        batches = [{"tokens": torch.from_numpy(pipe.batch()[None]).to(dev)}
+                   for _ in range(MIXER_STEPS)]
+        held = {}
+        state = [weights()]
+        n_params = sum(t.numel() for t in tree_leaves(state[0]))
+        state.append(adamw_init(state[0], md))
+        step = make_train_step(model, AdamWConfig(lr=TRAIN_LR,
+                                                  weight_decay=0.1),
+                               moment_dtype=md)
+        p, o, rows_u, ms_u, peak_u = run_steps(
+            step, state, batches,
+            lambda p, o: held.update(s=to_host((p, o))))
+        del p, o, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        *state, step = placed_state(model, mesh, md, weights())
+        zeroed(kern)
+        with PlacedCalls() as calls:
+            p, o, rows_p, ms_p, peak_p = run_steps(
+                step, state, batches, lambda p, o: same_bits(
+                    f"the placed {arch} step", (p, o), held.pop("s")))
+        launches = read(kern)
+        with MixerRanges():
+            busy_p, _, st_p = profile(f"placed {arch} train step",
+                                      lambda: step(p, o, batches[0]))
+        print(f"{arch} ({model.n_layers} layers, d {model.d_model}, "
+              f"{n_params / 1e9:.2f} B parameters, {model.dtype}, {md} "
+              f"moments) placed over a one-rank NCCL mesh {mesh.shape}: "
+              f"{MIXER_STEPS} steps of {mb} x {seq} tokens, ms a step "
+              f"placed " + ", ".join(f"{t:.2f}" for t in ms_p)
+              + f" (peak {peak_p:.2f} GiB), unplaced "
+              + ", ".join(f"{t:.2f}" for t in ms_u)
+              + f" (peak {peak_u:.2f} GiB); loss, grad norm "
+              + "; ".join(f"{l:.6f}, {g:.4f}" for l, g in rows_p)
+              + "; the first step's parameters and moments bit-equal; "
+              "model-side calls " + ", ".join(f"{n} {v}" for n, v
+                                              in calls.n.items())
+              + f"; launches {launches} ({power_limit()})")
+        print("  " + mixer_shares(f"placed step, device {busy_p:.2f} ms",
+                                  busy_p, st_p["ranges"]))
+        if rows_p != rows_u or not all(np.isfinite(v) for r in rows_p
+                                       for v in r):
+            raise AssertionError(f"{arch}: the placed steps' metrics "
+                                 f"{rows_p} differ from {rows_u}")
+        want = "sum_over_model" if model.pattern == "jamba" \
+            else "reduce_from_model"
+        if not calls.n[want] or not calls.n["copy_to_model"] \
+                or any(launches.values()):
+            raise AssertionError(f"{arch}: the placed mixers made the calls "
+                                 f"{calls.n} and launched {launches}")
+        total = {n: total[n] + launches[n] for n in total}
+        del p, o, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def placement_phase(dev, kern):
     """Phase 14: a one-rank NCCL process group (rendezvous through a
     `FileStore` in a temporary directory), the placed mesh (1, 1), the
-    two checks above; the group is destroyed after them. Then
-    `remat_qwen2` and `remat_backward_peaks`, unplaced. Returns {"placed": the placed qwen2-7b
-    steps' launches}."""
+    three checks above; the group is destroyed after them. Then
+    `remat_qwen2` and `remat_backward_peaks`, unplaced. Returns
+    {"placed": the placed qwen2-7b steps' launches, "placed_mixers": the
+    placed mixers' steps'}."""
     import os
     import torch.distributed as dist
 
@@ -4634,12 +4823,15 @@ def placement_phase(dev, kern):
                 raise AssertionError("the one-rank mesh is not placed")
             launches = placed_qwen2(dev, kern, mesh)
             placed_smoke_int8(dev, mesh, tmp)
+            t1 = time.perf_counter()
+            mixers = placed_mixers(dev, kern, mesh)
+            print(f"  placed mixers: {time.perf_counter() - t1:.2f} s")
         finally:
             dist.destroy_process_group()
     remat_qwen2(dev)
     remat_backward_peaks(dev)
     print(f"phase 14 (placement): {time.perf_counter() - t0:.2f} s")
-    return {"placed": launches}
+    return {"placed": launches, "placed_mixers": mixers}
 
 
 # Sources whose ptxas lines are printed in full (kernel names, stack and

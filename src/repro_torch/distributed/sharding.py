@@ -15,10 +15,12 @@ which carries the collectives the model calls, each an autograd function
 over the mesh's axis groups: `gather_on_use` (all-gather over the FSDP
 axes, reduce-scatter backward), Megatron's `copy_to_model` (identity
 forward, all-reduce backward) and `reduce_from_model` (all-reduce
-forward, identity backward), `gather_model` (all-gather over `model`,
-backward cut to the block, summed first where each rank used a part),
-and the sums over the batch axes that MoE routing reads. At `model` size
-1 the operators over `model` return their input.
+forward, identity backward), `sum_over_model` (all-reduce both ways),
+`gather_model` (all-gather over `model`, backward cut to the block,
+summed first where each rank used a part), and the sums over the batch
+axes that MoE routing reads; `own` cuts a leaf to this rank's heads or
+channels. At `model` size 1 the operators over `model` return their
+input.
 
 Axis roles:
   pod    — pure data parallelism across pods;
@@ -592,6 +594,40 @@ class Placement:
         if self.tp == 1:
             return t
         return _AllReduce.apply(t, (self._tp_group(),), False)
+
+    def sum_over_model(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over `model` of partial sums that every `model` rank
+        then reads in part: all-reduce forward (bfloat16 summed in
+        float32) and backward. Mamba's `x_proj` contracts over the
+        channels, which `model` splits, so each rank's product is a part
+        of (dt, B, C); each rank's own channels read all of them, so each
+        rank's use is a part of their gradient too. `reduce_from_model`'s
+        identity backward would keep only this rank's part."""
+        if self.tp == 1:
+            return t
+        return _AllReduce.apply(t, (self._tp_group(),), True)
+
+    def own(self, t: torch.Tensor, dim: int, whole: int, runs: int = 1
+            ) -> torch.Tensor:
+        """This rank's part along `dim` of a leaf whose whole extent there
+        is `whole`, laid out as `runs` equal runs (Mamba's `in_proj` holds
+        x and z side by side, the sLSTM's `W` and `b` its four gates one
+        after another), each split over `model` in rank order: this
+        rank's block of every run, joined. A block that already is this
+        rank's part (one run split over `model`) is returned as it is; a
+        leaf replicated over `model` is cut after `copy_to_model` (each
+        rank's slice is a part of the gradient, summed in backward); a
+        leaf that `model` splits along other lines (a column block of
+        `in_proj` is a block of runs, not of channels) is gathered with
+        its gradient summed first (`gather_model(summed=True)`), then
+        cut."""
+        n = t.shape[dim]
+        if n * self.tp == whole and (runs == 1 or self.tp == 1):
+            return t
+        t = self.copy_to_model(t) if n == whole \
+            else self.gather_model(t, dim, summed=True)
+        return t.unflatten(dim, (runs, self.tp, whole // runs // self.tp)) \
+            .select(dim + 1, self.tp_rank).flatten(dim, dim + 1)
 
     def max_over_model(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over `model` of a tensor without gradient."""

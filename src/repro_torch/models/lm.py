@@ -38,10 +38,11 @@ backward gathers them again and at most one period's are alive at a
 time). Over `model`: the embedding is vocab-parallel (each rank looks up
 its rows, zeros elsewhere, summed over `model`), the head gives
 vocab-split logits and `loss_fn` takes a vocab-parallel cross entropy;
-attention splits its heads, the dense FFN its hidden units, MoE its
-experts (`models.attention`, `models.ffn`). Attention whose query heads
-`model` does not divide, and the Mamba and xLSTM mixers, compute on
-their weights gathered over `model` as well.
+attention, mLSTM and sLSTM split their heads, Mamba its inner channels,
+the dense FFN its hidden units, MoE its experts (`models.attention`,
+`models.xlstm_blocks`, `models.ssm`, `models.ffn`). A mixer whose heads
+(or, for Mamba, channels) `model` does not divide computes on its
+weights gathered over `model` as well, whole on every `model` rank.
 """
 from __future__ import annotations
 
@@ -439,11 +440,11 @@ def _mixer(bp: Dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
                                   use_rope=cfg.pos_embed == "rope",
                                   placement=placement)
     if kind == "mamba":
-        return ssm_mod.ssm_forward(bp["ssm"], h, cfg)
+        return ssm_mod.ssm_forward(bp["ssm"], h, cfg, placement=placement)
     if kind == "mlstm":
-        return xl.mlstm_forward(bp["mlstm"], h, cfg)
+        return xl.mlstm_forward(bp["mlstm"], h, cfg, placement)
     if kind == "slstm":
-        return xl.slstm_forward(bp["slstm"], h, cfg)
+        return xl.slstm_forward(bp["slstm"], h, cfg, placement)
     raise ValueError(kind)
 
 
@@ -480,14 +481,17 @@ def _apply_block(bp: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 def _placed_block(bp: Dict, specs: Dict, cfg: ModelConfig, placement
                   ) -> Dict:
     """Block `bp` (this rank's blocks, their `specs`) as it computes:
-    gathered over the FSDP axes; the Mamba and xLSTM mixers, and
-    attention whose query heads `model` does not divide, gathered over
-    `model` too (computed whole on every `model` rank)."""
+    gathered over the FSDP axes; a mixer that `model` cannot split by
+    its heads (attention, mLSTM, sLSTM: `model` does not divide n_heads)
+    or its inner channels (Mamba: it does not divide d_inner) gathered
+    over `model` too, computed whole on every `model` rank. The others
+    cut their heads or channels from what their specs leave (mixers'
+    `_own_heads`, `_own_channels`)."""
     bp = placement.use(bp, specs)
     if placement.tp > 1:
-        whole = ["ssm", "mlstm", "slstm"]
+        whole = ["ssm"] if ssm_mod.ssm_dims(cfg)[0] % placement.tp else []
         if cfg.n_heads % placement.tp:
-            whole += ["attn", "xattn"]
+            whole += ["attn", "xattn", "mlstm", "slstm"]
         for name in whole:
             if name in bp:
                 bp[name] = placement.whole(bp[name], specs[name])

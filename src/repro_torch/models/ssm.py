@@ -14,11 +14,16 @@ agree to float32 rounding, not bit for bit.
 
 Decode is the plain recurrence on (conv window, SSM state): O(1) a
 token.
+
+Placed training splits the block over `model` by its inner channels
+(`ssm_forward`'s `placement`): each rank runs the conv, the scan and D on
+its d_inner / tp channels, as GSPMD splits the reference's by the same
+specs.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -139,18 +144,50 @@ def _selective_scan_chunked(
     return torch.cat(ys, dim=1), h
 
 
+# Each leaf's (axis of channels, runs along it) under a split over
+# `model`: `in_proj`'s columns are x's channels, then z's.
+_CHANNELS = {"in_proj": (1, 2), "conv_w": (1, 1), "conv_b": (0, 1),
+             "x_proj": (0, 1), "dt_proj_w": (1, 1), "dt_proj_b": (0, 1),
+             "A_log": (0, 1), "D": (0, 1), "out_proj": (0, 1)}
+
+
+def _own_channels(params: Dict, cfg: ModelConfig, placement
+                  ) -> Optional[Dict]:
+    """This rank's leaves where `model` divides d_inner (at one `model`
+    rank, every channel), else None. Rank r holds channels
+    [r din/tp, (r+1) din/tp): of `in_proj`, those columns of the x half
+    and of the z half (`Placement.own`)."""
+    din = ssm_dims(cfg)[0]
+    if placement is None or din % placement.tp:
+        return None
+    return {name: placement.own(w, dim, runs * din, runs)
+            for name, w in params.items()
+            for dim, runs in (_CHANNELS[name],)}
+
+
 def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                chunk: int = 128, return_state: bool = False):
+                chunk: int = 128, return_state: bool = False,
+                placement=None):
     """Training/prefill pass. x: (B, S, d) -> (B, S, d); with
     `return_state`, also the decode cache at position S (the conv window
-    of raw post-in_proj inputs and the final SSM state)."""
+    of raw post-in_proj inputs and the final SSM state). Under a
+    `placement` whose `model` axis divides d_inner, this rank's channels
+    (`_own_channels`) between Megatron's two operators: the conv, the
+    scan and D run on them, and x_proj's product, a part of (dt, B, C)
+    over the channels, is summed over `model` first."""
+    own = _own_channels(params, cfg, placement)
+    if own is not None:
+        params, x = own, placement.copy_to_model(x)
     B, S, d = x.shape
-    din, r, n = ssm_dims(cfg)
+    _, r, n = ssm_dims(cfg)
+    din = params["conv_w"].shape[1]
     xz = x @ params["in_proj"]
     xs_raw, z = xz[..., :din], xz[..., din:]
     xs = F.silu(_causal_conv(xs_raw, params["conv_w"], params["conv_b"]))
 
     dbc = xs @ params["x_proj"]
+    if own is not None:
+        dbc = placement.sum_over_model(dbc)
     dt_in, Bc, Cc = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
     delta = _softplus(dt_in.float() @ params["dt_proj_w"]
                       + params["dt_proj_b"])  # (B, S, din) f32
@@ -162,6 +199,8 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     y = y + params["D"] * xs.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]
+    if own is not None:
+        out = placement.reduce_from_model(out)
     if return_state:
         K = cfg.ssm_conv
         window = F.pad(xs_raw, (0, 0, K - 1, 0))[:, S:, :]

@@ -12,11 +12,15 @@ reference's prefill runs the recurrence twice for the same numbers.
 
 Decode for both is an O(1) recurrent update on a small carried state.
 Both caches start their stabilizer `m` at -1e30.
+
+Placed training splits both cells over `model` by their heads (the
+forwards' `placement`): each head's recurrence is its own, so a rank
+runs its H / tp heads with no collective inside the time loop.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +33,35 @@ NEG_INF = -1e30
 def _heads(cfg: ModelConfig) -> Tuple[int, int]:
     H = cfg.n_heads
     return H, cfg.d_model // H
+
+
+# Each leaf's (axis of heads, entries a head along it: "dh" or 1, runs
+# along it) under a split over `model`. The sLSTM's `W` and `b` hold the
+# four gates one after another (gate-major (4, H, dh)): a column block of
+# `W` is a block of gates, so each gate's run is cut to this rank's heads.
+_MLSTM_HEADS = {"wq": (1, "dh", 1), "wk": (1, "dh", 1), "wv": (1, "dh", 1),
+                "wog": (1, "dh", 1), "wi": (1, 1, 1), "wf": (1, 1, 1),
+                "bi": (0, 1, 1), "bf": (0, 1, 1), "norm_scale": (0, 1, 1),
+                "out_proj": (0, "dh", 1)}
+_SLSTM_HEADS = {"W": (1, "dh", 4), "b": (0, "dh", 4), "R": (0, 1, 1),
+                "norm_scale": (0, 1, 1), "out_proj": (0, "dh", 1)}
+
+
+def _own_heads(params: Dict, cfg: ModelConfig, placement, layout: Dict
+               ) -> Optional[Dict]:
+    """This rank's leaves where `model` divides the heads (at one `model`
+    rank, every head), else None. Rank r holds heads [r H/tp, (r+1) H/tp)
+    of every leaf (`layout`, `Placement.own`). Each head's recurrence is
+    its own, so a cell runs on its heads with no collective inside."""
+    H, dh = _heads(cfg)
+    if placement is None or H % placement.tp:
+        return None
+    own = {}
+    for name, w in params.items():
+        dim, size, runs = layout[name]
+        size = dh if size == "dh" else size
+        own[name] = placement.own(w, dim, runs * H * size, runs)
+    return own
 
 
 # ---------------------------------------------------------------------------
@@ -87,11 +120,17 @@ def _gates(params: Dict, x: torch.Tensor):
     return log_i, log_f
 
 
-def mlstm_forward(params: Dict, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """Stabilized parallel mLSTM. x: (B, S, d) -> (B, S, d)."""
+def mlstm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  placement=None) -> torch.Tensor:
+    """Stabilized parallel mLSTM. x: (B, S, d) -> (B, S, d). Under a
+    `placement` whose `model` axis divides the heads, this rank's heads
+    (`_own_heads`) between Megatron's two operators."""
+    own = _own_heads(params, cfg, placement, _MLSTM_HEADS)
+    if own is not None:
+        params, x = own, placement.copy_to_model(x)
     B, S, d = x.shape
-    H, dh = _heads(cfg)
+    dh = _heads(cfg)[1]
+    H = params["wi"].shape[1]
     q = (x @ params["wq"]).reshape(B, S, H, dh)
     k = (x @ params["wk"]).reshape(B, S, H, dh)
     v = (x @ params["wv"]).reshape(B, S, H, dh)
@@ -129,7 +168,8 @@ def mlstm_forward(params: Dict, x: torch.Tensor,
 
     h = _headwise_rms(h, params["norm_scale"].float())
     h = (h.to(x.dtype) * og).reshape(B, S, H * dh)
-    return h @ params["out_proj"]
+    out = h @ params["out_proj"]
+    return out if own is None else placement.reduce_from_model(out)
 
 
 def mlstm_final_state(params: Dict, x: torch.Tensor,
@@ -226,8 +266,9 @@ def init_slstm(generator: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def _slstm_cell(params: Dict, wx_t: torch.Tensor, state, cfg: ModelConfig):
-    """One recurrence step. wx_t: (B, 4, H, dh) precomputed W @ x_t + b."""
-    H, dh = _heads(cfg)
+    """One recurrence step. wx_t: (B, 4, H, dh) precomputed W @ x_t + b;
+    H the heads `params["R"]` holds."""
+    H, dh = params["R"].shape[:2]
     c, n, h, m = state  # each (B, H, dh)
     rh = torch.einsum("bhd,hdk->bhk", h, params["R"].float())
     rh = rh.reshape(h.shape[0], H, 4, dh).transpose(1, 2)  # (B, 4, H, dh)
@@ -247,11 +288,11 @@ def _slstm_cell(params: Dict, wx_t: torch.Tensor, state, cfg: ModelConfig):
 
 def _slstm_wx(params: Dict, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
-    """W @ x + b in float32: (B, S, 4, H, dh)."""
+    """W @ x + b in float32: (B, S, 4, H, dh), H the heads `W` holds."""
     B, S, _ = x.shape
-    H, dh = _heads(cfg)
+    dh = _heads(cfg)[1]
     wx = x.float() @ params["W"].float() + params["b"]
-    return wx.reshape(B, S, 4, H, dh)
+    return wx.reshape(B, S, 4, -1, dh)
 
 
 def _slstm_scan(params: Dict, x: torch.Tensor, cfg: ModelConfig
@@ -259,8 +300,8 @@ def _slstm_scan(params: Dict, x: torch.Tensor, cfg: ModelConfig
     """The recurrence over x (B, S, d) from the zero state (m at -1e30):
     (h at every position (B, S, H, dh), the final state)."""
     wx = _slstm_wx(params, x, cfg)
-    state = tuple(init_slstm_cache(cfg, x.shape[0], x.device)[k]
-                  for k in ("c", "n", "h", "m"))
+    zero = wx.new_zeros(wx.shape[:1] + wx.shape[3:])  # (B, H, dh)
+    state = (zero, zero, zero, torch.full_like(zero, NEG_INF))
     hs = []
     for t in range(x.shape[1]):
         state = _slstm_cell(params, wx[:, t], state, cfg)
@@ -277,10 +318,16 @@ def _slstm_out(params: Dict, h: torch.Tensor, x: torch.Tensor
     return h.to(x.dtype).reshape(B, S, -1) @ params["out_proj"]
 
 
-def slstm_forward(params: Dict, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d); sequential over S."""
-    return _slstm_out(params, _slstm_scan(params, x, cfg)[0], x)
+def slstm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  placement=None) -> torch.Tensor:
+    """x: (B, S, d); sequential over S. Under a `placement` whose `model`
+    axis divides the heads, this rank's heads (`_own_heads`) between
+    Megatron's two operators: the time loop runs on them alone."""
+    own = _own_heads(params, cfg, placement, _SLSTM_HEADS)
+    if own is not None:
+        params, x = own, placement.copy_to_model(x)
+    out = _slstm_out(params, _slstm_scan(params, x, cfg)[0], x)
+    return out if own is None else placement.reduce_from_model(out)
 
 
 def slstm_final_state(params: Dict, x: torch.Tensor,

@@ -7,10 +7,13 @@ scenario, on the meshes (4, 1), (2, 2) and (1, 4) over ("data",
 float32 and with int8 moments, of llama3-405b's (int8 moments) and of
 qwen3-moe's (float32; its routing over a split batch is the whole
 microbatch's), from the seed-0 weights placed by their pruned specs;
-whisper's (cross-attention split over `model`) and jamba's (Mamba
-gathered over `model`, attention and MoE split) on (2, 2); two head
-layouts whose `model` split falls inside a head; the compute of one step
-at (1, 4) counted (`FlopCounterMode`); and a checkpoint written on (2, 2)
+whisper's (cross-attention split over `model`) on (2, 2); jamba's (Mamba
+split by its inner channels, attention and MoE split) and xlstm's (mLSTM
+and sLSTM split by their heads) on (2, 2) and (1, 4); two head layouts
+whose `model` split falls inside a head, and xlstm's with 2 heads on
+(1, 4) (its cells compute whole); the compute of one step at (1, 4)
+counted (`FlopCounterMode`), and the model-side calls of each Mamba and
+xLSTM mixer at two sequence lengths; and a checkpoint written on (2, 2)
 after two steps, then two more steps there (the uninterrupted run), the
 same checkpoint restored on (4, 1) and trained two steps, and restored
 by `restore_checkpoint` onto (4, 1)'s blocks directly. Every rank counts
@@ -68,10 +71,21 @@ AXES = ("data", "model")
 CASES = (("qwen2-7b", "float32"), ("qwen2-7b", "int8"),
          ("llama3-405b", "int8"))
 MOE = ("qwen3-moe-235b-a22b", "float32")
-# The other block families, on (2, 2): cross-attention split over `model`
-# (whisper), Mamba gathered over it beside split attention and MoE (jamba)
-FAMILIES = (("whisper-large-v3", "float32"), ("jamba-v0.1-52b", "float32"))
-FAMILY_MESH = (2, 2)
+# The other block families: cross-attention split over `model` (whisper,
+# on (2, 2)); Mamba split by its inner channels beside split attention and
+# MoE (jamba), mLSTM and sLSTM by their heads (xlstm), on (2, 2) and (1, 4)
+FAMILIES = (("whisper-large-v3", "float32", (2, 2)),
+            ("jamba-v0.1-52b", "float32", (2, 2)),
+            ("jamba-v0.1-52b", "float32", (1, 4)),
+            ("xlstm-350m", "float32", (2, 2)),
+            ("xlstm-350m", "float32", (1, 4)))
+# xlstm's smoke config with 2 heads on (1, 4): `model` does not divide the
+# heads, so both cells compute whole on weights gathered over `model`
+MIXER_WHOLE = ("xlstm-whole", (1, 4), 2, 2, "xlstm-350m")
+# The block families whose compute a step at (1, 4) counts, and whose
+# model-side calls a mixer are counted at two sequence lengths
+SPLIT = (("jamba-v0.1-52b", "float32"), ("xlstm-350m", "float32"))
+GUARD_SEQS = (16, 32)
 # Head layouts whose `model` split falls inside a head (qwen2-7b's smoke
 # config with other head counts): (name, mesh, n_heads, n_kv_heads). Two
 # query heads on four `model` ranks (wq's columns split mid-head: the
@@ -91,20 +105,25 @@ STEPS, ACCUM, MB, SEQ = 2, 2, 4, 32
 LR = 3e-4  # the launcher's default, weight decay 0.1
 REL = 1e-5
 EPS = 1e-8  # AdamWConfig().eps
+# xlstm's moments are held leaf by leaf to twice what SENS_DRAWS draws of
+# SENS_REL relative weight noise (about one float32 ulp) move them in the
+# one-process step, and to no less than REL, as `chip_smoke.py` holds
+# them card against CPU (`moment_spread`)
+SENS_REL, SENS_DRAWS = 1e-7, 4
 
 
 def key(shape, arch, md) -> str:
     return f"{shape[0]}x{shape[1]}/{arch}/{md}"
 
 
-def batches(cfg, n: int, seed: int = 0):
-    """n (A, MB, SEQ) token stacks (and whisper's (A, MB, S_src, d)
+def batches(cfg, n: int, seed: int = 0, seq: int = SEQ):
+    """n (A, MB, seq) token stacks (and whisper's (A, MB, S_src, d)
     frames), the same in every process."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         b = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (ACCUM, MB, SEQ)).astype(np.int32))}
+            0, cfg.vocab_size, (ACCUM, MB, seq)).astype(np.int32))}
         if cfg.embed_frontend == "stub_frames":
             b["frames"] = torch.from_numpy((rng.normal(size=(
                 ACCUM, MB, cfg.max_source_len, cfg.d_model)) * 0.02)
@@ -113,23 +132,23 @@ def batches(cfg, n: int, seed: int = 0):
     return out
 
 
-def smoke(arch: str, dtype: str = "float32", heads=None):
+def smoke(arch: str, dtype: str = "float32", heads=None, remat=True):
     """The smoke config, its parameters in `dtype`; `heads` (n_heads,
-    n_kv_heads) replaces its head counts."""
+    n_kv_heads) replaces its head counts, and `remat` its own."""
     from repro_torch.configs import get_arch
 
     cfg = dataclasses.replace(get_arch(arch).smoke, dtype=dtype)
     if heads is not None:
         cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
-    return cfg
+    return dataclasses.replace(cfg, remat=remat)
 
 
-def init(arch: str, dtype: str = "float32", heads=None):
-    """The smoke config (its parameters in `dtype`, `heads` as `smoke`
-    takes them) and its seed-0 weights."""
+def init(arch: str, dtype: str = "float32", heads=None, remat=True):
+    """The smoke config (its parameters in `dtype`, `heads` and `remat` as
+    `smoke` takes them) and its seed-0 weights."""
     from repro_torch.models import lm
 
-    cfg = smoke(arch, dtype, heads)
+    cfg = smoke(arch, dtype, heads, remat)
     return cfg, lm.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
 
@@ -155,12 +174,12 @@ def train(step, p, o, bs, each=None):
 # One rank of the spawn
 # ---------------------------------------------------------------------------
 def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
-               dtype="float32", each=None, heads=None):
+               dtype="float32", each=None, heads=None, remat=True):
     """Train `bs` placed over `mesh` from the seed-0 weights (in `dtype`;
-    `heads` as `smoke` takes them), the accumulator placed like the
-    parameters (or, `grad_pspecs=False`, whole on every rank); `each` as
-    `train` takes it. Returns (params, opt state, rows, the pruned specs,
-    {path: local shape})."""
+    `heads` and `remat` as `smoke` takes them), the accumulator placed
+    like the parameters (or, `grad_pspecs=False`, whole on every rank);
+    `each` as `train` takes it. Returns (params, opt state, rows, the
+    pruned specs, {path: local shape})."""
     from repro_torch.distributed.sharding import (
         ShardingConfig,
         blocks,
@@ -173,7 +192,7 @@ def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
     from repro_torch.optim import adamw_init
     from repro_torch.tree_util import leaves_with_path
 
-    cfg, params = init(arch, dtype, heads)
+    cfg, params = init(arch, dtype, heads, remat)
     pspec = param_pspecs(params, ShardingConfig(), mesh)
     p = place(params, named(mesh, pspec))
     o = from_blocks(adamw_init(blocks(p), md),
@@ -200,6 +219,8 @@ def rank_main(rank: int, store: str, out: str) -> None:
     from repro_torch.launch.train import checkpoint_state, restore_state
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import xlstm_blocks as xl
     from repro_torch.tree_util import leaves_with_path
 
     torch.set_num_threads(1)
@@ -235,16 +256,30 @@ def rank_main(rank: int, store: str, out: str) -> None:
         return flash(q, k, v, causal)
 
     attn_mod.ops.flash_attention = counting
+    channels, cells = [], []  # the scans' d_inner, the xLSTM cells' heads
+    scan, rms = ssm_mod._selective_scan_chunked, xl._headwise_rms
+
+    def scanning(delta, *a):
+        channels.append(delta.shape[-1])
+        return scan(delta, *a)
+
+    def norming(h, *a):
+        cells.append(h.shape[-2])
+        return rms(h, *a)
+
+    ssm_mod._selective_scan_chunked, xl._headwise_rms = scanning, norming
 
     def run(mesh, arch, md, bs, **kw):
-        """`placed_run`, the most gathered bytes alive during it and the
-        query head counts its flash calls took."""
+        """`placed_run`, the most gathered bytes alive during it, the
+        query head counts its flash calls took, the channels its scans
+        ran on and the heads its xLSTM cells ran on."""
         alive[1] = alive[0]
-        del heads[:]
+        del heads[:], channels[:], cells[:]
         p, o, rows, specs, local = placed_run(mesh, arch, md, bs, record,
                                               **kw)
         return p, o, rows, specs, local, {
-            "peak": alive[1], "heads": sorted({q[1] * q[3] for q in heads})}
+            "peak": alive[1], "heads": sorted({q[1] * q[3] for q in heads}),
+            "channels": sorted(set(channels)), "cells": sorted(set(cells))}
 
     gathered = lambda t: sharding.gather(t) if rank == 0 \
         else sharding.gather(t) and None  # noqa: E731
@@ -269,17 +304,17 @@ def rank_main(rank: int, store: str, out: str) -> None:
             "rows": rows, "accumulator": list(record),
             "state": gathered((p, o))}
 
-    mesh = make_mesh(FAMILY_MESH, AXES, "cpu")
-    for arch, md in FAMILIES:
+    for arch, md, shape in FAMILIES:
         mids = []
         _, _, rows, _, _, seen = run(
-            mesh, arch, md, batches(init(arch)[0], STEPS),
+            make_mesh(shape, AXES, "cpu"), arch, md,
+            batches(init(arch)[0], STEPS),
             each=lambda p, o: mids.append(gathered((p, o))))
-        res[key(FAMILY_MESH, arch, md)] = {"rows": rows, "mids": mids,
-                                           **seen}
+        res[key(shape, arch, md)] = {"rows": rows, "mids": mids, **seen}
 
-    for name, shape, h, kv in INSIDE_HEADS:
-        arch, md, mids = *CASES[0], []
+    for name, shape, h, kv, arch in [c + (CASES[0][0],) for c in INSIDE_HEADS
+                                     ] + [MIXER_WHOLE]:
+        md, mids = "float32", []
         _, _, rows, _, _, seen = run(
             make_mesh(shape, AXES, "cpu"), arch, md,
             batches(init(arch)[0], STEPS), heads=(h, kv),
@@ -288,10 +323,55 @@ def rank_main(rank: int, store: str, out: str) -> None:
 
     # one step's compute at (1, 4), counted
     mesh = make_mesh((1, 4), AXES, "cpu")
-    for arch, md in (CASES[0], MOE):
+    for arch, md in (CASES[0], MOE) + SPLIT:
         with FlopCounterMode(display=False) as fc:
             *_, seen = run(mesh, arch, md, batches(init(arch)[0], 1))
         res["flops/" + arch] = {"flops": fc.get_total_flops(), **seen}
+
+    # One step at (1, 4) at each of GUARD_SEQS, remat off (a recompute
+    # stops once it has what backward saved, so it may skip a period's
+    # last calls): each mixer's calls of Placement's operators over
+    # `model` (attributed to the mixer running them) and every collective
+    # the step issues
+    made, site = {}, [None]
+
+    def counted(owner, name, fn):
+        def call(*a, **kw):
+            for at in ("step",) if owner is dist else (site[0],):
+                if at is not None:
+                    n = made.setdefault(at, {})
+                    n[name] = n.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    mixer = lm._mixer
+
+    def attributed(bp, h, cfg, kind, *a):
+        site[0] = kind
+        n = made.setdefault(kind, {})
+        n["calls"] = n.get("calls", 0) + 1
+        try:
+            return mixer(bp, h, cfg, kind, *a)
+        finally:
+            site[0] = None
+
+    saved = [(sharding.Placement, n, getattr(sharding.Placement, n))
+             for n in ("copy_to_model", "reduce_from_model",
+                       "sum_over_model", "gather_model", "max_over_model")]
+    saved += [(dist, n, getattr(dist, n)) for n in (
+        "all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")]
+    for owner, name, fn in saved:
+        setattr(owner, name, counted(owner, name, fn))
+    lm._mixer = attributed
+    for arch, md in SPLIT:
+        for seq in GUARD_SEQS:
+            made.clear()
+            run(mesh, arch, md, batches(init(arch)[0], 1, seq=seq),
+                remat=False)
+            res[f"guard/{arch}/{seq}"] = {k: dict(v) for k, v in made.items()}
+    lm._mixer = mixer
+    for owner, name, fn in saved:
+        setattr(owner, name, fn)
 
     # bfloat16 parameters, against the reference's GSPMD step
     for shape in REF_MESHES:
@@ -506,9 +586,39 @@ def _decoded(m, md):
     return m.codes.float() * m.scale if md == "int8" else m
 
 
-def assert_states_close(got, want, md, mus=None, flipped=None):
+def moment_spread(arch, heads=None) -> dict:
+    """{moment leaf ("1/mu/...", "1/nu/..."): the largest change over its
+    largest entry} that SENS_DRAWS draws of SENS_REL relative weight
+    noise make in the one-process first step: what float32 rounding
+    alone moves them (`scripts/torch_train_grad_sensitivity.py`)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree_util import leaves_with_path, tree_map
+
+    cfg, params = init(arch, heads=heads)
+    step = make_train_step(cfg, opt_cfg(), moment_dtype="float32")
+    b = batches(cfg, 1)[0]
+    moments = lambda p: {  # noqa: E731
+        "1/" + k: t for k, t in leaves_with_path(step(
+            p, adamw_init(p, "float32"), b)[1]) if k != "step"}
+    base, gen = moments(params), torch.Generator().manual_seed(1)
+    spread = dict.fromkeys(base, 0.0)
+    for _ in range(SENS_DRAWS):
+        got = moments(tree_map(lambda t: t * (1 + SENS_REL * torch.randn(
+            t.shape, generator=gen)), params))
+        for k, t in base.items():
+            top = float(t.abs().max())
+            if top:
+                spread[k] = max(spread[k],
+                                float((got[k] - t).abs().max()) / top)
+    return spread
+
+
+def assert_states_close(got, want, md, mus=None, flipped=None,
+                        spread=None):
     """(params, opt state) trees: moments within REL of each leaf's
-    largest entry (int8: codes within one step, scales within REL);
+    largest entry (int8: codes within one step, scales within REL; given
+    `spread`, `moment_spread`'s, within max(REL, 2 x the leaf's spread));
     parameters as `tests/test_torch_train_lm.py` holds them, within REL
     where the gradient exceeds 100 eps and within 2 lr elsewhere (the
     key biases' gradient is rounding noise: softmax ignores the shift
@@ -548,7 +658,8 @@ def assert_states_close(got, want, md, mus=None, flipped=None):
             assert float(torch.where(steady, diff, 0.0).max()) <= REL, k
             continue
         top = float(b.double().abs().max())
-        assert float(diff.max()) <= REL * top, (k, float(diff.max()), top)
+        bound = REL if spread is None else max(REL, 2 * spread.get(k, 0.0))
+        assert float(diff.max()) <= bound * top, (k, float(diff.max()), top)
 
 
 def expected_block(shape, spec, mesh_shape):
@@ -582,7 +693,13 @@ def assert_equals_one_process(ranks, name, arch, md, heads=None,
     is rounding noise (below eps) takes a first AdamW update of up to lr
     either way; in the deeper or odder layouts (`first`) those entries
     move the second step's gradients by more than REL of a leaf, while
-    the metrics of every step still agree."""
+    the metrics of every step still agree. xlstm's moments are held to
+    `moment_spread`'s band: the gradient of the mLSTM's input-gate bias
+    is near rounding noise (a shift of every log input gate of a head
+    shifts the stabilizer m with it and cancels, unless exp(-m) is the
+    normaliser), and one ulp of weight noise moves its moments by up to
+    9e-2 of their largest entry in the one-process step alone; the
+    metrics and parameters keep their limits."""
     got = ranks[0][name]
     for r in range(1, WORLD):  # the metrics are equal on every rank
         assert ranks[r][name]["rows"] == got["rows"]
@@ -592,10 +709,12 @@ def assert_equals_one_process(ranks, name, arch, md, heads=None,
                              each=lambda p, o: after.append((p, o)))
     for (l1, g1), (l2, g2) in zip(got["rows"], rows):
         assert abs(l1 / l2 - 1) <= REL and abs(g1 / g2 - 1) <= REL
+    spread = moment_spread(arch, heads) \
+        if smoke(arch).pattern == "xlstm" else None
     if first:
-        assert_states_close(got["mids"][0], after[0], md)
+        assert_states_close(got["mids"][0], after[0], md, spread=spread)
     else:
-        assert_states_close(got["state"], (p, o), md)
+        assert_states_close(got["state"], (p, o), md, spread=spread)
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}")
@@ -830,12 +949,32 @@ def test_moe_over_a_split_batch_equals_one_process(spawn, shape):
     assert_equals_one_process(spawn.ranks, key(shape, *MOE), *MOE)
 
 
-@pytest.mark.parametrize("case", FAMILIES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", FAMILIES,
+                         ids=lambda c: f"{c[0]}-{c[2][0]}x{c[2][1]}")
 def test_placed_families_equal_the_one_process_step(spawn, case):
     """whisper (its encoder, and its decoder's cross-attention, split over
-    `model`) and jamba (Mamba gathered over `model`, attention and MoE
-    split) on (2, 2)."""
-    assert_equals_one_process(spawn.ranks, key(FAMILY_MESH, *case), *case,
+    `model`) on (2, 2); jamba (Mamba split by its inner channels,
+    attention and MoE split) and xlstm (mLSTM and sLSTM split by their
+    heads) on (2, 2) and (1, 4)."""
+    arch, md, shape = case
+    assert_equals_one_process(spawn.ranks, key(shape, arch, md), arch, md,
+                              first=True)
+
+
+def test_a_mixer_whose_heads_model_does_not_divide_computes_whole(spawn):
+    """xlstm's smoke config with 2 heads on (1, 4): `prune_pspecs` keeps
+    `W` split (two gate-heads a rank) and `out_proj` split inside a head
+    and replicates `R`; `model` does not divide the heads, so both cells
+    run every head on every rank, on weights gathered over `model`, and
+    the step equals the one-process step."""
+    name, shape, h, kv, arch = MIXER_WHOLE
+    specs = pruned_specs(arch, shape, (h, kv))[0]
+    assert "model" in specs["blocks/1/slstm/W"]
+    assert "model" in specs["blocks/0/mlstm/out_proj"]
+    assert "model" not in specs["blocks/1/slstm/R"]
+    for r in range(WORLD):
+        assert spawn.ranks[r][name]["cells"] == [h]
+    assert_equals_one_process(spawn.ranks, name, arch, "float32", (h, kv),
                               first=True)
 
 
@@ -865,15 +1004,17 @@ def replicated_flops(cfg, tokens: int, tp: int) -> int:
     """The matmul FLOPs a `model` rank computes beyond its 1/tp share in
     `tokens` tokens of training (forward, the checkpoint's recompute and
     the two backward products: 4 x the forward): the KV heads it keeps
-    where `model` does not divide them (each rank's query heads read a
-    whole KV head), and the router of every MoE layer (every rank routes
-    every token)."""
+    in an attention layer where `model` does not divide them (each
+    rank's query heads read a whole KV head), and the router of every
+    MoE layer (every rank routes every token). The Mamba and xLSTM
+    mixers add nothing: x_proj's contraction, the scan and the sLSTM's
+    `R` split with the channels and heads."""
     from repro_torch.models import lm
 
     d, hd, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     extra = 0.0
     for l in range(cfg.n_layers):
-        if Hkv % tp:
+        if Hkv % tp and lm._layer_kind(cfg, l) == "attn":
             kept = len({i // (H // Hkv) for i in range(H // tp)})
             extra += 2 * d * hd * (kept - Hkv / tp)  # wk and wv
         if lm._layer_has_moe(cfg, l):
@@ -881,14 +1022,20 @@ def replicated_flops(cfg, tokens: int, tp: int) -> int:
     return int(4 * 2 * tokens * extra)
 
 
-@pytest.mark.parametrize("case", (CASES[0], MOE), ids=lambda c: c[0])
+@pytest.mark.parametrize("case", (CASES[0], MOE) + SPLIT,
+                         ids=lambda c: c[0])
 def test_the_model_axis_splits_the_compute(spawn, case):
     """One step at (1, 4): each rank's matmul FLOPs (`FlopCounterMode`:
     attention projections and kernel 6's plain version, FFN, experts,
-    head) are at least a quarter of the one-process step's and at most a
-    quarter plus the parts computed replicated (`replicated_flops`), and
-    every flash call took H / 4 query heads."""
+    head; Mamba's projections and scan, the xLSTM cells' projections,
+    contractions and recurrent products) are at least a quarter of the
+    one-process step's and at most a quarter plus the parts computed
+    replicated (`replicated_flops`, none in a Mamba or xLSTM mixer);
+    every flash call took H / 4 query heads, every scan d_inner / 4
+    channels and every xLSTM cell H / 4 heads."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models.ssm import ssm_dims
 
     arch, md = case
     cfg = init(arch)[0]
@@ -896,11 +1043,52 @@ def test_the_model_axis_splits_the_compute(spawn, case):
         one_process(arch, md, batches(cfg, 1))
     full = fc.get_total_flops()
     extra = replicated_flops(cfg, ACCUM * MB * SEQ, 4)
+    attn = cfg.pattern != "xlstm"
     for r in range(WORLD):
         got = spawn.ranks[r]["flops/" + arch]
         assert full <= 4 * got["flops"] <= full + 4 * extra, (
             r, got["flops"], full, extra)
-        assert got["heads"] == [cfg.n_heads // 4]
+        assert got["heads"] == ([cfg.n_heads // 4] if attn else [])
+        assert got["channels"] == ([ssm_dims(cfg)[0] // 4]
+                                   if cfg.pattern == "jamba" else [])
+        assert got["cells"] == ([cfg.n_heads // 4]
+                                if cfg.pattern == "xlstm" else [])
+
+
+# Each mixer's calls of Placement's operators over `model`, a call of the
+# mixer at (1, 4): the input and the output (`copy_to_model`,
+# `reduce_from_model`); Mamba's `in_proj` gathered, its x_proj product
+# summed; mLSTM's replicated gate weights, gate biases and norm scale cut
+# after `copy_to_model`; the sLSTM's gate-major `W` gathered, `b` and its
+# norm scale cut after `copy_to_model`.
+MIXER_CALLS = {
+    "mamba": {"copy_to_model": 1, "gather_model": 1, "sum_over_model": 1,
+              "reduce_from_model": 1},
+    "mlstm": {"copy_to_model": 6, "reduce_from_model": 1},
+    "slstm": {"copy_to_model": 3, "gather_model": 1,
+              "reduce_from_model": 1},
+}
+
+
+@pytest.mark.parametrize("case", SPLIT, ids=lambda c: c[0])
+def test_model_side_calls_do_not_grow_with_the_sequence(spawn, case):
+    """One step at (1, 4) at two sequence lengths: each Mamba and xLSTM
+    mixer call makes the same model-side calls (`MIXER_CALLS`), and the
+    step the same collectives (all-reduces, all-gathers,
+    reduce-scatters), so none runs inside the sLSTM's time loop or the
+    Mamba scan's chunk loop (one there would cost a collective a
+    position or a chunk)."""
+    arch, _ = case
+    for r in range(WORLD):
+        runs = [spawn.ranks[r][f"guard/{arch}/{seq}"] for seq in GUARD_SEQS]
+        assert runs[0]["step"] == runs[1]["step"] and runs[0]["step"]
+        for run in runs:
+            kinds = {k: v for k, v in run.items() if k in MIXER_CALLS}
+            assert kinds, run
+            for kind, n in kinds.items():
+                calls = n.pop("calls")
+                assert {op: c / calls for op, c in n.items()} \
+                    == MIXER_CALLS[kind], (kind, n, calls)
 
 
 def gathered_bound(arch, shape) -> tuple:
@@ -937,8 +1125,8 @@ def test_gathered_parameters_stay_within_a_period(spawn, shape):
     blocks, which is less than the whole tree (remat: backward gathers
     each period again); at (1, 4) nothing is gathered over `data`."""
     runs = [(key(shape, *c), c[0]) for c in CASES + (MOE,)]
-    if shape == FAMILY_MESH:
-        runs += [(key(shape, *c), c[0]) for c in FAMILIES]
+    runs += [(key(shape, arch, md), arch) for arch, md, mesh in FAMILIES
+             if mesh == shape]
     for name, arch in runs:
         bound, tree = gathered_bound(arch, shape)
         assert bound < tree
