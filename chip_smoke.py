@@ -254,6 +254,18 @@ Phases, each of which raises on failure:
    (`sum_over_model` among them), and one more placed step profiled:
    the device time of the Mamba conv and scan, the mLSTM mixer and the
    sLSTM time loop (``record_function`` ranges).
+15. The dry-run (``repro_torch.launch.dryrun``, ROADMAP item 10a): phase
+   14's one-rank qwen2-7b step (2 layers, f32 moments, 2 x 4 x 1,024
+   tokens) traced as a cell at mesh (1, 1) in a child process on the CPU
+   (tensors without data, a fake process group), then that step run on
+   the card over a one-rank NCCL mesh, counts zeroed around one step:
+   kernel 6's and its backward's launches predicted, counted and
+   profiled, equal; the predicted peak within 10 % of
+   ``max_memory_allocated``; the step's device time at or above the
+   roofline's ``step_time_s`` (the H100 datasheet rates), and their
+   ratio; and the full cell qwen2-7b x train_4k x 16x16 (rank 0 of 256)
+   traced in a second child meanwhile: its roofline line and
+   ``trace_s``.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, and for the backward phase 13's whisper run, ``launches_revisit`` from the revisit stream,
@@ -266,7 +278,8 @@ PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_serve_{whisper,llava,xlstm,jamba}`` from phase 12's serves,
 ``launches_train_{whisper,qwen2}`` from phase 13's runs,
 ``launches_placed`` from phase 14's placed steps, ``launches_placed_mixers``
-from its placed mixers' steps (0: no kernel lies on them);
+from its placed mixers' steps (0: no kernel lies on them), ``launches_dryrun``
+from phase 15's step;
 the flash entry also carries the phase 12 shapes' numbers under
 ``*_{whisper_enc,cross_served,cross,ragged,cross_ragged,whisper_dec,
 llava_jamba}`` and the decode entry under
@@ -291,10 +304,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
-PEAK_BF16_OPS = 989e12  # dense bf16 tensor-core rate
-PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
 QMM_SHAPES = ((32, 64), (64, 16), (40, 64), (64, 64), (64, 3))  # paper (K, N)
 SERVE_ROWS = 512 * 32  # slot_rays * n_samples: the M of one slot's linears
 # The test set's cull-plan budget a 4,096-ray chunk on the trained chair
@@ -341,12 +350,15 @@ def median_ms(fn, iters: int = 20, warmup: int = 3, hide_host: bool = True
     return float(np.median(times))
 
 
-def bound(nbytes: float, ops: float, peak_ops: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(*costs):
+    """(bound_ms, bound_by) of the summed `kernels.cost` counts (one unit):
+    the larger of bytes over the memory rate and operations over the peak
+    rate of their type. The package's count, so the dry-run reads the
+    same one."""
+    from repro_torch.kernels.cost import Cost
+
+    return Cost(sum(c.ops for c in costs), sum(c.bytes for c in costs),
+                costs[0].unit).bound_ms()
 
 
 def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
@@ -428,6 +440,7 @@ def time_linears(name, kernel, plain, cases, floor):
 
 
 def phase_quant_matmul(rng, dev, floor):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.quant_matmul import (
         quant_matmul_packed_cuda as kernel,
         quant_matmul_packed_plain as plain,
@@ -480,14 +493,11 @@ def phase_quant_matmul(rng, dev, floor):
     # Time the five linears of one slot (4-bit weights, tile:128, as served).
     cases = qmm_inputs(rng, dev, packed=True)
     tot, seq = time_linears("quant_matmul_packed", kernel, plain, cases, floor)
-    nbytes = ops = 0.0
-    for x, w, *_ in cases:
-        (M, K), N = x.shape, w.cols
-        nbytes += M * K + w.words.numel() * 4 + M * N * 4 + 16
-        ops += 2.0 * M * N * K
+    bnd = bound(*(cost.quant_matmul_packed(*x.shape, w.cols, w.words.numel())
+                  for x, w, *_ in cases))
     e = entry("quant_matmul_packed", "src/repro_torch/csrc/quant_matmul_packed.cu",
               "src/repro/kernels/quant_matmul.py:199", worst, tot["ms"],
-              tot["plain_ms"], bound(nbytes, ops, PEAK_INT8_OPS), tot["lib_ms"],
+              tot["plain_ms"], bnd, tot["lib_ms"],
               tot["call_ms"], **seq, launch_floor_ms=floor["floor_ms"])
     e["timed_as"] = "sum of the five paper linears, M=16384, 4-bit tile:128"
     return e
@@ -553,6 +563,7 @@ def encode_inputs(rng, hc, dev, subnormal: bool = True):
 
 
 def phase_hash_encode(rng, dev, cfg):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.hash_encode import (
         corner_data,
         hash_encode_points_cuda as kernel,
@@ -587,13 +598,12 @@ def phase_hash_encode(rng, dev, cfg):
                       for r, d, n, o in meta.tolist()])
     uniq = int(torch.unique(rows).numel())
     B, F, L = pts.shape[0], hc.n_features, hc.n_levels
-    nbytes = B * 3 * 4 + uniq * F * 4 + B * L * F + 4 * 4 + L * 16
     print(f"  hash_encode: {uniq} distinct table rows of {B * L * 8} corner "
           f"reads; codes {t_k:.4f} ms, f32 encodings {t_kf:.4f} ms")
     return entry("hash_encode", "src/repro_torch/csrc/hash_encode.cu",
                  "src/repro/kernels/hash_encoding_kernel.py:50", worst, t_k,
-                 t_p, bound(nbytes, 0.0, PEAK_F32_OPS), None, t_c,
-                 ms_f32_out=t_kf)
+                 t_p, bound(cost.hash_encode_points(B, L, F, uniq)), None,
+                 t_c, ms_f32_out=t_kf)
 
 
 def corner_case(rng, pts, hc, table, meta, bad_share: float = 0.01):
@@ -619,6 +629,7 @@ def time_corners(what, idx, w, table, off, act, pts, meta):
     corners, f32 encodings and int8 codes bit for bit, then timed (codes,
     as the path asks for them) beside the points kernel on the same rows'
     points. Returns the numbers of one kernels-line entry."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.hash_encode import (
         hash_encode_corners_cuda as kernel,
         hash_encode_corners_plain as plain,
@@ -649,8 +660,7 @@ def time_corners(what, idx, w, table, off, act, pts, meta):
     rows = idx.long() + off.long()[:, None, None]
     uniq = int(torch.unique(rows[(rows >= 0) & (rows < table.shape[0])])
                .numel())
-    t["bound"] = bound(L * B * 64 + uniq * F * 4 + B * L * F + L * 4 + 16,
-                       16.0 * F * L * B, PEAK_F32_OPS)
+    t["bound"] = bound(cost.hash_encode_corners(L, B, F, uniq))
     n_bad = int(((rows < 0) | (rows >= table.shape[0])).sum())
     print(f"hash_encode_corners ({what}): exact, f32 encodings and int8 codes,"
           f" L={L} B={B} ({n_bad} of {rows.numel()} corner rows outside the "
@@ -690,6 +700,7 @@ def phase_hash_encode_corners(rng, dev, cfg):
 
 
 def phase_hash_gather(rng, dev, cfg):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.hash_encoding_kernel import (
         hash_gather_cuda as kernel,
         hash_gather_plain as plain,
@@ -724,11 +735,10 @@ def phase_hash_gather(rng, dev, cfg):
     t_l = median_ms(lambda: table[idx_lib])
     t_c = median_ms(lambda: kernel(idx, table), hide_host=False)
     uniq = int(torch.unique(idx[ok]).numel())
-    nbytes = P * 4 + P * F * 4 + uniq * F * 4
     return entry("hash_gather", "src/repro_torch/csrc/hash_gather.cu",
                  "src/repro/kernels/hash_encoding_kernel.py:50",
                  (a - b).abs().max().item(), t_k, t_p,
-                 bound(nbytes, 0.0, PEAK_F32_OPS), t_l, t_c)
+                 bound(cost.hash_gather(P, F, uniq)), t_l, t_c)
 
 
 def march_rays(rng, R: int = 512):
@@ -763,6 +773,7 @@ def march_rays(rng, R: int = 512):
 
 
 def phase_ray_march(rng, dev):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ray_march import (
         ray_march_cuda as kernel,
         ray_march_plain as plain,
@@ -800,14 +811,14 @@ def phase_ray_march(rng, dev):
     cells = np.clip(((pts[inside] + 0.5) * G).astype(np.int64), 0, G - 1)
     uniq = np.unique(cells[:, 0] * G * G + cells[:, 1] * G + cells[:, 2]).size
     R, S = o_np.shape[0], t.numel()
-    nbytes = R * 6 * 4 + S * 4 + R * S * 4 + uniq * 4
     return entry("ray_march", "src/repro_torch/csrc/ray_march.cu",
                  "src/repro/kernels/ray_march.py:134",
                  (a - b).abs().max().item(), t_k, t_p,
-                 bound(nbytes, 9.0 * R * S, PEAK_F32_OPS), None, t_c)
+                 bound(cost.ray_march(R, S, int(uniq))), None, t_c)
 
 
 def phase_alpha_composite(rng, dev):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.alpha_composite import (
         alpha_composite_cuda as kernel,
         alpha_composite_plain as plain,
@@ -845,10 +856,9 @@ def phase_alpha_composite(rng, dev):
     T_after = np.cumprod(1.0 - alpha, axis=1)
     below = T_after < t_eps
     walked = np.where(below.any(1), below.argmax(1) + 1, S).sum()
-    nbytes = walked * 5 * 4 + R * 4 * 4
     return entry("alpha_composite", "src/repro_torch/csrc/alpha_composite.cu",
                  "src/repro/kernels/alpha_composite.py:77", worst, t_k, t_p,
-                 bound(nbytes, 12.0 * walked, PEAK_F32_OPS), None, t_c)
+                 bound(cost.alpha_composite(R, S, int(walked))), None, t_c)
 
 
 def composite_inputs(rng, dev, R: int = 512, S: int = 32, G: int = 32):
@@ -888,6 +898,7 @@ def composite_inputs(rng, dev, R: int = 512, S: int = 32, G: int = 32):
 
 
 def phase_gather_composite(rng, dev):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.gather_composite import (
         gather_composite_cuda as kernel,
         gather_composite_plain as plain,
@@ -932,15 +943,16 @@ def phase_gather_composite(rng, dev):
     t_k = median_ms(lambda: kernel(*args, True, t_eps))
     t_p = median_ms(lambda: plain(*args))
     t_c = median_ms(lambda: kernel(*args, True, t_eps), hide_host=False)
-    n_valid = int(valid.sum())
-    P = take.numel()
-    nbytes = P * (1 + take.element_size()) + n_valid * 16 + S * 4 + R * 16
+    if take.numel() != R * S:
+        raise AssertionError(f"take holds {take.numel()} samples, not R S")
+    c = cost.gather_composite(R, S, take.element_size(), int(valid.sum()))
     return entry("gather_composite", "src/repro_torch/csrc/gather_composite.cu",
                  "src/repro/kernels/alpha_composite.py:77", dense, t_k, t_p,
-                 bound(nbytes, 12.0 * P, PEAK_F32_OPS), None, t_c)
+                 bound(c), None, t_c)
 
 
 def phase_quant_matmul_unpacked(rng, dev, floor):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.quant_matmul import (
         quant_matmul_cuda as kernel,
         quant_matmul_plain as plain,
@@ -981,14 +993,11 @@ def phase_quant_matmul_unpacked(rng, dev, floor):
 
     cases = qmm_inputs(rng, dev, packed=False)
     tot, seq = time_linears("quant_matmul", kernel, plain, cases, floor)
-    nbytes = ops = 0.0
-    for x, w, *_ in cases:
-        (M, K), N = x.shape, w.shape[1]
-        nbytes += M * K + K * N + M * N * 4 + 12
-        ops += 2.0 * M * N * K
+    bnd = bound(*(cost.quant_matmul(*x.shape, w.shape[1])
+                  for x, w, *_ in cases))
     e = entry("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
               "src/repro/kernels/quant_matmul.py:70", worst, tot["ms"],
-              tot["plain_ms"], bound(nbytes, ops, PEAK_INT8_OPS), tot["lib_ms"],
+              tot["plain_ms"], bnd, tot["lib_ms"],
               tot["call_ms"], **seq, launch_floor_ms=floor["floor_ms"])
     e["timed_as"] = "sum of the five paper linears, M=16384, int8 weights"
     return e
@@ -1020,6 +1029,7 @@ def lm_views(gen, dev, dtype, S):
 
 
 def phase_flash_attention(dev):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention_kernel import (
         flash_attention_cuda as kernel,
         flash_attention_plain as plain,
@@ -1058,14 +1068,14 @@ def phase_flash_attention(dev):
     t_p = median_ms(lambda: plain(q, k, v, True))
     t_l = median_ms(lambda: sdpa(qs, k, v, is_causal=True, enable_gqa=True))
     t_c = median_ms(lambda: kernel(q, k, v, True), hide_host=False)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
-    flops = 4.0 * B * Hkv * G * S * S * hd / 2
     return entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention_kernel.py:67", worst, t_k,
-                 t_p, bound(nbytes, flops, PEAK_BF16_OPS), t_l, t_c)
+                 t_p, bound(cost.flash_attention(B, Hkv, G, hd, S, S, True, 2)),
+                 t_l, t_c)
 
 
 def phase_decode_attention(dev):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.decode_attention_kernel import (
         decode_attention_cuda as kernel,
         decode_attention_plain as plain,
@@ -1142,12 +1152,10 @@ def phase_decode_attention(dev):
     print(f"  decode_attention cold ({len(ring)} caches, {ring_mb:.1f} MB): "
           f"kernel {t_kc:.4f} ms, SDPA {t_lc:.4f} ms; warm: kernel "
           f"{t_k:.4f} ms, SDPA {t_l:.4f} ms")
-    nbytes = 2 * (2 * B * Hkv * length * hd + 2 * q.numel()) + 4
     return entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention_kernel.py:61", worst, t_k,
-                 t_p, bound(nbytes, 4.0 * B * Hkv * G * length * hd,
-                            PEAK_BF16_OPS), t_l, t_c, ms_cold=t_kc,
-                 library_ms_cold=t_lc)
+                 t_p, bound(cost.decode_attention(B, Hkv, G, hd, length, 2)),
+                 t_l, t_c, ms_cold=t_kc, library_ms_cold=t_lc)
 
 
 # ---------------------------------------------------------------------------
@@ -2646,6 +2654,7 @@ def lm_flash_shapes(dev, entry):
     causal) within 1e-4 of its plain version, timed beside it and SDPA
     (kept in `entry` under `*_lm_smoke`); and qwen3-moe's bf16 geometry
     (Hkv 4, G 16, hd 64, S 1024) within `BF16_ATTN_LIMIT`."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention_kernel import (
         flash_attention_cuda as kernel,
         flash_attention_plain as plain,
@@ -2676,9 +2685,7 @@ def lm_flash_shapes(dev, entry):
         t_p = median_ms(lambda: plain(q5, k4, v4, True))
         t_l = median_ms(lambda: sdpa(qs, k4, v4, is_causal=True,
                                      enable_gqa=True))
-        nbytes = 4 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
-        flops = 4.0 * B * Hkv * G * S * S * hd / 2
-        bnd = bound(nbytes, flops, PEAK_F32_OPS)
+        bnd = bound(cost.flash_attention(B, Hkv, G, hd, S, S, True, 4))
         print(f"  float32 at the smoke shapes: kernel {t_k:.4f} ms, plain "
               f"{t_p:.4f} ms, SDPA {t_l:.4f} ms, bound {bnd[0]:.6f} ms "
               f"({bnd[1]})")
@@ -3127,6 +3134,7 @@ def flash_full_shapes(dev, entry):
     BF16_ATTN_LIMIT and f32 within 1e-4; the bf16 call timed beside the
     plain version and SDPA, with its bound (kept in `entry` under
     `*_<shape>`)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention_kernel import (
         flash_attention_cuda as kernel,
         flash_attention_plain,
@@ -3162,9 +3170,7 @@ def flash_full_shapes(dev, entry):
         t_p = median_ms(lambda: plain(q5, k4, v4))
         t_l = median_ms(lambda: sdpa(qs, k4, v4, is_causal=causal,
                                      enable_gqa=True))
-        nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
-        flops = 4.0 * B * H * Sq * Sk * hd / (2 if causal else 1)
-        bnd = bound(nbytes, flops, PEAK_BF16_OPS)
+        bnd = bound(cost.flash_attention(B, Hkv, G, hd, Sq, Sk, causal, 2))
         print(f"flash_attention (B {B}, Hkv {Hkv}, G {G}, hd {hd}, Sq {Sq}, "
               f"Sk {Sk}, causal {causal}, {name}): max |diff| bf16 "
               f"{errs[torch.bfloat16]:.3g}, f32 {errs[torch.float32]:.3g}; "
@@ -3183,6 +3189,7 @@ def decode_full_shapes(dev, entry):
     f32 within 1e-4 of `decode_attention_plain`; the bf16 call timed
     beside the plain version and SDPA, with its bound (kept in `entry`
     under `*_<shape>`)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.decode_attention_kernel import (
         decode_attention_cuda as kernel,
         decode_attention_plain as plain,
@@ -3214,8 +3221,7 @@ def decode_full_shapes(dev, entry):
         t_p = median_ms(lambda: plain(q, k, v, len_t))
         t_l = median_ms(lambda: sdpa(qs, k, v, attn_mask=mask,
                                      enable_gqa=True))
-        nbytes = 2 * (2 * B * Hkv * length * hd + 2 * q.numel()) + 4
-        bnd = bound(nbytes, 4.0 * B * Hkv * G * length * hd, PEAK_BF16_OPS)
+        bnd = bound(cost.decode_attention(B, Hkv, G, hd, length, 2))
         print(f"decode_attention (B {B}, Hkv {Hkv}, G {G}, hd {hd}, rows "
               f"{S}, length {length}, {name}): max |diff| bf16 "
               f"{errs[torch.bfloat16]:.3g}, f32 {errs[torch.float32]:.3g}; "
@@ -3652,6 +3658,7 @@ def phase_flash_backward(dev):
     forward and backward kernels back to back, and SDPA's forward plus
     backward (`enable_gqa`, a yardstick only). The entry's plain numbers
     are qwen2-7b's shape; the others ride under `*_<shape>`."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention_kernel import (
         attention_lse_plain,
         flash_attention_bwd_cuda as kernel,
@@ -3726,11 +3733,8 @@ def phase_flash_backward(dev):
         t_fb = median_ms(fwd_bwd, iters=10)
         t_c = median_ms(lambda: kernel(q, k, v, out, lse, do, causal),
                         iters=10, hide_host=False)
-        nbytes = (2 * (q.numel() + k.numel() + v.numel())  # q, k, v
-                  + 4 * 2 * q.numel() + 4 * lse.numel()  # o, dO, lse
-                  + 2 * (q.numel() + k.numel() + v.numel()))  # dq, dk, dv
-        flops = 5 * 2.0 * B * H * Sq * Sk * hd / (2 if causal else 1)
-        bnd = bound(nbytes, flops, PEAK_BF16_OPS)
+        bnd = bound(cost.flash_attention_bwd(B, Hkv, G, hd, Sq, Sk, causal,
+                                             2))
         print(f"  kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}), forward + backward kernels "
               f"{t_fb:.4f} ms, SDPA forward + backward {t_l:.4f} ms")
@@ -4834,6 +4838,171 @@ def placement_phase(dev, kern):
     return {"placed": launches, "placed_mixers": mixers}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry-run (ROADMAP item 10a) against the card.
+# ---------------------------------------------------------------------------
+DRY_PEAK_REL = 0.10  # predicted peak within 10 % of max_memory_allocated
+DRY_TIMEOUT = 600  # seconds a dry-run child may take
+# A child process traces one cell (one default process group a process:
+# the dry-run's is a fake one) and prints its JSON as its last line.
+_DRY_CHILD = """
+import dataclasses, json, sys, tempfile
+from pathlib import Path
+from repro_torch.configs import SHAPES, get_arch
+from repro_torch.launch import dryrun
+
+spec, shape, mesh = get_arch("qwen2-7b"), SHAPES["train_4k"], None
+if sys.argv[1] == "phase14":
+    layers, mb, seq, accum = map(int, sys.argv[2:6])
+    spec = dataclasses.replace(
+        spec, model=dataclasses.replace(spec.model, n_layers=layers),
+        moment_dtype="float32", microbatch={"train_4k": mb})
+    shape = dataclasses.replace(shape, seq_len=seq, global_batch=mb * accum)
+    mesh = ((1, 1), ("data", "model"))
+with tempfile.TemporaryDirectory() as tmp:
+    print(json.dumps(dryrun.run_cell(spec, shape, False, Path(tmp),
+                                     mesh=mesh)))
+"""
+
+
+def dryrun_child(*args):
+    """A child process tracing one dry-run cell on the CPU (no card
+    visible to it)."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", _DRY_CHILD, *args],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_result(proc, label: str) -> dict:
+    out, err = proc.communicate(timeout=DRY_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"the dry-run of {label} failed:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase14_cell():
+    """Phase 14's one-rank qwen2-7b step as a dry-run cell: 2 of 28
+    layers, f32 moments, QWEN_ACCUM microbatches of QWEN_MB x QWEN_SEQ."""
+    from repro_torch.configs import SHAPES, get_arch
+
+    spec = get_arch("qwen2-7b")
+    spec = dataclasses.replace(
+        spec, model=dataclasses.replace(spec.model,
+                                        n_layers=QWEN_TRAIN_LAYERS),
+        moment_dtype="float32", microbatch={"train_4k": QWEN_MB})
+    return spec, dataclasses.replace(SHAPES["train_4k"], seq_len=QWEN_SEQ,
+                                     global_batch=QWEN_MB * QWEN_ACCUM)
+
+
+def dryrun_phase(dev, kern):
+    """Phase 15: (a) `launch.dryrun.run_cell` of phase 14's one-rank
+    qwen2-7b step (`phase14_cell`, mesh (1, 1)) in a child process; (b)
+    the same cell's step on the card (`dryrun.build_cell` over a one-rank
+    NCCL mesh (1, 1), zero tokens, one warm-up step): counts zeroed
+    around one step, its peak above the memory held before the cell
+    (`max_memory_allocated` after `reset_peak_memory_stats`), one more
+    step profiled; kernel 6's and its backward's launches predicted,
+    counted and profiled, all equal; the predicted peak within
+    DRY_PEAK_REL; the step's device time at or above the roofline's
+    `step_time_s`, and their ratio; (c) the full cell qwen2-7b x train_4k
+    x 16x16 traced in a second child meanwhile: its roofline line and
+    `trace_s`. Returns {"dryrun": (b)'s launches}."""
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.backend import power_limit
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    full = dryrun_child("full")
+    small = dryrun_child("phase14", str(QWEN_TRAIN_LAYERS), str(QWEN_MB),
+                         str(QWEN_SEQ), str(QWEN_ACCUM))
+    pred = dryrun_result(small, "phase 14's cell")
+    mem = pred["memory_analysis"]
+    print(f"dry-run of phase 14's cell ({pred['cell']}, traced on the CPU "
+          f"in {pred['trace_s']} s): kernels {pred['kernels']}, peak "
+          f"{mem['peak_size_in_bytes'] / 2 ** 30:.3f} GiB, roofline "
+          f"step_time_s {pred['roofline']['step_time_s']:.6f} "
+          f"({pred['roofline']['dominant']})")
+
+    spec, shape = phase14_cell()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: loopback
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(dev, rank=0, world_size=1,
+                         store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            step, (p, o, one), accum = dryrun.build_cell(spec, shape, mesh,
+                                                         device=dev)
+            batch = {k: v.expand((accum,) + tuple(v.shape[1:])).contiguous()
+                     for k, v in one.items()}
+            del one
+            out = step(p, o, batch)  # warm-up
+            del out
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zeroed(kern)
+            out = step(p, o, batch)
+            launches = read(kern)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            loss = float(out[2]["loss"])
+            del out
+            busy, by_name, _ = profile("the dry-run cell's step on the card",
+                                       lambda: step(p, o, batch))
+            del p, o, batch, step
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = {"flash_attention": by_name_sum(by_name, "flash_tc_kernel")[0],
+            "flash_attention_bwd": by_name_sum(by_name, "bwd_dq")[0]}
+    want = {n: int(pred["kernels"][n]) for n in prof}
+    got = {n: launches[n] for n in prof}
+    roof_ms = pred["roofline"]["step_time_s"] * 1e3
+    rel = mem["peak_size_in_bytes"] / peak - 1.0
+    print(f"  kernel 6 and its backward: predicted {want}, counted {got}, "
+          f"profiled {prof}; peak predicted "
+          f"{mem['peak_size_in_bytes'] / 2 ** 30:.3f} GiB against "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ({100 * rel:+.2f} "
+          f"%); device time {busy:.2f} ms against the roofline's "
+          f"{roof_ms:.3f} ms (ratio {busy / roof_ms:.2f}); loss {loss:.4f} "
+          f"({power_limit()})")
+    if not want == got == prof:
+        raise AssertionError(f"kernel launches: predicted {want}, counted "
+                             f"{got}, profiled {prof}")
+    if not abs(rel) <= DRY_PEAK_REL:
+        raise AssertionError(f"predicted peak {mem['peak_size_in_bytes']} "
+                             f"against {peak}: {rel:+.3f}")
+    if not busy >= roof_ms:
+        raise AssertionError(f"device time {busy} ms below the roofline's "
+                             f"{roof_ms} ms")
+    if not np.isfinite(loss):
+        raise AssertionError(f"the cell's loss is {loss}")
+
+    r = dryrun_result(full, "qwen2-7b x train_4k x 16x16")
+    rf, m = r["roofline"], r["memory_analysis"]
+    print(f"dry-run {r['cell']} (rank 0 of 256, traced on the CPU in "
+          f"{r['trace_s']} s): compute {rf['compute_s']:.4f} s, memory "
+          f"{rf['memory_s']:.4f} s, collective {rf['collective_s']:.4f} s, "
+          f"dominant {rf['dominant']}, roofline_fraction "
+          f"{rf['roofline_fraction']:.4f}, peak "
+          f"{m['peak_size_in_bytes'] / 2 ** 30:.2f} GiB (fits 80 GB: "
+          f"{r['fits_hbm']}), kernels {r['kernels']}")
+    print(f"phase 15 (dry-run): {time.perf_counter() - t0:.2f} s")
+    return {"dryrun": got}
+
+
 # Sources whose ptxas lines are printed in full (kernel names, stack and
 # spill bytes, wgmma notes); for the others only the register counts.
 DETAIL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
@@ -5057,6 +5226,7 @@ def main() -> int:
     entries.append(bwd_entry)
     psnr_launches.update(train_runs)
     psnr_launches.update(placement_phase(dev, kern))
+    psnr_launches.update(dryrun_phase(dev, kern))
     # The backward's main path is phase 13's whisper run.
     launches["flash_attention_bwd"] = \
         train_runs["train_whisper"]["flash_attention_bwd"]

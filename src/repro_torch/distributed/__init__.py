@@ -7,7 +7,8 @@ orchestrator.
 orchestrator depends on `repro_torch.core.closed_loop`, which reaches
 this package through `core.batched_env` — an eager re-export here would
 be circular). The reference's `population_mesh` is `population_devices`
-here; its `hlo_analysis` names are not ported yet (ROADMAP item 10)."""
+here. `hlo_counters` and `hlo_analysis` count a recorded step at one
+rank (the dry-run's counters and roofline)."""
 from repro_torch.distributed.sharding import (
     ShardingConfig,
     param_pspecs,
@@ -16,6 +17,14 @@ from repro_torch.distributed.sharding import (
     batch_axes,
     named,
     validate_divisibility,
+)
+from repro_torch.distributed.hlo_analysis import (
+    ChipSpec,
+    CollectiveStats,
+    RooflineTerms,
+    op_census,
+    parse_collectives,
+    roofline_terms,
 )
 from repro_torch.distributed.population import (
     POP_AXIS,
@@ -33,6 +42,12 @@ __all__ = [
     "batch_axes",
     "named",
     "validate_divisibility",
+    "ChipSpec",
+    "CollectiveStats",
+    "RooflineTerms",
+    "parse_collectives",
+    "op_census",
+    "roofline_terms",
     "POP_AXIS",
     "auto_shard",
     "pad_population",

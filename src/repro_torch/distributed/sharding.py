@@ -22,6 +22,17 @@ axes that MoE routing reads; `own` cuts a leaf to this rank's heads or
 channels. At `model` size 1 the operators over `model` return their
 input.
 
+Megatron sequence parallelism (`Placement.seq`, where the config's
+`act_pspec` splits the sequence over the tensor-parallel axis): the
+residual stream between blocks is this rank's block of the sequence,
+(B, S / tp, d). A mixer or FFN enters with `enter` (an all-gather over
+`model` along the sequence; backward a reduce-scatter where the layer
+splits over `model`, a cut where it computes whole) and leaves with
+`leave` (a reduce-scatter, or a cut; backward an all-gather), in place
+of `copy_to_model` and `reduce_from_model`. The norms, the learned
+positions and the head's norm then see this rank's block alone, so
+their parameters' gradients are summed over `model` (`copy_to_model`).
+
 Axis roles:
   pod    — pure data parallelism across pods;
   data   — batch DP within a pod + FSDP weight sharding + ZeRO-1
@@ -483,6 +494,56 @@ class _AllReduce(torch.autograd.Function):
         return g, None, None
 
 
+class _ScatterSum(torch.autograd.Function):
+    """The sum over a group of `n` ranks, cut to this rank's block along
+    `dim` (a reduce-scatter; bfloat16 summed in float32, as
+    `reduce_from_model` sums). Backward: the all-gather of the block
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n):
+        ctx.args = dim, group, n
+        wide = t.float() if t.dtype == torch.bfloat16 else t
+        return _scatter_dim(wide, dim, group, n).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.args
+        return _gather_dim(g, dim, group, n), None, None, None
+
+
+class _Cut(torch.autograd.Function):
+    """This rank's block along `dim` of a tensor every rank of the group
+    holds whole and alike. Backward: the all-gather of the block
+    gradients (each rank's is the whole gradient's block)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n, idx):
+        ctx.args = dim, group, n
+        b = t.shape[dim] // n
+        return t.narrow(dim, idx * b, b).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.args
+        return _gather_dim(g, dim, group, n), None, None, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity; backward, the gradient divided by `n`: a use whose
+    gradient every rank computes whole, inside a layer whose input
+    gradient is summed over the `n` ranks."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 class _CopyToModel(torch.autograd.Function):
     """Megatron's f: the identity forward; backward, the gradient summed
     over the group (each rank's use of the input is a part of the
@@ -529,6 +590,7 @@ class Placement:
     specs: object
     batch: Tuple[str, ...] = ("data",)
     tp_axis: str = "model"
+    seq: bool = False  # Megatron-SP: the residual stream split over `model`
 
     @property
     def tp(self) -> int:
@@ -554,6 +616,64 @@ class Placement:
 
     def _tp_group(self):
         return self.mesh.group(self.tp_axis)
+
+    def sequence_parallel(self, cfg, S: int) -> "Placement":
+        """This placement with `seq` set where `cfg.act_pspec` splits the
+        sequence (its second entry) over the tensor-parallel axis, that
+        axis has more than one rank and divides the S positions."""
+        ap = cfg.act_pspec
+        on = ap is not None and len(ap) > 1 and ap[1] == self.tp_axis \
+            and self.tp > 1 and S % self.tp == 0
+        return dataclasses.replace(self, seq=True) if on else self
+
+    def enter(self, x: torch.Tensor, split: bool) -> torch.Tensor:
+        """A layer's input x (B, S, d), or this rank's block of its
+        sequence under `seq`, as the layer computes on it: the whole
+        sequence. `split`: the layer splits its work over `model` (each
+        rank's use of x is a part of its gradient, summed over `model`);
+        else every rank computes it whole. Without `seq`, Megatron's
+        `copy_to_model` where split; under `seq`, an all-gather along
+        the sequence whose backward reduce-scatters (split) or cuts."""
+        if not self.seq:
+            return self.copy_to_model(x) if split else x
+        return _Gather.apply(x, 1, self._tp_group(), self.tp, self.tp_rank,
+                             split)
+
+    def leave(self, t: torch.Tensor, split: bool) -> torch.Tensor:
+        """A layer's output over the whole sequence back to the residual
+        stream: where split (each rank's output a part), summed over
+        `model` (`reduce_from_model`; under `seq` a reduce-scatter onto
+        this rank's block); else as it is (under `seq`, cut to the
+        block). Under `seq` the backward all-gathers."""
+        if not self.seq:
+            return self.reduce_from_model(t) if split else t
+        if split:
+            return _ScatterSum.apply(t, 1, self._tp_group(), self.tp)
+        return _Cut.apply(t, 1, self._tp_group(), self.tp, self.tp_rank)
+
+    def shared(self, t: torch.Tensor) -> torch.Tensor:
+        """Under `seq`, `t` (a split layer's entered input) for a use that
+        every rank computes whole (MoE routing): its gradient divided by
+        `tp`, so the reduce-scatter in `enter`'s backward counts it once.
+        Else `t`."""
+        return _ScaleGrad.apply(t, self.tp) if self.seq else t
+
+    def seq_rows(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Under `seq`, this rank's block of `t` along `dim` (a view);
+        else `t`."""
+        if not self.seq:
+            return t
+        b = t.shape[dim] // self.tp
+        return t.narrow(dim, self.tp_rank * b, b)
+
+    def seq_params(self, tree):
+        """Under `seq`, each leaf of `tree` (a norm's, the learned
+        positions: parameters used on this rank's block of the sequence
+        alone) through `copy_to_model`, so its gradient is summed over
+        `model`; else `tree`."""
+        if not self.seq:
+            return tree
+        return map_with_path(lambda _, t: self.copy_to_model(t), tree)
 
     def use(self, tree, specs):
         """`gather_on_use` on each leaf of `tree` by its spec in `specs`."""

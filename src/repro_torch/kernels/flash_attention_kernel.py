@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels._launch import (
     count_launch,
     launch,
@@ -255,3 +256,73 @@ def flash_attention_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     return FlashAttention.apply(q, k, v, causal, needs)
+
+
+class CountedAttention(torch.autograd.Function):
+    """Kernel 6 and its backward where a recording counts them
+    (`distributed.hlo_counters`): each pass records its kernel's cost
+    (`kernels/cost.py`: the forward writes the log-sum-exp where a
+    gradient will be taken, as on the card) and counts nothing of what
+    computes it. On tensors without data (`shape_only`) the outputs are
+    empty tensors laid out as the card's kernels write them; on CPU
+    tensors the plain versions compute them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, needs_grad: bool,
+                shape_only: bool):
+        from repro_torch.distributed.hlo_counters import kernel_call
+
+        B, Hkv, S, G, hd = q.shape
+        c = cost.flash_attention(B, Hkv, G, hd, S, k.shape[2], causal,
+                                 q.element_size(), lse=needs_grad)
+        with kernel_call("flash_attention", lambda: c, True):
+            # laid out as the card's kernel writes it
+            out = torch.empty((B, S, Hkv, G, hd), dtype=torch.float32,
+                              device=q.device).permute(0, 2, 1, 3, 4)
+            lse = torch.empty((B, Hkv, S, G), dtype=torch.float32,
+                              device=q.device) if needs_grad else None
+            if not shape_only:
+                out.copy_(flash_attention_plain(q, k, v, causal))
+                if needs_grad:
+                    lse.copy_(attention_lse_plain(q, k, causal))
+        if needs_grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal, ctx.shape_only = causal, shape_only
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.distributed.hlo_counters import kernel_call
+
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dout = dout.float()
+        B, Hkv, S, G, hd = q.shape
+        c = cost.flash_attention_bwd(B, Hkv, G, hd, S, k.shape[2],
+                                     ctx.causal, q.element_size())
+        with kernel_call("flash_attention_bwd", lambda: c, True):
+            # laid out as q, k and v, as the card's kernel writes them
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            if ctx.shape_only:
+                # the card's scratch: the row dots D, and dO in bf16
+                scratch = [torch.empty((B, Hkv, S, G), dtype=torch.float32,
+                                       device=q.device)]
+                if q.dtype == torch.bfloat16:
+                    scratch.append(torch.empty(
+                        (B, Hkv, S * G, (hd + 7) // 8 * 8),
+                        dtype=torch.bfloat16, device=q.device))
+                del scratch
+            else:
+                for t, g in zip((dq, dk, dv), flash_attention_bwd_plain(
+                        q, k, v, out, lse, dout, ctx.causal)):
+                    t.copy_(g)
+        return dq, dk, dv, None, None, None
+
+
+def counted_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, shape_only: bool) -> torch.Tensor:
+    """`CountedAttention.apply`, told whether a gradient will be taken."""
+    needs = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return CountedAttention.apply(q, k, v, causal, needs, shape_only)

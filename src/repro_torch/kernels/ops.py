@@ -13,6 +13,14 @@ gives the encodings, or with an activation grid the first linear's int8
 codes; `fused_field_query_points` and `fused_field_query` follow the
 codes with the packed matmul. `gather_composite` takes a chunk's
 compacted field outputs to its served colour in one kernel.
+
+Tensors without data (`FakeTensor` on any device, `meta`) take each
+entry's shape-only route: it returns the kernel's outputs, empty, and
+records the kernel's cost (`kernels/cost.py`) in the recording
+`distributed.hlo_counters` runs, never its plain version. Under a
+recording that counts the card (`Recorder(kernels="cost")`) the plain
+version on CPU tensors also counts as its kernel: its cost is recorded
+and its own ops are not.
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ from repro_torch.kernels.decode_attention_kernel import (
     decode_attention_cuda,
     decode_attention_plain,
 )
+from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attention_kernel import (
+    counted_attention,
     flash_attention_card,
     flash_attention_plain,
     full_attention_plain,
@@ -59,37 +69,80 @@ from repro_torch.kernels.ray_march import ray_march_cuda, ray_march_plain
 from repro_torch.quant.packing import PackedTensor
 
 
+def _shape_only(t: torch.Tensor) -> bool:
+    """Whether `t` holds no data: a `FakeTensor` or a `meta` tensor."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return t.device.type == "meta" or is_fake(t)
+
+
 def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
+    """Whether `t` is a CUDA tensor that holds data."""
+    return t.device.type == "cuda" and not _shape_only(t)
+
+
+def _route(t: torch.Tensor) -> str:
+    """"shape" for a tensor without data, "card" for a CUDA tensor,
+    "plain" for a CPU tensor; any other device raises."""
+    if _shape_only(t):
+        return "shape"
+    if _on_card(t):
+        return "card"
     if t.device.type == "cpu":
-        return False
+        return "plain"
     raise ValueError(f"unsupported device {t.device}")
+
+
+def _dispatch(name: str, c, t: torch.Tensor, card, plain, shapes):
+    """`card()` on the card; elsewhere `shapes()` (no data) or `plain()`,
+    counted as kernel `name` of cost `c()` under a recording
+    (`hlo_counters.kernel_call`)."""
+    route = _route(t)
+    if route == "card":
+        return card()
+    from repro_torch.distributed.hlo_counters import kernel_call
+
+    with kernel_call(name, c, route == "shape"):
+        return shapes() if route == "shape" else plain()
+
+
+def _empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=like.device)
 
 
 def quant_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor, sx, sw,
                  zx) -> torch.Tensor:
     """f32 (M, N) = ((x - zx) @ w) * sx * sw over int8 codes, summed
     exactly in integers."""
-    if _on_card(x_codes):
-        return quant_matmul_cuda(x_codes, w_codes, sx, sw, zx)
-    return quant_matmul_plain(x_codes, w_codes, sx, sw, zx)
+    (M, K), N = x_codes.shape, w_codes.shape[1]
+    return _dispatch(
+        "quant_matmul", lambda: cost.quant_matmul(M, K, N), x_codes,
+        lambda: quant_matmul_cuda(x_codes, w_codes, sx, sw, zx),
+        lambda: quant_matmul_plain(x_codes, w_codes, sx, sw, zx),
+        lambda: _empty((M, N), torch.float32, x_codes))
 
 
 def quant_matmul_packed(x_codes: torch.Tensor, wq: PackedTensor, sx, sw,
                         zx) -> torch.Tensor:
     """f32 (M, N) = ((x - zx) @ codes(wq)) * sx * sw; `wq` planar or
     ``tile:<bk>``."""
-    if _on_card(x_codes):
-        return quant_matmul_packed_cuda(x_codes, wq, sx, sw, zx)
-    return quant_matmul_packed_plain(x_codes, wq, sx, sw, zx)
+    return _dispatch(
+        "quant_matmul_packed",
+        lambda: cost.quant_matmul_packed(*x_codes.shape, wq.cols,
+                                         wq.words.numel()), x_codes,
+        lambda: quant_matmul_packed_cuda(x_codes, wq, sx, sw, zx),
+        lambda: quant_matmul_packed_plain(x_codes, wq, sx, sw, zx),
+        lambda: _empty((x_codes.shape[0], wq.cols), torch.float32, x_codes))
 
 
 def hash_gather(indices: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(P, F) = table[indices]; out-of-range indices give zero rows."""
-    if _on_card(indices):
-        return hash_gather_cuda(indices, table)
-    return hash_gather_plain(indices, table)
+    P, F = indices.numel(), table.shape[1]
+    return _dispatch(
+        "hash_gather", lambda: cost.hash_gather(P, F), indices,
+        lambda: hash_gather_cuda(indices, table),
+        lambda: hash_gather_plain(indices, table),
+        lambda: _empty((P, F), torch.float32, indices))
 
 
 def alpha_composite(sigma: torch.Tensor, rgb: torch.Tensor,
@@ -99,9 +152,13 @@ def alpha_composite(sigma: torch.Tensor, rgb: torch.Tensor,
     """(color (R, 3), acc (R, 1)). `early_stop` lets the kernel leave a
     ray once its transmittance is below `t_eps` (the result stays within
     t_eps of the dense walk); the plain version always walks densely."""
-    if _on_card(sigma):
-        return alpha_composite_cuda(sigma, rgb, delta, early_stop, t_eps)
-    return alpha_composite_plain(sigma, rgb, delta)
+    R, S = sigma.shape
+    return _dispatch(
+        "alpha_composite", lambda: cost.alpha_composite(R, S), sigma,
+        lambda: alpha_composite_cuda(sigma, rgb, delta, early_stop, t_eps),
+        lambda: alpha_composite_plain(sigma, rgb, delta),
+        lambda: (_empty((R, 3), torch.float32, sigma),
+                 _empty((R, 1), torch.float32, sigma)))
 
 
 def gather_composite(sigma_b: torch.Tensor, rgb_b: torch.Tensor,
@@ -117,20 +174,29 @@ def gather_composite(sigma_b: torch.Tensor, rgb_b: torch.Tensor,
     adds the white background 1 - acc when asked. `early_stop` lets the
     kernel leave a ray between 32-sample chunks once its transmittance is
     below `t_eps`; the plain version always walks densely."""
-    if _on_card(sigma_b):
-        return gather_composite_cuda(sigma_b, rgb_b, take, valid, delta_row,
-                                     white_bg, early_stop, t_eps, active)
-    return gather_composite_plain(sigma_b, rgb_b, take, valid, delta_row,
-                                  white_bg, active)
+    S = delta_row.shape[0]
+    R = take.numel() // S
+    return _dispatch(
+        "gather_composite",
+        lambda: cost.gather_composite(R, S, take.element_size()), sigma_b,
+        lambda: gather_composite_cuda(sigma_b, rgb_b, take, valid, delta_row,
+                                      white_bg, early_stop, t_eps, active),
+        lambda: gather_composite_plain(sigma_b, rgb_b, take, valid,
+                                       delta_row, white_bg, active),
+        lambda: (_empty((R, 3), torch.float32, sigma_b),
+                 _empty((R, 1), torch.float32, sigma_b)))
 
 
 def ray_march(occ: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
               t: torch.Tensor, early_stop: bool = True) -> torch.Tensor:
     """Active-sample mask (R, S) f32 {0, 1}; the early exit never changes
     it. `t` must be non-decreasing for `early_stop=True`."""
-    if _on_card(rays_o):
-        return ray_march_cuda(occ, rays_o, rays_d, t, early_stop)
-    return ray_march_plain(occ, rays_o, rays_d, t)
+    R, S = rays_o.shape[0], t.numel()
+    return _dispatch(
+        "ray_march", lambda: cost.ray_march(R, S), rays_o,
+        lambda: ray_march_cuda(occ, rays_o, rays_d, t, early_stop),
+        lambda: ray_march_plain(occ, rays_o, rays_d, t),
+        lambda: _empty((R, S), torch.float32, rays_o))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -142,9 +208,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward kernel (`FlashAttention`)."""
     if not causal and q.shape[2] % 128:
         raise ValueError("non-causal flash requires S % bk == 0")
-    if _on_card(q):
-        return flash_attention_card(q, k, v, causal)
-    return flash_attention_plain(q, k, v, causal)
+    return _attention(q, k, v, causal, flash_attention_plain)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor,
@@ -155,9 +219,24 @@ def full_attention(q: torch.Tensor, k: torch.Tensor,
     cross-attention; on the card the flash kernel masks keys >= Sk
     itself, so neither length need be a multiple of a tile, and
     differentiates through the backward kernel."""
-    if _on_card(q):
-        return flash_attention_card(q, k, v, causal=False)
-    return full_attention_plain(q, k, v)
+    return _attention(q, k, v, False,
+                      lambda q, k, v, _: full_attention_plain(q, k, v))
+
+
+def _attention(q, k, v, causal: bool, plain):
+    """Kernel 6 by route: the card's `FlashAttention`; without data, or
+    under a recording that counts the card, `counted_attention` (its
+    forward and backward kernels' costs, the plain versions computing
+    the values on CPU tensors); else the plain version."""
+    from repro_torch.distributed.hlo_counters import active
+
+    route = _route(q)
+    if route == "card":
+        return flash_attention_card(q, k, v, causal)
+    rec = active()
+    if route == "shape" or (rec is not None and rec.kernels == "cost"):
+        return counted_attention(q, k, v, causal, route == "shape")
+    return plain(q, k, v, causal)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,9 +245,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Hkv, S, hd) masked to positions < length (>= 1) -> (B, Hkv, G, hd)
     in q's dtype. The card's kernel has no backward (decode is never
     trained) and raises under grad mode on an input requiring one."""
-    if _on_card(q):
-        return decode_attention_cuda(q, k, v, length)
-    return decode_attention_plain(q, k, v, length)
+    B, Hkv, G, hd = q.shape
+    n = length if isinstance(length, int) else k.shape[2]
+    return _dispatch(
+        "decode_attention",
+        lambda: cost.decode_attention(B, Hkv, G, hd, n, q.element_size()), q,
+        lambda: decode_attention_cuda(q, k, v, length),
+        lambda: decode_attention_plain(q, k, v, length),
+        lambda: _empty(q.shape, q.dtype, q))
 
 
 def hash_encode(corner_idx: torch.Tensor, corner_w: torch.Tensor,
@@ -194,11 +278,17 @@ def hash_encode_corners(corner_idx: torch.Tensor, corner_w: torch.Tensor,
                         act: Optional[Dict] = None) -> torch.Tensor:
     """`hash_encode`, and with `act` (a linear's activation grid) that
     layer's int8 codes instead, as `quantize_codes` gives them."""
-    if _on_card(corner_idx):
-        return hash_encode_corners_cuda(corner_idx, corner_w, table_cat,
-                                        level_offsets, act)
-    return hash_encode_corners_plain(corner_idx, corner_w, table_cat,
-                                     level_offsets, act)
+    L, B, _ = corner_idx.shape
+    F = table_cat.shape[1]
+    return _dispatch(
+        "hash_encode_corners", lambda: cost.hash_encode_corners(L, B, F),
+        corner_idx,
+        lambda: hash_encode_corners_cuda(corner_idx, corner_w, table_cat,
+                                         level_offsets, act),
+        lambda: hash_encode_corners_plain(corner_idx, corner_w, table_cat,
+                                          level_offsets, act),
+        lambda: _empty((B, L * F), torch.float32 if act is None
+                       else torch.int8, corner_idx))
 
 
 def hash_encode_points(points: torch.Tensor, table_cat: torch.Tensor,
@@ -215,9 +305,13 @@ def hash_encode_points(points: torch.Tensor, table_cat: torch.Tensor,
     `hash_encode` over each level's `corner_data`; with `act` (a linear's
     activation grid) that layer's int8 codes, as `quantize_codes` gives
     them."""
-    if _on_card(points):
-        return hash_encode_points_cuda(points, table_cat, meta, act)
-    return hash_encode_points_plain(points, table_cat, meta, act)
+    B, L, F = points.shape[0], meta.shape[0], table_cat.shape[1]
+    return _dispatch(
+        "hash_encode", lambda: cost.hash_encode_points(B, L, F), points,
+        lambda: hash_encode_points_cuda(points, table_cat, meta, act),
+        lambda: hash_encode_points_plain(points, table_cat, meta, act),
+        lambda: _empty((B, L * F), torch.float32 if act is None
+                       else torch.int8, points))
 
 
 def fused_field_query(corner_idx: torch.Tensor, corner_w: torch.Tensor,

@@ -12,12 +12,17 @@ every rank, one device each, and carries a
 
 Single pod: (data=16, model=16) = 256 cards. Multi-pod: (pod=2, data=16,
 model=16) = 512 cards.
+
+`fake_mesh` gives such a mesh without the cards, seen from rank 0 of a
+`fake` process group (collectives move nothing and return at once): the
+dry-run traces one rank's step over it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +142,31 @@ def make_host_mesh(device: DeviceLike = None) -> Mesh:
     dev = resolve_device(device)
     n = 1 if dev.type == "cpu" else torch.cuda.device_count()
     return make_mesh((1, n), ("data", "model"), dev)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes) -> Iterator[Mesh]:
+    """A mesh of prod(shape) ranks over a `fake` process group (PyTorch's
+    test backend, `torch.testing._internal.distributed.fake_pg`), seen
+    from rank 0. Its tensors live on the CPU, where a `FakeTensorMode`
+    makes tensors without data and autograd runs without a card (a fake
+    CUDA tensor's gradient needs the CUDA runtime); its `DeviceMesh` is a
+    CPU one, as DTensor moves a block to the mesh's device type. Refuses
+    while a process group is up; the group is destroyed on leaving."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up: a fake mesh needs a "
+                           "process of its own")
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    n = int(np.prod(shape))
+    dist.init_process_group("fake", rank=0, world_size=n,
+                            store=dist.HashStore())
+    try:
+        dev = torch.device("cpu")
+        dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+        yield Mesh(shape, axes, np.arange(n).reshape(shape), dm, dev,
+                   (0,) * len(shape))
+    finally:
+        dist.destroy_process_group()

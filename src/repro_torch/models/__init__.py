@@ -1,9 +1,7 @@
 """The LM stack (attention blocks with dense or mixture-of-experts FFNs):
 common blocks, attention, FFN and MoE, and `lm`'s init, quantized
-forward and loss, prefill and decode.
-
-The reference's `param_specs` and `cache_specs` (abstract shape trees)
-are not ported yet (ROADMAP item 10)."""
+forward and loss, prefill and decode, and the abstract shape trees the
+dry-run reads (`param_specs`, `cache_specs`: `meta` tensors)."""
 from repro_torch.models.common import ModelConfig, MoEConfig, ACT_FNS
 from repro_torch.models.lm import (
     init_params,
@@ -12,6 +10,8 @@ from repro_torch.models.lm import (
     prefill,
     decode_step,
     init_cache,
+    param_specs,
+    cache_specs,
 )
 
 __all__ = [
@@ -24,4 +24,6 @@ __all__ = [
     "prefill",
     "decode_step",
     "init_cache",
+    "param_specs",
+    "cache_specs",
 ]

@@ -30,6 +30,9 @@ alone (`wq`/`bq` by columns, `wo` by rows) on its input copied to
 heads too, the rank's KV heads are its own; where it does not (fewer KV
 heads than ranks), the rank gathers `wk`/`wv` whole and keeps the KV
 heads its query heads read, their gradient summed back to the owners.
+Under Megatron sequence parallelism (`Placement.seq`) the input is this
+rank's block of the sequence, gathered on entry and reduce-scattered on
+the way out (`Placement.enter`, `Placement.leave`).
 """
 from __future__ import annotations
 
@@ -208,16 +211,18 @@ def attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     own = _own_heads(params, cfg, placement)
     if own is not None:
         params, cfg = own
-        x = placement.copy_to_model(x)
         if x_kv is not None:
             x_kv = placement.copy_to_model(x_kv)
+    if placement is not None:
+        x = placement.enter(x, own is not None)
     if x_kv is not None:
         out = cross_attention(params, x, precompute_cross_kv(params, x_kv,
                                                              cfg),
                               cfg, positions, use_rope)
     else:
         out = self_attention(params, x, cfg, positions, causal, use_rope)[0]
-    return out if own is None else placement.reduce_from_model(out)
+    return out if placement is None else placement.leave(out,
+                                                         own is not None)
 
 
 # ---------------------------------------------------------------------------

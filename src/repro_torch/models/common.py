@@ -76,8 +76,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: bool = True
     grad_accum: int = 1
-    # Residual-stream sharding hint of the reference's launcher (unused on
-    # one card; kept so configs compare field for field).
+    # Residual-stream spec of the reference's launcher: where its second
+    # entry names the tensor-parallel axis, a placed train step runs
+    # Megatron sequence parallelism (`distributed.sharding.Placement`).
     act_pspec: Optional[Tuple] = None
     # embedding quant bands (HERO: the hash-level analogue)
     n_embed_bands: int = 8
@@ -198,8 +199,16 @@ def _rope_freqs_on(device: torch.device, head_dim: int,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) or (S,). Rotates pairs (even, odd)."""
-    freqs = _rope_freqs_on(x.device, x.shape[-1], float(theta))
+    """x: (B, S, H, D); positions: (B, S) or (S,). Rotates pairs (even, odd).
+    On a tensor without data the frequencies are an empty tensor of their
+    shape (nothing to cache)."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(x):
+        freqs = torch.empty((x.shape[-1] // 2,), dtype=torch.float32,
+                            device=x.device)
+    else:
+        freqs = _rope_freqs_on(x.device, x.shape[-1], float(theta))
     if positions.dim() == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs  # (B, S, d/2)

@@ -17,6 +17,10 @@ is Megatron's column/row-parallel pair over `model`, the experts are
 split over `model` (expert parallelism), and the routing of a batch
 split over ranks is the whole microbatch's: its statistics and each
 rank's expert counts come from small collectives over the batch axes.
+Under Megatron sequence parallelism (`Placement.seq`) both enter on this
+rank's block of the sequence and gather it (`Placement.enter`); the
+routing, which every `model` rank computes whole, reads the gathered
+input through `Placement.shared`.
 """
 from __future__ import annotations
 
@@ -25,7 +29,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import ACT_FNS, ModelConfig, MoEConfig, dense_init
 
@@ -52,10 +55,10 @@ def ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     splits the hidden units (`w_gate`/`w_in` by columns, `w_out` by rows:
     Megatron's column- and row-parallel pair), this rank's units of the
     input copied to `model`, their partial output summed over it."""
-    if placement is not None \
-            and params["w_in"].shape[1] * placement.tp == cfg.d_ff:
-        x = placement.copy_to_model(x)
-        return placement.reduce_from_model(ffn(params, x, cfg))
+    if placement is not None:
+        split = params["w_in"].shape[1] * placement.tp == cfg.d_ff
+        return placement.leave(ffn(params, placement.enter(x, split), cfg),
+                               split)
     if cfg.ffn_type == "swiglu":
         h = ACT_FNS["silu"](x @ params["w_gate"]) * (x @ params["w_in"])
     elif cfg.ffn_type == "geglu":
@@ -107,6 +110,14 @@ def moe_capacity(n_tokens: int, mcfg: MoEConfig) -> int:
     """Static per-expert capacity, rounded up to a multiple of 8."""
     c = math.ceil(n_tokens * mcfg.top_k * mcfg.capacity_factor / mcfg.n_experts)
     return max(8, -(-c // 8) * 8)
+
+
+def _one_hot(ids: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+    """`F.one_hot(ids, len(classes))` (int64) as one comparison: the same
+    ops on any tensor (`F.one_hot` checks its ids' range on real tensors
+    and not on tensors without data, so a dry-run would count other ops
+    than the card runs)."""
+    return (ids[..., None] == classes).long()
 
 
 @dataclasses.dataclass
@@ -163,7 +174,8 @@ def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig,
     gate_vals = gate_vals / torch.clamp_min(
         torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
 
-    top1 = F.one_hot(expert_ids[:, 0], E).to(torch.float32)
+    classes = torch.arange(E, device=dev)
+    top1 = _one_hot(expert_ids[:, 0], classes).to(torch.float32)
     if rows == 1:
         me = torch.mean(probs, dim=0)  # (E,)
         ce = torch.mean(top1, dim=0)
@@ -177,7 +189,7 @@ def moe_route(params: Dict, xt: torch.Tensor, cfg: ModelConfig,
 
     Tg = T // G
     ids_g = expert_ids.reshape(G, Tg * k)  # (G, Tg*k)
-    onehot = F.one_hot(ids_g, E)  # (G, Tg*k, E) int64
+    onehot = _one_hot(ids_g, classes)  # (G, Tg*k, E) int64
     pos_local = torch.cumsum(onehot, dim=1) - onehot  # exclusive, per group
     counts = torch.sum(onehot, dim=1)  # (G, E)
     group_base = torch.cumsum(counts, dim=0) - counts  # exclusive over groups
@@ -226,20 +238,24 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     one-process combine is a sum over experts, and every `model` rank of
     a batch row holds that row's tokens, so no all-to-all is needed."""
     m = cfg.moe
-    B, S, d = x.shape
-    T = B * S
     E, k = m.n_experts, m.top_k
-    xt = x.reshape(T, d)
     n_e = params["experts_in"].shape[0]
     ep = placement is not None and n_e * placement.tp == E
-    r = moe_route(params, xt, cfg, placement,
+    x_in, xr = x, x
+    if placement is not None:
+        x = placement.enter(x, ep)
+        if placement.seq:
+            xr = placement.shared(x) if ep else x
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    r = moe_route(params, xr.reshape(T, d), cfg, placement,
                   (placement.tp_rank * n_e, n_e) if ep else (0, 0))
     C = r.slot_tok.shape[1]
-    xe = placement.copy_to_model(xt) if ep else xt
 
     # Dispatch: each kept pair's token row into its (expert, slot); a
     # dropped pair adds a zero row at its expert's slot 0.
-    contrib = xe.repeat_interleave(k, dim=0) * r.mine[:, None].to(xt.dtype)
+    contrib = xt.repeat_interleave(k, dim=0) * r.mine[:, None].to(xt.dtype)
     buf = torch.zeros((n_e * C, d), dtype=xt.dtype, device=x.device)
     buf.index_add_(0, r.slot, contrib)
     buf = buf.view(n_e, C, d)
@@ -260,9 +276,9 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     weighted = out_buf * r.slot_gate[..., None].to(out_buf.dtype)
     out = torch.zeros((T + 1, d), dtype=out_buf.dtype, device=x.device)
     out.index_add_(0, r.slot_tok.reshape(-1), weighted.reshape(n_e * C, d))
-    out = out[:T]
-    if ep:
-        out = placement.reduce_from_model(out)
+    out = out[:T].reshape(B, S, d)
+    if placement is not None:
+        out = placement.leave(out, ep)
     if m.dense_residual:
-        out = out + ffn(params["dense"], xt, cfg, placement)
-    return out.reshape(B, S, d), r.aux_loss
+        out = out + ffn(params["dense"], x_in, cfg, placement)
+    return out, r.aux_loss

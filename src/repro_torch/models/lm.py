@@ -323,6 +323,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def _without_storage(tree):
+    """Each tensor of `tree` as a `meta` tensor of its shape and dtype."""
+    from repro_torch.tree_util import map_with_path
+
+    return map_with_path(lambda _, t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), tree)
+
+
+def param_specs(cfg: ModelConfig) -> Dict:
+    """The parameters' tree, each leaf a `meta` tensor of its shape and
+    dtype (no storage): the dry-run's input, the counterpart of the
+    reference's `jax.eval_shape` tree (in the port's layout:
+    `to_reference_layout` gives the reference's shapes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return _without_storage(init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
+    """`init_cache`'s tree as `meta` tensors (no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return _without_storage(init_cache(cfg, batch, max_seq, "cpu"))
+
+
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                       dev: torch.device) -> Dict:
     if kind in ("attn", "dec"):
@@ -380,45 +408,67 @@ def _used(params: Dict, name: str, placement):
     return t if placement is None else placement.use(t, placement.specs[name])
 
 
-def _embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-                  spec: Optional[LMQuantSpec] = None,
-                  placement=None) -> torch.Tensor:
+def _embed_rows(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                spec: Optional[LMQuantSpec] = None, placement=None
+                ) -> Tuple[torch.Tensor, bool]:
+    """(the token embeddings, whether `model` splits the vocabulary):
+    where it does, this rank's rows and zeros for the others' tokens (a
+    part of the sum over `model`)."""
     table = _used(params, "embed", placement)
     if spec is not None:
         table = quant_embedding(table, spec.embed_bits, spec.paper_exact)
     n = table.shape[0]
     if n == cfg.vocab_size:
-        return table[tokens]
-    # vocab-parallel: this rank's rows, zeros for the others' tokens
+        return table[tokens], False
     local = tokens - placement.tp_rank * n
     mine = (local >= 0) & (local < n)
     x = table[torch.where(mine, local, 0)]
-    return placement.reduce_from_model(
-        torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device)))
+    return torch.where(mine[..., None], x, torch.zeros(
+        (), dtype=x.dtype, device=x.device)), True
+
+
+def _embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  spec: Optional[LMQuantSpec] = None,
+                  placement=None) -> torch.Tensor:
+    x, split = _embed_rows(params, tokens, cfg, spec, placement)
+    return placement.reduce_from_model(x) if split else x
 
 
 def _embed_inputs(params: Dict, batch: Dict, cfg: ModelConfig,
                   spec: Optional[LMQuantSpec] = None,
                   placement=None) -> torch.Tensor:
-    """The token embeddings, behind llava's patch embeddings."""
-    x = _embed_tokens(params, batch["tokens"], cfg, spec, placement)
+    """The token embeddings, behind llava's patch embeddings. Under
+    sequence parallelism (`placement.seq`), this rank's block of their
+    sequence: the vocabulary-parallel parts reduce-scattered (the patches
+    counted once, on `model` rank 0), a whole embedding cut."""
+    seq = placement is not None and placement.seq
+    if not seq:
+        x = _embed_tokens(params, batch["tokens"], cfg, spec, placement)
+    else:
+        x, split = _embed_rows(params, batch["tokens"], cfg, spec, placement)
     if cfg.embed_frontend == "prefix_patches":
-        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-    return x
+        p = batch["patches"].to(x.dtype)
+        if seq and split and placement.tp_rank:
+            p = torch.zeros_like(p)
+        x = torch.cat([p, x], dim=1)
+    return placement.leave(x, split) if seq else x
 
 
 def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig,
           placement=None) -> torch.Tensor:
     """The logits of x: (B, S, V), or this rank's vocabulary columns where
-    `model` splits the head."""
-    x = apply_norm(_used(params, "final_norm", placement), x, cfg)
+    `model` splits the head (under sequence parallelism the normed block
+    gathered first, `Placement.enter`)."""
+    norm = _used(params, "final_norm", placement)
+    if placement is not None:
+        norm = placement.seq_params(norm)
+    x = apply_norm(norm, x, cfg)
     if cfg.tie_embeddings:
         head = _used(params, "embed", placement).T
     else:
         head = _used(params, "lm_head", placement)
-    if head.shape[1] != cfg.vocab_size:
-        x = placement.copy_to_model(x)
+    if placement is not None:
+        x = placement.enter(x, head.shape[1] != cfg.vocab_size)
     return x @ head
 
 
@@ -488,6 +538,9 @@ def _placed_block(bp: Dict, specs: Dict, cfg: ModelConfig, placement
     cut their heads or channels from what their specs leave (mixers'
     `_own_heads`, `_own_channels`)."""
     bp = placement.use(bp, specs)
+    for name in ("ln1", "ln_x", "ln2"):
+        if name in bp:
+            bp[name] = placement.seq_params(bp[name])
     if placement.tp > 1:
         whole = ["ssm"] if ssm_mod.ssm_dims(cfg)[0] % placement.tp else []
         if cfg.n_heads % placement.tp:
@@ -560,16 +613,25 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig,
     fake-quantized at its `w_bits` row as the layer runs. Under a
     `placement` (placed training: `params` are this rank's blocks, the
     batch this rank's rows) the logits are this rank's vocabulary columns
-    where `model` splits the head."""
+    where `model` splits the head. Where `cfg.act_pspec` asks for
+    Megatron sequence parallelism (`Placement.sequence_parallel`), the
+    decoder's residual stream between blocks is this rank's block of the
+    sequence; whisper's encoder keeps its whole."""
     if spec is not None and placement is not None and placement.tp > 1:
         raise ValueError("a quantization spec takes each weight's range "
                          "over the whole tensor: it does not run over a "
                          "model axis that splits the weights")
-    x = _embed_inputs(params, batch, cfg, spec, placement)
-    S = x.shape[1]
+    S = batch["tokens"].shape[1]
+    if cfg.embed_frontend == "prefix_patches":
+        S += batch["patches"].shape[1]
+    where = placement and placement.sequence_parallel(cfg, S)
+    x = _embed_inputs(params, batch, cfg, spec, where)
     positions = torch.arange(S, device=x.device)
     if cfg.pos_embed == "learned":
-        x = x + _used(params, "pos_embed", placement)[:S]
+        pos = _used(params, "pos_embed", placement)[:S]
+        if where is not None:
+            pos = where.seq_rows(where.seq_params(pos), 0)
+        x = x + pos
     enc_out = None
     if cfg.pattern == "encdec":
         enc_out = encode_source(params, batch["frames"], cfg, spec,
@@ -578,9 +640,9 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig,
     x, aux = _run_blocks(
         params["blocks"], x, cfg, [_layer_kind(cfg, l) for l in range(L)],
         [_layer_has_moe(cfg, l) for l in range(L)], spec, cfg.encoder_layers,
-        enc_out, positions, period(cfg), placement,
+        enc_out, positions, period(cfg), where,
         placement and placement.specs["blocks"])
-    return _head(params, x, cfg, placement), aux
+    return _head(params, x, cfg, where), aux
 
 
 def _vocab_parallel_nll(lg: torch.Tensor, labels: torch.Tensor, placement

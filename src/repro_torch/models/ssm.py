@@ -12,6 +12,10 @@ every position at once, as the reference applies it after its
 combines in another order than `jax.lax.associative_scan`, so results
 agree to float32 rounding, not bit for bit.
 
+The chunks run through `hlo_counters.counted_loop`: as they are, but
+under a recording with trip counts by a stand-in that counts two and
+three chunks.
+
 Decode is the plain recurrence on (conv window, SSM state): O(1) a
 token.
 
@@ -28,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.hlo_counters import counted_loop
 from repro_torch.models.common import ModelConfig, dense_init
 
 
@@ -129,8 +134,16 @@ def _selective_scan_chunked(
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"S={S} is not a whole number of chunks of {chunk}")
+    return counted_loop(lambda n, *t: _scan_chunks(n, chunk, *t), S // chunk,
+                        delta, A, Bc, Cc, xs, h0)
+
+
+def _scan_chunks(n: int, chunk: int, delta, A, Bc, Cc, xs, h0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan over the first n chunks: (y (B, n chunk, din) f32, the
+    state after them)."""
     h, ys = h0, []
-    for c0 in range(0, S, chunk):
+    for c0 in range(0, n * chunk, chunk):
         d = delta[:, c0:c0 + chunk]
         bc = Bc[:, c0:c0 + chunk].float()
         cc = Cc[:, c0:c0 + chunk].float()
@@ -177,7 +190,9 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     over the channels, is summed over `model` first."""
     own = _own_channels(params, cfg, placement)
     if own is not None:
-        params, x = own, placement.copy_to_model(x)
+        params = own
+    if placement is not None:
+        x = placement.enter(x, own is not None)
     B, S, d = x.shape
     _, r, n = ssm_dims(cfg)
     din = params["conv_w"].shape[1]
@@ -199,8 +214,8 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     y = y + params["D"] * xs.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]
-    if own is not None:
-        out = placement.reduce_from_model(out)
+    if placement is not None:
+        out = placement.leave(out, own is not None)
     if return_state:
         K = cfg.ssm_conv
         window = F.pad(xs_raw, (0, 0, K - 1, 0))[:, S:, :]

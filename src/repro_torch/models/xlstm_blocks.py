@@ -16,6 +16,10 @@ Both caches start their stabilizer `m` at -1e30.
 Placed training splits both cells over `model` by their heads (the
 forwards' `placement`): each head's recurrence is its own, so a rank
 runs its H / tp heads with no collective inside the time loop.
+
+The sLSTM's positions and the mLSTM's query chunks run through
+`hlo_counters.counted_loop`: as they are, but under a recording with trip
+counts by a stand-in that counts two and three iterations.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.hlo_counters import counted_loop
 from repro_torch.models.common import ModelConfig, dense_init
 
 NEG_INF = -1e30
@@ -127,7 +132,9 @@ def mlstm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     (`_own_heads`) between Megatron's two operators."""
     own = _own_heads(params, cfg, placement, _MLSTM_HEADS)
     if own is not None:
-        params, x = own, placement.copy_to_model(x)
+        params = own
+    if placement is not None:
+        x = placement.enter(x, own is not None)
     B, S, d = x.shape
     dh = _heads(cfg)[1]
     H = params["wi"].shape[1]
@@ -144,10 +151,11 @@ def mlstm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     base = (log_i - Fc).transpose(1, 2)  # (B, H, S)
     src = torch.arange(S, device=x.device)
 
-    def one_chunk(start: int, c: int) -> torch.Tensor:
+    def one_chunk(start: int, c: int, q, kf, vf, Fc, base, src
+                  ) -> torch.Tensor:
         Ft = Fc[:, start:start + c]  # (B, c, H)
         D = Ft[:, :, :, None] + base[:, None, :, :]  # (B, c, H, S)
-        tpos = start + torch.arange(c, device=x.device)
+        tpos = start + torch.arange(c, device=src.device)
         mask = tpos[:, None] >= src[None, :]
         D = torch.where(mask[None, :, None, :], D, NEG_INF)
         m = torch.amax(D, dim=-1, keepdim=True)  # (B, c, H, 1)
@@ -160,16 +168,22 @@ def mlstm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
     chunk = min(cfg.attn_chunk, S)
     n_chunks = max(S // chunk, 1)
-    parts = [one_chunk(i * chunk, chunk) for i in range(n_chunks)]
     rem = S - n_chunks * chunk
-    if rem:
-        parts.append(one_chunk(n_chunks * chunk, rem))
-    h = torch.cat(parts, dim=1)
+
+    def chunks(n: int, *t) -> Tuple[torch.Tensor]:
+        """The first n query chunks and the remainder, joined."""
+        parts = [one_chunk(i * chunk, chunk, *t) for i in range(n)]
+        if rem:
+            parts.append(one_chunk(n_chunks * chunk, rem, *t))
+        return (torch.cat(parts, dim=1),)
+
+    h, = counted_loop(chunks, n_chunks, q, kf, vf, Fc, base, src)
 
     h = _headwise_rms(h, params["norm_scale"].float())
     h = (h.to(x.dtype) * og).reshape(B, S, H * dh)
     out = h @ params["out_proj"]
-    return out if own is None else placement.reduce_from_model(out)
+    return out if placement is None else placement.leave(out,
+                                                         own is not None)
 
 
 def mlstm_final_state(params: Dict, x: torch.Tensor,
@@ -295,19 +309,27 @@ def _slstm_wx(params: Dict, x: torch.Tensor, cfg: ModelConfig
     return wx.reshape(B, S, 4, -1, dh)
 
 
+def _slstm_steps(T: int, wx: torch.Tensor, R: torch.Tensor, *state):
+    """The recurrence over the first T positions of wx (B, S, 4, H, dh)
+    from `state` (c, n, h, m): (h at each position (B, T, H, dh), and
+    the final c, n, h, m)."""
+    hs = []
+    for t in range(T):
+        state = _slstm_cell({"R": R}, wx[:, t], state, None)
+        hs.append(state[2])
+    return (torch.stack(hs, dim=1),) + tuple(state)
+
+
 def _slstm_scan(params: Dict, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Dict]:
     """The recurrence over x (B, S, d) from the zero state (m at -1e30):
     (h at every position (B, S, H, dh), the final state)."""
     wx = _slstm_wx(params, x, cfg)
     zero = wx.new_zeros(wx.shape[:1] + wx.shape[3:])  # (B, H, dh)
-    state = (zero, zero, zero, torch.full_like(zero, NEG_INF))
-    hs = []
-    for t in range(x.shape[1]):
-        state = _slstm_cell(params, wx[:, t], state, cfg)
-        hs.append(state[2])
-    c, n, h, m = state
-    return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
+    hs, c, n, h, m = counted_loop(_slstm_steps, x.shape[1], wx, params["R"],
+                                  zero, zero, zero,
+                                  torch.full_like(zero, NEG_INF))
+    return hs, {"c": c, "n": n, "h": h, "m": m}
 
 
 def _slstm_out(params: Dict, h: torch.Tensor, x: torch.Tensor
@@ -325,9 +347,12 @@ def slstm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     Megatron's two operators: the time loop runs on them alone."""
     own = _own_heads(params, cfg, placement, _SLSTM_HEADS)
     if own is not None:
-        params, x = own, placement.copy_to_model(x)
+        params = own
+    if placement is not None:
+        x = placement.enter(x, own is not None)
     out = _slstm_out(params, _slstm_scan(params, x, cfg)[0], x)
-    return out if own is None else placement.reduce_from_model(out)
+    return out if placement is None else placement.leave(out,
+                                                         own is not None)
 
 
 def slstm_final_state(params: Dict, x: torch.Tensor,

@@ -280,8 +280,23 @@ def test_ops_dispatch_by_device_and_refuse_others():
     table = torch.arange(6, dtype=torch.float32).reshape(3, 2)
     np.testing.assert_array_equal(ops.hash_gather(idx, table).numpy(),
                                   [[0, 1], [4, 5], [0, 0]])
+    # a tensor without data takes the shape-only route: the kernel's
+    # output, empty, and its cost recorded (the dry-run's counters)
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.hlo_counters import Recorder
+    from repro_torch.kernels import cost
+
+    idx_m, table_m = idx.to("meta"), table.to("meta")
+    with Recorder() as rec:
+        out = ops.hash_gather(idx_m, table_m)
+    assert (out.device.type, tuple(out.shape), out.dtype) == \
+        ("meta", (3, 2), torch.float32)
+    want = cost.hash_gather(3, 2)
+    assert [(r.op, r.flops, r.out_bytes) for r in rec.trace.records] == \
+        [("kernel.hash_gather", want.ops, want.bytes)]
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.hash_gather(idx.to("meta"), table.to("meta"))
+        ops._route(SimpleNamespace(device=torch.device("mps")))
 
 
 def test_runner_fingerprint_names_the_device(no_card):
@@ -350,15 +365,10 @@ def test_ported_examples_import_only_the_port():
 
 
 # Reference package names the port's package does not re-export, each for
-# a recorded reason: the counterpart has another name, or it belongs to
-# ROADMAP item 10 (the reference's abstract shape trees and HLO analysis).
+# a recorded reason: the counterpart has another name.
 _NOT_MIRRORED = {
     "hwsim": {"mlp_cycles_jnp": "mlp_cycles_torch"},
-    "distributed": {"population_mesh": "population_devices",
-                    **dict.fromkeys(("ChipSpec", "CollectiveStats",
-                                     "RooflineTerms", "parse_collectives",
-                                     "op_census", "roofline_terms"))},
-    "models": dict.fromkeys(("param_specs", "cache_specs")),
+    "distributed": {"population_mesh": "population_devices"},
 }
 
 

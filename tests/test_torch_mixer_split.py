@@ -48,6 +48,9 @@ def one_thread():
 class Rank:
     """`model` rank `tp_rank` of `tp` without a process group."""
     own = Placement.own
+    # no sequence parallelism: a mixer's `enter` and `leave` are
+    # Megatron's `copy_to_model` and `reduce_from_model` below
+    enter, leave, seq = Placement.enter, Placement.leave, False
 
     def __init__(self, tp, rank, wholes=None, total=None):
         self.tp, self.tp_rank = tp, rank

@@ -18,6 +18,12 @@ after two steps, then two more steps there (the uninterrupted run), the
 same checkpoint restored on (4, 1) and trained two steps, and restored
 by `restore_checkpoint` onto (4, 1)'s blocks directly. Every rank counts
 the gathered parameter bytes alive at once (`gather_on_use`'s outputs).
+With Megatron sequence parallelism (`act_pspec` naming `model` on the
+sequence) qwen2-7b and jamba train on (2, 2) and (1, 4), and one step of
+qwen2-7b at (1, 4) each way is recorded (`hlo_counters.Recorder`: its
+collectives, and the residual each period's checkpoint keeps); the
+dry-run's cells of qwen2-7b and qwen3-moe (smoke configs) run on (2, 2)
+and are recorded as `launch.dryrun` records them on a fake mesh.
 
 Against the one-process step (`make_train_step` without a mesh) from the
 same weights and batches: loss and grad norm within 1e-5 relative (equal
@@ -94,6 +100,16 @@ GUARD_SEQS = (16, 32)
 # one KV head a query head).
 INSIDE_HEADS = (("mid-head", (1, 4), 2, 1), ("uneven-kv", (2, 2), 6, 3))
 CKPT_MESH, RESUME_MESH = (2, 2), (4, 1)
+# Megatron sequence parallelism (`act_pspec` names `model` on the
+# sequence): qwen2-7b and jamba on these meshes; one recorded step of
+# qwen2-7b each way at (1, 4); and the dry-run's fake (2, 2) step against
+# the ranks' recorded ones (DRY: smoke configs, 2 microbatches of 4
+# sequences of 32 tokens)
+SP = ("data", "model", None)
+SP_ARCHS = ("qwen2-7b", "jamba-v0.1-52b")
+SP_MESHES = ((2, 2), (1, 4))
+DRY = ("qwen2-7b", "qwen3-moe-235b-a22b")
+DRY_SEQ, DRY_MB, DRY_BATCH = 32, 4, 8
 # The reference's GSPMD step runs CASES and BF16 (qwen2-7b's smoke config
 # with bfloat16 parameters, f32 moments) on these meshes of four forced
 # host devices, and MOE on the first two; the ranks run BF16 on them too.
@@ -132,23 +148,26 @@ def batches(cfg, n: int, seed: int = 0, seq: int = SEQ):
     return out
 
 
-def smoke(arch: str, dtype: str = "float32", heads=None, remat=True):
+def smoke(arch: str, dtype: str = "float32", heads=None, remat=True,
+          act=None):
     """The smoke config, its parameters in `dtype`; `heads` (n_heads,
-    n_kv_heads) replaces its head counts, and `remat` its own."""
+    n_kv_heads) replaces its head counts, `remat` its own and `act` its
+    `act_pspec`."""
     from repro_torch.configs import get_arch
 
     cfg = dataclasses.replace(get_arch(arch).smoke, dtype=dtype)
     if heads is not None:
         cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
-    return dataclasses.replace(cfg, remat=remat)
+    return dataclasses.replace(cfg, remat=remat, act_pspec=act)
 
 
-def init(arch: str, dtype: str = "float32", heads=None, remat=True):
-    """The smoke config (its parameters in `dtype`, `heads` and `remat` as
-    `smoke` takes them) and its seed-0 weights."""
+def init(arch: str, dtype: str = "float32", heads=None, remat=True,
+         act=None):
+    """The smoke config (its parameters in `dtype`, `heads`, `remat` and
+    `act` as `smoke` takes them) and its seed-0 weights."""
     from repro_torch.models import lm
 
-    cfg = smoke(arch, dtype, heads, remat)
+    cfg = smoke(arch, dtype, heads, remat, act)
     return cfg, lm.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
 
@@ -174,9 +193,9 @@ def train(step, p, o, bs, each=None):
 # One rank of the spawn
 # ---------------------------------------------------------------------------
 def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
-               dtype="float32", each=None, heads=None, remat=True):
+               dtype="float32", each=None, heads=None, remat=True, act=None):
     """Train `bs` placed over `mesh` from the seed-0 weights (in `dtype`;
-    `heads` and `remat` as `smoke` takes them), the accumulator placed
+    `heads`, `remat` and `act` as `smoke` takes them), the accumulator placed
     like the parameters (or, `grad_pspecs=False`, whole on every rank);
     `each` as `train` takes it. Returns (params, opt state, rows, the
     pruned specs, {path: local shape})."""
@@ -192,7 +211,7 @@ def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
     from repro_torch.optim import adamw_init
     from repro_torch.tree_util import leaves_with_path
 
-    cfg, params = init(arch, dtype, heads, remat)
+    cfg, params = init(arch, dtype, heads, remat, act)
     pspec = param_pspecs(params, ShardingConfig(), mesh)
     p = place(params, named(mesh, pspec))
     o = from_blocks(adamw_init(blocks(p), md),
@@ -206,6 +225,49 @@ def placed_run(mesh, arch, md, bs, record, grad_pspecs=True,
              for k, t in leaves_with_path((p, o))}
     specs = {k: tuple(s) for k, s in leaves_with_path(pspec)}
     return p, o, rows, specs, local
+
+
+_COLLECTIVE = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def recorded_step(mesh, arch, act, remat):
+    """One placed step of `arch` (f32 moments, one batch of ACCUM x MB x
+    SEQ tokens, `remat` its own) recorded (`hlo_counters.Recorder`): its
+    collectives (kind, output bytes, input bytes, group, calls) and the
+    shape of the residual each period's checkpoint keeps."""
+    from repro_torch.distributed.hlo_counters import Recorder
+    from repro_torch.models import lm
+
+    saved, ck = [], lm.checkpoint
+
+    def keeping(fn, lo, x, aux, **kw):
+        saved.append(tuple(x.shape))
+        return ck(fn, lo, x, aux, **kw)
+
+    lm.checkpoint = keeping
+    try:
+        with Recorder() as rec:
+            placed_run(mesh, arch, "float32", batches(init(arch)[0], 1), [],
+                       act=act, remat=remat)
+    finally:
+        lm.checkpoint = ck
+    return {"colls": [(r.kind, r.out_bytes, r.in_bytes, r.group, r.calls)
+                      for r in rec.trace.records if r.kind in _COLLECTIVE],
+            "saved": saved}
+
+
+def dry_cell(arch: str):
+    """(ArchSpec, ShapeSpec) of the dry-run cell the ranks and the fake
+    mesh both run: `arch`'s smoke config, DRY_BATCH sequences of DRY_SEQ
+    tokens a step in microbatches of DRY_MB."""
+    from repro_torch.configs import SHAPES, get_arch
+
+    spec = get_arch(arch)
+    return (dataclasses.replace(spec, model=spec.smoke,
+                                microbatch={"train_4k": DRY_MB}),
+            dataclasses.replace(SHAPES["train_4k"], seq_len=DRY_SEQ,
+                                global_batch=DRY_BATCH))
 
 
 def rank_main(rank: int, store: str, out: str) -> None:
@@ -432,6 +494,46 @@ def rank_main(rank: int, store: str, out: str) -> None:
                   for k, t in leaves_with_path(got)},
         "specs": {k: tuple(s) for k, s in leaves_with_path(rspec)},
         "state": gathered(got)}
+    # Megatron sequence parallelism: one step of each (its state after it
+    # held as the others' first steps are), then one recorded step of
+    # qwen2-7b at (1, 4) with and without it
+    for shape in SP_MESHES:
+        mesh = make_mesh(shape, AXES, "cpu")
+        for arch in SP_ARCHS:
+            p, o, rows, _, _, seen = run(
+                mesh, arch, "float32", batches(init(arch)[0], 1), act=SP)
+            res[key(shape, arch, "float32") + "/sp"] = {
+                "rows": rows, "mids": [gathered((p, o))], **seen}
+    # two query heads on four `model` ranks: the attention computes whole
+    # (its input gathered, its output cut back to the block)
+    name, shape, h, kv = INSIDE_HEADS[0]
+    p, o, rows, _, _, seen = run(
+        make_mesh(shape, AXES, "cpu"), CASES[0][0], "float32",
+        batches(init(CASES[0][0])[0], 1), heads=(h, kv), act=SP)
+    res[name + "/sp"] = {"rows": rows, "mids": [gathered((p, o))], **seen}
+    mesh = make_mesh((1, 4), AXES, "cpu")
+    for act in (None, SP):
+        for remat in (False, True):
+            res[f"recorded/{act is not None}/{remat}"] = recorded_step(
+                mesh, CASES[0][0], act, remat)
+
+    # the dry-run's cell on the real ranks: its step recorded as
+    # `launch.dryrun.trace_cell` records it on the fake mesh
+    from repro_torch.distributed.hlo_counters import Recorder, analyze
+    from repro_torch.launch import dryrun
+
+    mesh = make_mesh((2, 2), AXES, "cpu")
+    for arch in DRY:
+        step, (p, o, one), accum = dryrun.build_cell(*dry_cell(arch), mesh)
+        batch = {k: v.expand((accum,) + tuple(v.shape[1:])).contiguous()
+                 for k, v in one.items()}
+        with Recorder() as rec:
+            step(p, o, batch)
+        c = analyze(rec.trace)
+        res["dry/" + arch] = {"flops": c.flops, "dot_flops": c.dot_flops,
+                              "bytes": c.bytes, "counts": c.coll_counts,
+                              "link": c.link_bytes}
+
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -558,8 +660,9 @@ def spawn(tmp_path_factory):
         for a in args + [["reference", str(tmp)]]]
     logs = []
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
+        for p in procs:  # a hang guard: the ranks take ~70 s alone and
+            # up to ~200 s beside six busy test workers
+            logs.append(p.communicate(timeout=360)[0])
     finally:
         for p in procs:
             p.kill()
@@ -1261,3 +1364,101 @@ def test_the_launcher_trains_over_two_ranks_under_torchrun(tmp_path):
             assert float(torch.where(steady, gap, 0.0).max()) <= REL, k
         else:
             assert float(gap.max()) <= REL * float(t.double().abs().max()), k
+
+
+# ---------------------------------------------------------------------------
+# Megatron sequence parallelism, and the dry-run against the ranks
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", SP_ARCHS)
+@pytest.mark.parametrize("shape", SP_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sequence_parallel_steps_equal_the_one_process_step(spawn, shape,
+                                                            arch):
+    """With `act_pspec` naming `model` on the sequence, the residual
+    stream between blocks is each rank's quarter (1, 4) or half (2, 2) of
+    the sequence; the mixers, MoE and the FFNs gather it and scatter
+    their outputs back. One step: its metrics and state are the
+    one-process step's at the limits above."""
+    assert_equals_one_process(spawn.ranks, key(shape, arch, "float32")
+                              + "/sp", arch, "float32", first=True)
+
+
+def test_a_whole_mixer_under_sequence_parallelism(spawn):
+    """Two query heads on (1, 4) with sequence parallelism: every rank
+    runs both heads on the gathered sequence and keeps its block of the
+    output (no sum over `model`); one step equals the one-process
+    step."""
+    name, shape, h, kv = INSIDE_HEADS[0]
+    for r in range(WORLD):
+        assert spawn.ranks[r][name + "/sp"]["heads"] == [h]
+    assert_equals_one_process(spawn.ranks, name + "/sp", CASES[0][0],
+                              "float32", (h, kv), first=True)
+
+
+def _activation_bytes() -> float:
+    """Bytes of qwen2-7b's (MB, SEQ, d) f32 residual at one rank of
+    (1, 4)."""
+    return MB * SEQ * smoke(CASES[0][0]).d_model * 4.0
+
+
+def test_sequence_parallelism_gathers_and_scatters_in_place_of_all_reduces(
+        spawn):
+    """qwen2-7b at (1, 4), remat off (a recompute stops once it has what
+    backward saved, and where depends on the operators): without
+    sequence parallelism every collective
+    over the residual's size is an all-reduce (the embedding's, each
+    mixer's and FFN's output and, backward, their inputs' and the head's);
+    with it none is, and the all-gathers and reduce-scatters of that size
+    take their place with the same link bytes (an all-reduce's 2(N-1)/N
+    is a gather's (N-1)/N and a scatter's). The all-reduces left are the
+    norms' parameters' gradients (d values) and the loss's statistics."""
+    from repro_torch.distributed.hlo_counters import link_bytes
+
+    act = _activation_bytes()
+    for r in range(WORLD):
+        off = spawn.ranks[r]["recorded/False/False"]["colls"]
+        on = spawn.ranks[r]["recorded/True/False"]["colls"]
+
+        def link(colls, kinds, size):
+            return sum(link_bytes(k, o, i, n) for k, o, i, n, _ in colls
+                       if k in kinds and max(o, i) == size)
+
+        assert link(off, ("all-reduce",), act) > 0
+        assert link(on, ("all-reduce",), act) == 0
+        assert not [c for c in off if c[0] in ("all-gather", "reduce-scatter")
+                    and max(c[1], c[2]) == act]
+        assert link(on, ("all-gather", "reduce-scatter"), act) == \
+            link(off, ("all-reduce",), act)
+        assert all(max(o, i) < act for k, o, i, _, _ in on
+                   if k == "all-reduce")
+
+
+def test_a_sequence_parallel_period_keeps_a_quarter_of_the_residual(spawn):
+    """Under remat each period keeps its input for the backward: at (1, 4)
+    with sequence parallelism that is this rank's quarter of the
+    sequence."""
+    for r in range(WORLD):
+        off = spawn.ranks[r]["recorded/False/True"]["saved"]
+        on = spawn.ranks[r]["recorded/True/True"]["saved"]
+        assert len(on) == len(off) > 0
+        assert all(a == (MB, SEQ, smoke(CASES[0][0]).d_model) for a in off)
+        assert all(np.prod(b) * 4 == np.prod(a) and b[1] * 4 == a[1]
+                   for a, b in zip(off, on))
+
+
+@pytest.mark.parametrize("arch", DRY)
+def test_the_fake_mesh_counts_what_the_ranks_run(spawn, arch, tmp_path):
+    """`launch.dryrun.run_cell` at (2, 2), rank 0 of a fake process group
+    on tensors without data, counts the FLOPs, device-memory bytes,
+    collectives and link bytes that the recorder counts on the real gloo
+    ranks running the same cell's step (each kernel counted by its cost
+    both ways)."""
+    from repro_torch.launch import dryrun
+
+    spec, shape = dry_cell(arch)
+    r = dryrun.run_cell(spec, shape, False, tmp_path, mesh=((2, 2), AXES))
+    got = spawn.ranks[0]["dry/" + arch]
+    assert r["flops_per_device"] == got["flops"]
+    assert r["dot_flops_per_device"] == got["dot_flops"]
+    assert r["bytes_per_device"] == got["bytes"]
+    assert r["collectives"]["counts"] == got["counts"]
+    assert r["collectives"]["per_device_link_bytes"] == got["link"]
