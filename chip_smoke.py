@@ -209,10 +209,10 @@ Phases, each of which raises on failure:
    back to back and SDPA's forward plus backward (``enable_gqa``);
    whisper-large-v3 at full width and depth trained by
    ``launch.train.main`` for 6 steps of 8 x 128 tokens (2 microbatches,
-   1,500 zero frames, f32 moments, checkpoints every 3 steps), counts
+   1,500 zero frames, f32 moments, one checkpoint at step 4), counts
    zeroed around it (kernel 6 and its backward once per attention call
-   per microbatch, nothing else), then resumed from its step-3
-   checkpoint: steps 4-6 within 1e-5 relative of the first run's, their
+   per microbatch, nothing else), then resumed from its step-4
+   checkpoint: steps 5-6 within 1e-5 relative of the first run's, their
    bit-equality printed; qwen2-7b at published width cut to 2 layers,
    ``make_train_step`` with int8 moments for 4 steps of 2 x 4 x 1,024
    tokens (ms a step, the clip's and the update's share, peak memory,
@@ -266,6 +266,25 @@ Phases, each of which raises on failure:
    ratio; and the full cell qwen2-7b x train_4k x 16x16 (rank 0 of 256)
    traced in a second child meanwhile: its roofline line and
    ``trace_s``.
+16. Placed prefill and decode (ROADMAP item 10b): (a) kernel 7's
+   partial form (``lse=True``: the f32 output and the log-sum-exp)
+   against its plain version in bf16 and f32 at phase 10's shape and
+   lengths, and at length 0 (zero and -inf), its time at a sixteenth of
+   the cache; (b) that cache cut into 2, 4 and 16 blocks of positions,
+   some empty, kernel 7's partial form on each merged by
+   ``distributed.sharding.combine_partials`` against kernel 7 over the
+   whole cache; (c) over a one-rank NCCL mesh, qwen2-7b at its published
+   width and depth (28 layers, bf16) served unplaced and then placed
+   (``make_prefill_step`` / ``make_decode_step`` with the mesh): a
+   prefill of 4 x 1,024 tokens and 32 greedy decode steps, the logits of
+   every call, the tokens and the cache bit-equal, prefill ms, decode ms
+   a step, peak, the placed run's launches (counts zeroed just before
+   it), one placed prefill and decode step profiled; (d) the dry-run's
+   one-rank prefill and decode cells of that serve traced on the CPU in
+   child processes: kernel 6's launches a prefill and kernel 7's a
+   decode step predicted, counted and profiled, equal; the decode cell
+   run on the card, its peak within 10 % of the prediction and its
+   device time at or above the roofline's.
 
 The last lines are the kernels JSON line (``launches`` from the all-miss
 stream and the LM serve, and for the backward phase 13's whisper run, ``launches_revisit`` from the revisit stream,
@@ -279,11 +298,15 @@ PSNR evaluations, ``launches_search`` from the search's episodes,
 ``launches_train_{whisper,qwen2}`` from phase 13's runs,
 ``launches_placed`` from phase 14's placed steps, ``launches_placed_mixers``
 from its placed mixers' steps (0: no kernel lies on them), ``launches_dryrun``
-from phase 15's step;
+from phase 15's step, ``launches_placed_serve`` from phase 16's placed
+serve;
 the flash entry also carries the phase 12 shapes' numbers under
 ``*_{whisper_enc,cross_served,cross,ragged,cross_ragged,whisper_dec,
 llava_jamba}`` and the decode entry under
-``*_{whisper_cross,whisper_self,llava_jamba}``, and the backward's
+``*_{whisper_cross,whisper_self,llava_jamba}`` and phase 16's partial
+form under ``max_abs_err_lse``, ``lse_err``, ``ms_lse_block16``,
+``plain_ms_lse_block16``, ``library_ms_lse_block16`` and
+``combine_err``, and the backward's
 entry, ``flash_attention_bwd``, qwen2-7b's shape with whisper's under
 ``*_{whisper_enc,whisper_dec,whisper_cross}``),
 the card's name and power limit (``nvidia-smi``), and
@@ -2337,8 +2360,10 @@ def profile(label: str, fn) -> None:
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {t:8.3f} ms {n:5d}x {name[:90]}")
+    order = [e.name for e in sorted(kernels,
+                                     key=lambda e: e.time_range.start)]
     return busy, by_name, {"events": len(kernels), "device_ms": busy,
-                           "wall_ms": wall * 1e3,
+                           "wall_ms": wall * 1e3, "order": order,
                            "annotations": annotations, "ranges": ranges}
 
 
@@ -3567,10 +3592,10 @@ def item8_phase(dev, kern, flash_entry, decode_entry):
 # ---------------------------------------------------------------------------
 # (a) whisper-large-v3 at full width and depth through the launcher: 6
 # steps of 8 sequences of 128 tokens in 2 microbatches beside 1,500 zero
-# frames, checkpoints every 3 steps, then the same run resumed at step 3.
+# frames, one checkpoint (at step 4), then the same run resumed there.
 WHISPER_TRAIN = ["--arch", "whisper-large-v3", "--seq-len", "128",
                  "--global-batch", "8", "--accum", "2"]
-WHISPER_STEPS, WHISPER_CKPT_EVERY = 6, 3
+WHISPER_STEPS, WHISPER_CKPT_EVERY = 6, 4
 # (b) qwen2-7b at its published width cut to 2 of 28 layers (PERF.md
 # section 4: 28 layers with an f32 accumulator do not fit one card), int8
 # moments: 4 steps of 2 microbatches of 4 x 1,024 tokens; then the same
@@ -3786,9 +3811,9 @@ def check_train_launches(label, got, want):
 
 def train_whisper(dev, kern):
     """(a): whisper-large-v3 trained by `launch.train.main`, counts zeroed
-    just before and read just after; then resumed from its step-3
-    checkpoint, steps 4-6 within RESUME_REL of the first run's. Returns
-    the first run's launches."""
+    just before and read just after; then resumed from its one
+    checkpoint (step WHISPER_CKPT_EVERY), the steps after it within
+    RESUME_REL of the first run's. Returns the first run's launches."""
     import gc
     import shutil
 
@@ -3824,7 +3849,8 @@ def train_whisper(dev, kern):
     check_train_launches("the whisper run",
                          launches, train_launches(model,
                                                   2 * WHISPER_STEPS))
-    shutil.rmtree(ckpt / f"step_{WHISPER_STEPS}")
+    # a checkpoint at the last step would be the one resumed from
+    shutil.rmtree(ckpt / f"step_{WHISPER_STEPS}", ignore_errors=True)
     again, t0 = [], time.perf_counter()
     del_params = train_mod.main(argv + ["--ckpt-every", "1000", "--resume"],
                                 log=again)
@@ -4859,6 +4885,11 @@ if sys.argv[1] == "phase14":
         moment_dtype="float32", microbatch={"train_4k": mb})
     shape = dataclasses.replace(shape, seq_len=seq, global_batch=mb * accum)
     mesh = ((1, 1), ("data", "model"))
+elif sys.argv[1] == "serve":  # phase 16: a one-rank prefill or decode cell
+    kind, batch, seq = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+    shape = dataclasses.replace(SHAPES[kind], seq_len=seq,
+                                global_batch=batch)
+    mesh = ((1, 1), ("data", "model"))
 with tempfile.TemporaryDirectory() as tmp:
     print(json.dumps(dryrun.run_cell(spec, shape, False, Path(tmp),
                                      mesh=mesh)))
@@ -5001,6 +5032,406 @@ def dryrun_phase(dev, kern):
           f"{r['fits_hbm']}), kernels {r['kernels']}")
     print(f"phase 15 (dry-run): {time.perf_counter() - t0:.2f} s")
     return {"dryrun": got}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: placed prefill and decode (ROADMAP item 10b).
+# ---------------------------------------------------------------------------
+SERVE_BLOCKS = (2, 4, 16)  # `model` ranks a cache is cut into in (b)
+SERVE_COMBINE_F32 = 1e-5  # (b): the combined blocks against the whole, f32
+
+
+def phase_lse_form(dev):
+    """(a) Kernel 7's partial form (`lse=True`: the f32 output and the
+    log-sum-exp) against its plain version, bf16 and f32, at
+    `phase_decode_attention`'s shape and lengths, and at length 0 (zero
+    and -inf, no read of the cache). Returns (the worst output error, the
+    worst log-sum-exp error, the kernel's, the plain version's and the
+    library's ms at a sixteenth of the cache, `model` rank 0's block of a 16-rank mesh)."""
+    from repro_torch.kernels.decode_attention_kernel import (
+        decode_attention_cuda as kernel,
+        decode_attention_plain as plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    B, Hkv, G, hd, S = LM_B, LM_HKV, LM_G, LM_HD, LM_SMAX
+    worst = {"out": 0.0, "lse": 0.0}
+    for dtype, tol in ((torch.bfloat16, BF16_ATTN_LIMIT),
+                       (torch.float32, 1e-4)):
+        q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(dtype)
+        cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2)]
+        k, v = (c.permute(0, 2, 1, 3) for c in cache)
+        for length in (1, 64, LM_PROMPT + 1, LM_PROMPT + 16, S - 1, S):
+            out, lse = kernel(q, k, v, length, lse=True)
+            w_out, w_lse = plain(q, k, v, length, lse=True)
+            torch.cuda.synchronize()
+            e_out = (out - w_out).abs().max().item()
+            e_lse = (lse - w_lse).abs().max().item()
+            if not (out.dtype == lse.dtype == torch.float32 and e_out <= tol
+                    and e_lse <= 1e-4 * w_lse.abs().max().item()):
+                raise AssertionError(f"decode_attention lse form {dtype} "
+                                     f"length={length}: output {e_out}, "
+                                     f"lse {e_lse}")
+            worst["out"] = max(worst["out"], e_out)
+            worst["lse"] = max(worst["lse"], e_lse)
+        for n in (0, torch.tensor(0, dtype=torch.int32, device=dev)):
+            out, lse = kernel(q, k, v, n, lse=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, torch.zeros_like(out)) and torch.equal(
+                    lse, torch.full_like(lse, -torch.inf))):
+                raise AssertionError("decode_attention of an empty block: "
+                                     "not zero and -inf")
+    print(f"decode_attention lse form: output within {worst['out']:.3g}, "
+          f"log-sum-exp within {worst['lse']:.3g} of the plain version "
+          f"(bf16, f32, lengths 1..{S}); length 0 gives zero and -inf")
+    n = S // 16
+    qb = q.to(torch.bfloat16)
+    kb, vb = (c.to(torch.bfloat16)[:, :n].permute(0, 2, 1, 3) for c in cache)
+    t_k = median_ms(lambda: kernel(qb, kb, vb, n, lse=True))
+    t_p = median_ms(lambda: plain(qb, kb, vb, n, lse=True))
+    # The library's call for the same output and log-sum-exp: the G query
+    # rows of a KV head as one query of G rows over the block (no mask:
+    # the block is full), through memory-efficient attention asked for
+    # its log-sum-exp (padded to 32 rows; its output in q's dtype).
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    out, lse = kernel(qb, kb, vb, n, lse=True)
+    l_out, l_lse = eff(qb, kb, vb, None, True)[:2]
+    torch.cuda.synchronize()
+    e_out = (l_out.float() - out).abs().max().item()
+    e_lse = (l_lse[..., :G] - lse).abs().max().item()
+    if not (e_out <= BF16_ATTN_LIMIT and e_lse <= 1e-3 * lse.abs().max()
+            .item()):
+        raise AssertionError(f"memory-efficient attention differs from "
+                             f"the lse form: output {e_out}, lse {e_lse}")
+    t_l = median_ms(lambda: eff(qb, kb, vb, None, True))
+    print(f"decode_attention lse form at {n} positions (bf16): kernel "
+          f"{t_k:.4f} ms, plain {t_p:.4f} ms, memory-efficient attention "
+          f"with its log-sum-exp {t_l:.4f} ms (output within {e_out:.3g}, "
+          f"log-sum-exp within {e_lse:.3g} of the kernel's)")
+    return worst, t_k, t_p, t_l
+
+
+def phase_flash_combine(dev):
+    """(b) The flash-decoding combine on the card: one cache at
+    `phase_decode_attention`'s shape cut into 2, 4 and 16 blocks of
+    positions, kernel 7's partial form on each block at its length
+    (blocks wholly past the token empty), merged by
+    `distributed.sharding.combine_partials` (the function the placed
+    decode's `Placement.combine_over_model` wraps), against kernel 7
+    over the whole cache. Returns the worst errors (f32, bf16)."""
+    from repro_torch.distributed.sharding import combine_partials
+    from repro_torch.kernels.decode_attention_kernel import (
+        decode_attention_cuda as kernel,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    B, Hkv, G, hd, S = LM_B, LM_HKV, LM_G, LM_HD, LM_SMAX
+    worst = {}
+    for dtype, tol in ((torch.float32, SERVE_COMBINE_F32),
+                       (torch.bfloat16, BF16_ATTN_LIMIT)):
+        q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(dtype)
+        cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2)]
+        k, v = (c.permute(0, 2, 1, 3) for c in cache)
+        err = 0.0
+        for blocks in SERVE_BLOCKS:
+            n = S // blocks
+            for length in (1, 100, LM_PROMPT + 16, S):
+                parts = [kernel(q, k[:, :, r * n:(r + 1) * n],
+                                v[:, :, r * n:(r + 1) * n],
+                                min(max(length - r * n, 0), n), lse=True)
+                         for r in range(blocks)]
+                got = combine_partials(torch.stack([o for o, _ in parts]),
+                                       torch.stack([l for _, l in parts]))
+                want = kernel(q, k, v, length).float()
+                e = (got - want).abs().max().item()
+                if not e <= tol:
+                    raise AssertionError(f"combine of {blocks} blocks "
+                                         f"{dtype} length={length}: {e}")
+                err = max(err, e)
+        worst[str(dtype).replace("torch.", "")] = err
+    print(f"flash-decoding combine of {SERVE_BLOCKS} blocks (some empty) "
+          f"against kernel 7 over the whole cache: {worst}")
+    return worst
+
+
+# Spin kernels on each side of a phase-16 profile window: at least
+# EDGE_PAD, and on until EDGE_PAD_S seconds of the host's time have passed.
+EDGE_PAD, EDGE_PAD_S = 256, 5e-3
+
+
+def edge_padded_profile(label, fn):
+    """`profile` of `fn` with empty spin kernels (`torch.cuda._sleep`)
+    launched before and after it inside the window (EDGE_PAD, EDGE_PAD_S);
+    they are left out of the device time and the counts by name. Late in
+    a full run of this script the profiler drops the device events at
+    the start of a window (58 and 79 spin kernels in two runs, more on
+    the slower host; before the pad, layer 0's attention, kernel 7 among
+    them), so `fn`'s own events must not lie at its edges; the pad is
+    timed so that a slower host sends more. The cause is not known; a pad that survives on both sides
+    shows the margin held, and a pad dropped whole fails the phase."""
+    sent = []
+
+    def pad():
+        t0, n = time.perf_counter(), 0
+        while n < EDGE_PAD or time.perf_counter() - t0 < EDGE_PAD_S:
+            torch.cuda._sleep(1)
+            n += 1
+        sent.append(n)
+
+    def padded():
+        pad()
+        fn()
+        pad()
+
+    busy, by_name, info = profile(label, padded)
+    spin = {n: v for n, v in by_name.items() if "spin_kernel" in n}
+    busy -= sum(t for _, t in spin.values())
+    own = [i for i, n in enumerate(info["order"]) if n not in spin]
+    front, back = own[0], len(info["order"]) - 1 - own[-1]
+    print(f"  {label}: {busy:.2f} ms device time without the "
+          f"{sum(n for n, _ in spin.values())} spin kernels ({front} of "
+          f"{sent[0]} before it, {back} of {sent[1]} after it)")
+    if not (front and back):
+        raise AssertionError(f"{label}: the profiler dropped a whole pad "
+                             f"of spin kernels at an edge; the window's "
+                             "own events may be missing")
+    return busy, {n: v for n, v in by_name.items() if n not in spin}, info
+
+
+def serve_qwen2(dev, kern, mesh, after_timed):
+    """(c) qwen2-7b at its published width and depth (28 layers, bf16)
+    served unplaced, then placed over the one-rank mesh
+    (`make_prefill_step` / `make_decode_step` with `mesh`), each after a
+    warm-up prefill and decode step: a prefill of
+    LM_BATCH x LM_PROMPT tokens, then LM_GEN greedy decode steps. The
+    logits of every call and the tokens bit-equal; the placed prefill's
+    and decode steps' ms, the peak, the placed run's launches (counts
+    zeroed just before it) and one placed prefill and decode step
+    profiled; `after_timed()` is called once the timed runs are over.
+    Returns (the launches, {"flash_attention": kernel 6
+    launches a prefill, "decode_attention": kernel 7 launches a step},
+    profiled counts of the same)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (
+        ShardingConfig,
+        gather,
+        named,
+        param_pspecs,
+        place,
+    )
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.tree_util import leaves_with_path
+
+    model = get_arch(LM_ARCH).model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(model, gen, device=dev)
+    tokens = torch.randint(0, model.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    S = LM_SMAX
+
+    def run(prefill, decode, p):
+        """(every call's logits, the tokens fed, the cache, each call's
+        ms)."""
+        ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, {"tokens": tokens})
+        out, toks = [gather(logits)], []
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for i in range(LM_GEN):
+            toks.append(torch.argmax(out[-1][:, -1], dim=-1)
+                        .to(torch.int32)[:, None])
+            t0 = time.perf_counter()
+            logits, cache = decode(p, cache, toks[-1], LM_PROMPT + i)
+            out.append(gather(logits))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, torch.cat(toks, dim=1), cache, ms
+
+    with torch.no_grad():
+        # warm-up at the served shapes (the first calls' library set-up;
+        # `gather`'s first call imports DTensor's modules, ~4.6 s), then
+        # the timed run
+        logits, cache = lm.prefill(params, {"tokens": tokens}, model, S)
+        gather(logits)
+        lm.decode_step(params, cache, tokens[:, :1], LM_PROMPT, model)
+        del logits, cache
+        want = run(lambda p, b: lm.prefill(p, b, model, S),
+                   lambda p, c, t, pos: lm.decode_step(p, c, t, pos, model),
+                   params)
+    placed = place(params, named(mesh, param_pspecs(params, ShardingConfig(),
+                                                    mesh)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill = make_prefill_step(model, S, mesh)
+    decode = make_decode_step(model, mesh)
+    # the placed path's own warm-up (its first call also works out the
+    # cache's specs), so that both runs are timed warm
+    logits, cache = prefill(placed, {"tokens": tokens})
+    gather(logits)
+    decode(placed, cache, tokens[:, :1], LM_PROMPT)
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zeroed(kern)
+    got = run(prefill, decode, placed)
+    launches = read(kern)
+    peak = torch.cuda.max_memory_allocated(dev)
+    after_timed()
+    same = all(torch.equal(a, b) for a, b in zip(got[0], want[0])) \
+        and torch.equal(got[1], want[1])
+    cache_same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_path(gather(got[2])), leaves_with_path(want[2])))
+    print(f"placed serve of {LM_ARCH} ({model.n_layers} layers, "
+          f"{model.dtype}) over the one-rank "
+          f"mesh: prefill {LM_BATCH}x{LM_PROMPT} {got[3][0]:.2f} ms "
+          f"(unplaced {want[3][0]:.2f}), decode {np.median(got[3][1:]):.3f} "
+          f"ms a step (unplaced {np.median(want[3][1:]):.3f}), peak "
+          f"{peak / 2 ** 30:.3f} GiB; logits and tokens bit-equal: {same}, "
+          f"cache bit-equal: {cache_same}; launches {launches}")
+    if not (same and cache_same):
+        raise AssertionError("the one-rank placed serve differs from the "
+                             "unplaced one")
+    per = {"flash_attention": launches["flash_attention"],
+           "decode_attention": launches["decode_attention"] / LM_GEN}
+    tok = got[1][:, -1:]
+    cache = got[2]
+    del got, want
+    busy_p, by_p, _ = edge_padded_profile(
+        "one placed prefill", lambda: prefill(placed, {"tokens": tokens}))
+    busy_d, by_d, _ = edge_padded_profile(
+        "one placed decode step", lambda: decode(placed, cache, tok, S - 1))
+    prof = {"flash_attention": by_name_sum(by_p, "flash_tc_kernel")[0],
+            "decode_attention": by_name_sum(by_d, "decode_kernel")[0]}
+    del placed, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, per, prof
+
+
+def serve_dryrun_on_card(dev, kern, mesh):
+    """(d) The dry-run's one-rank decode cell of `serve_qwen2`'s serve
+    (qwen2-7b, LM_BATCH sequences, a cache of LM_SMAX positions, at
+    pos = LM_SMAX - 1) run on the card (`dryrun.build_cell` over the
+    one-rank mesh, one warm-up step): its kernel-7 launches counted and
+    profiled, its peak above the memory held before the cell, its device
+    time. Returns (the count, the profiled count, the peak, the device
+    ms)."""
+    import gc
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun
+
+    spec = get_arch(LM_ARCH)
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=LM_SMAX,
+                                global_batch=LM_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    step, args, _ = dryrun.build_cell(spec, shape, mesh, device=dev)
+    step(*args)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zeroed(kern)
+    step(*args)
+    counted = read(kern)["decode_attention"]
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    busy, by_name, _ = edge_padded_profile(
+        "the dry-run's decode cell on the card", lambda: step(*args))
+    profiled = by_name_sum(by_name, "decode_kernel")[0]
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted, profiled, peak, busy
+
+
+def serve_phase(dev, kern, decode_entry):
+    """Phase 16: (a) kernel 7's partial form, (b) the flash-decoding
+    combine, both on the card alone; then on a one-rank NCCL process
+    group and the placed mesh (1, 1): (c) `serve_qwen2`, (d) the CPU
+    dry-run of its prefill and decode cells (children, started after
+    (c)'s timed runs, so that their tracing takes no core from the
+    serve's host) against the counted and profiled launches, the decode cell's peak
+    within DRY_PEAK_REL of `max_memory_allocated` and its device time at
+    or above the roofline's. Adds the partial form's times to
+    `decode_entry` and returns {"placed_serve": (c)'s launches}."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.backend import power_limit
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    worst, t_k, t_p, t_l = phase_lse_form(dev)
+    combine = phase_flash_combine(dev)
+    decode_entry.update(max_abs_err_lse=worst["out"], lse_err=worst["lse"],
+                        ms_lse_block16=t_k, plain_ms_lse_block16=t_p,
+                        library_ms_lse_block16=t_l, combine_err=combine)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: loopback
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(dev, rank=0, world_size=1,
+                         store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            kids = {}
+
+            def start_kids():
+                kids.update((k, dryrun_child("serve", k, str(LM_BATCH),
+                                             str(n)))
+                            for k, n in (("prefill_32k", LM_PROMPT),
+                                         ("decode_32k", LM_SMAX)))
+
+            try:
+                launches, per, prof = serve_qwen2(dev, kern, mesh,
+                                                  start_kids)
+                counted, profiled, peak, busy = serve_dryrun_on_card(
+                    dev, kern, mesh)
+                pred = {k: dryrun_result(p, f"the one-rank {k} cell")
+                        for k, p in kids.items()}
+            finally:
+                for p in kids.values():
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            dec = pred["decode_32k"]
+        finally:
+            dist.destroy_process_group()
+    want = {"flash_attention": int(pred["prefill_32k"]["kernels"]
+                                   ["flash_attention"]),
+            "decode_attention": int(dec["kernels"]["decode_attention"])}
+    mem = dec["memory_analysis"]["peak_size_in_bytes"]
+    rel = mem / peak - 1.0
+    roof_ms = dec["roofline"]["step_time_s"] * 1e3
+    print(f"  dry-run (traced on the CPU): kernel 6 {want['flash_attention']}"
+          f" a prefill, kernel 7 {want['decode_attention']} a decode step; "
+          f"counted {per}, profiled {prof}; the decode cell on the card: "
+          f"kernel 7 counted {counted}, profiled {profiled}, peak predicted "
+          f"{mem / 2 ** 30:.3f} GiB against max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB ({100 * rel:+.2f} %), device time "
+          f"{busy:.3f} ms against the roofline's {roof_ms:.4f} ms (ratio "
+          f"{busy / roof_ms:.2f}, {dec['roofline']['dominant']}) "
+          f"({power_limit()})")
+    if not (want == per == prof
+            and counted == profiled == want["decode_attention"]):
+        raise AssertionError(f"launches: predicted {want}, counted {per} "
+                             f"and {counted}, profiled {prof} and "
+                             f"{profiled}")
+    if not abs(rel) <= DRY_PEAK_REL:
+        raise AssertionError(f"predicted peak {mem} against {peak}: "
+                             f"{rel:+.3f}")
+    if not busy >= roof_ms:
+        raise AssertionError(f"device time {busy} ms below the roofline's "
+                             f"{roof_ms} ms")
+    print(f"phase 16 (placed serve): {time.perf_counter() - t0:.2f} s")
+    return {"placed_serve": launches}
 
 
 # Sources whose ptxas lines are printed in full (kernel names, stack and
@@ -5227,6 +5658,7 @@ def main() -> int:
     psnr_launches.update(train_runs)
     psnr_launches.update(placement_phase(dev, kern))
     psnr_launches.update(dryrun_phase(dev, kern))
+    psnr_launches.update(serve_phase(dev, kern, decode_entry))
     # The backward's main path is phase 13's whisper run.
     launches["flash_attention_bwd"] = \
         train_runs["train_whisper"]["flash_attention_bwd"]

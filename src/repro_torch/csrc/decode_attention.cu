@@ -11,7 +11,14 @@
 //   s = (q . k) * scale in f32, p = exp(s - m), l = sum p (f32),
 //   out = (round_to_v_dtype(p) @ v) / max(l, 1e-30), cast to q's dtype:
 // the Pallas kernel's semantics. `length` is read from device memory, or
-// passed by value, and must be >= 1 (the decode step passes pos + 1).
+// passed by value (the decode step passes pos + 1).
+//
+// The partial form (flash-decoding over ranks, each holding a block of the
+// cache's positions): with `lse` given, the kernel also writes the f32
+// log-sum-exp of each head's scores, M + log L, and writes the output in
+// f32 unrounded, so that the partials of several blocks combine exactly
+// as the splits below do. A block of length <= 0 (wholly past the token)
+// reads nothing: its output is zero and its log-sum-exp -inf.
 //
 // Design for the card. The TPU walked the cache on a sequential grid axis
 // per (batch, KV head); at the decode shapes that is only B * Hkv = 16
@@ -37,7 +44,8 @@
 //      ticket after __threadfence(), combines the partials: the maxima and
 //      sums once per head, warp-parallel, the factors exp(m_s - M) kept in
 //      shared memory, then one pass over (head, column); it writes the
-//      output in q's dtype and resets its ticket to 0 for the next call.
+//      output (in q's dtype, or f32 in the partial form, with M + log L)
+//      and resets its ticket to 0 for the next call.
 // Splits that start at or past `length` return at once and take no
 // ticket, so positions >= length are never read and never change the
 // result.
@@ -52,6 +60,7 @@
 // combine's reads of the partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -162,15 +171,16 @@ struct Layout {
   }
 };
 
-template <typename T>
+// T: q, k and v; O: the output (T, or float in the partial form).
+template <typename T, typename O>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ length_p,
-              int length_v, T* __restrict__ out, float* __restrict__ m_part,
-              float* __restrict__ l_part, float* __restrict__ acc_part,
-              unsigned* __restrict__ tickets, int Hkv, int G, int S, int hd,
-              Strides qs, Strides ks, Strides vs, int split, int n_split,
-              float scale) {
+              int length_v, O* __restrict__ out, float* __restrict__ lse,
+              float* __restrict__ m_part, float* __restrict__ l_part,
+              float* __restrict__ acc_part, unsigned* __restrict__ tickets,
+              int Hkv, int G, int S, int hd, Strides qs, Strides ks,
+              Strides vs, int split, int n_split, float scale) {
   constexpr int EPC = 16 / sizeof(T);  // elements in 16 bytes
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int s_last;
@@ -188,11 +198,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split_idx = blockIdx.x, bh = blockIdx.y;
   const int b = bh / Hkv, h = bh % Hkv;
   const int length = min(length_p ? *length_p : length_v, S);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (length <= 0) {  // an empty block: zero, and -inf for its lse
+    if (split_idx == 0) {
+      O* ob = out + (long long)bh * G * hd;
+      for (int i = tid; i < G * hd; i += THREADS) store(ob + i, 0.0f);
+      if (lse != nullptr)
+        for (int g = tid; g < G; g += THREADS)
+          lse[(long long)bh * G + g] = -INFINITY;
+    }
+    return;
+  }
   const int c0 = split_idx * split;
   const int n_valid = min(split, length - c0);
   if (n_valid <= 0) return;  // takes no ticket: left out of the combine
   const int n_used = (length + split - 1) / split;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // 1. q and every K row of the split, then every V row, in flight at once.
   //    Pieces are walked as (row, piece) with the pieces of a row on
@@ -360,12 +380,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       L += __shfl_xor_sync(0xffffffffu, L, o);
-    if (lane == 0) den[g] = fmaxf(L, 1e-30f);
+    if (lane == 0) {
+      den[g] = fmaxf(L, 1e-30f);
+      if (lse != nullptr) lse[(long long)bh * G + g] = M + logf(L);
+    }
   }
   __syncthreads();
   const float4* ab = reinterpret_cast<const float4*>(
       acc_part + (long long)bh * n_split * G * hdp);
-  T* ob = out + (long long)bh * G * hd;
+  O* ob = out + (long long)bh * G * hd;
   for (int i4 = tid; i4 < n4; i4 += THREADS) {
     const int g = 4 * i4 / hdp, d = 4 * i4 - g * hdp;
     if (d >= hd) continue;
@@ -381,7 +404,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o.w += a.w * f;
     }
     const float dn = den[g];
-    T* op = ob + g * hd + d;
+    O* op = ob + g * hd + d;
     if ((hd & 3) == 0) {
       store4(op, o.x / dn, o.y / dn, o.z / dn, o.w / dn);
     } else {
@@ -393,9 +416,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch(const void* q, const void* k, const void* v, const void* length_p,
-           int length_v, void* out, void* m_part, void* l_part,
+           int length_v, void* out, void* lse, void* m_part, void* l_part,
            void* acc_part, void* tickets, int B, int Hkv, int G, int S,
            int hd, Strides qs, Strides ks, Strides vs, int split,
            float scale, cudaStream_t stream) {
@@ -404,46 +427,52 @@ int launch(const void* q, const void* k, const void* v, const void* length_p,
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(n_split, B * Hkv);
-  decode_kernel<T><<<grid, THREADS, smem, stream>>>(
+  decode_kernel<T, O><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)length_p, length_v,
-      (T*)out, (float*)m_part, (float*)l_part, (float*)acc_part,
+      (O*)out, (float*)lse, (float*)m_part, (float*)l_part, (float*)acc_part,
       (unsigned*)tickets, Hkv, G, S, hd, qs, ks, vs, split, n_split, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Strides are
-// in elements: q (b, h, g), k and v (b, h, s); q, k and v start on 16-byte
-// boundaries with strides of whole 16-byte units. `length_p` points to an
-// int32 on the device, or is null and `length_v` holds the length. `split`
-// positions a block; scratch: m_part and l_part hold B * Hkv *
-// ceil(S / split) * G floats, acc_part that times hdp (hd rounded up to
-// whole 16-byte pieces), and `tickets` B * Hkv unsigned ints that are 0
-// before the first call (each call leaves them 0). Requires G <= 16 and
-// hd <= 256.
+// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it; so does out,
+// unless `lse` is given: then out is float32 and `lse` B * Hkv * G floats).
+// Strides are in elements: q (b, h, g), k and v (b, h, s); q, k and v
+// start on 16-byte boundaries with strides of whole 16-byte units.
+// `length_p` points to an int32 on the device, or is null and `length_v`
+// holds the length (<= 0: an empty block). `split` positions a block;
+// scratch: m_part and l_part hold B * Hkv * ceil(S / split) * G floats,
+// acc_part that times hdp (hd rounded up to whole 16-byte pieces), and
+// `tickets` B * Hkv unsigned ints that are 0 before the first call (each
+// call leaves them 0). Requires G <= 16 and hd <= 256.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* length_p,
-    int length_v, void* out, void* m_part, void* l_part, void* acc_part,
-    void* tickets, int B, int Hkv, int G, int S, int hd, long long qsb,
-    long long qsh, long long qsg, long long ksb, long long ksh,
-    long long kss, long long vsb, long long vsh, long long vss, int split,
-    float scale, int dtype, void* stream) {
+    int length_v, void* out, void* lse, void* m_part, void* l_part,
+    void* acc_part, void* tickets, int B, int Hkv, int G, int S, int hd,
+    long long qsb, long long qsh, long long qsg, long long ksb,
+    long long ksh, long long kss, long long vsb, long long vsh,
+    long long vss, int split, float scale, int dtype, void* stream) {
   if (G < 1 || G > G_MAX || hd < 1 || hd > HD_MAX || split < 1)
     return (int)cudaErrorInvalidValue;
   if (B * Hkv == 0 || S == 0) return (int)cudaGetLastError();
   const Strides qs{qsb, qsh, qsg}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1 && lse != nullptr)
+    return launch<__nv_bfloat16, float>(q, k, v, length_p, length_v, out,
+                                        lse, m_part, l_part, acc_part,
+                                        tickets, B, Hkv, G, S, hd, qs, ks, vs,
+                                        split, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, length_p, length_v, out, m_part,
-                                 l_part, acc_part, tickets, B, Hkv, G, S, hd,
-                                 qs, ks, vs, split, scale, st);
-  return launch<float>(q, k, v, length_p, length_v, out, m_part, l_part,
-                       acc_part, tickets, B, Hkv, G, S, hd, qs, ks, vs,
-                       split, scale, st);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, length_p, length_v, out, lse, m_part, l_part, acc_part,
+        tickets, B, Hkv, G, S, hd, qs, ks, vs, split, scale, st);
+  return launch<float, float>(q, k, v, length_p, length_v, out, lse, m_part,
+                              l_part, acc_part, tickets, B, Hkv, G, S, hd, qs,
+                              ks, vs, split, scale, st);
 }

@@ -33,6 +33,15 @@ of `copy_to_model` and `reduce_from_model`. The norms, the learned
 positions and the head's norm then see this rank's block alone, so
 their parameters' gradients are summed over `model` (`copy_to_model`).
 
+Serving (`launch.steps.make_prefill_step` / `make_decode_step` on a mesh
+of ranks) runs the model under `torch.no_grad()` with the same
+`Placement` (its operators make their forward collectives alone) and the
+cache's specs (`Placement.cache`, from `cache_pspecs`): flash decoding
+splits the cache's positions over `model`, each rank takes kernel 7's
+partial form over its block, and `Placement.combine_over_model` merges
+the partials by their log-sum-exp (`lse_combine`; `combine_partials` is
+the same function on partials stacked in one process).
+
 Axis roles:
   pod    — pure data parallelism across pods;
   data   — batch DP within a pod + FSDP weight sharding + ZeRO-1
@@ -50,6 +59,7 @@ logical spec alone.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Dict, List, Optional, Tuple
 
@@ -58,7 +68,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh
-from repro_torch.tree_util import map_with_path
+from repro_torch.tree_util import leaves_with_path, map_with_path
 
 
 class PartitionSpec(tuple):
@@ -230,6 +240,21 @@ def cache_pspecs(cache, mesh: Mesh,
     return map_with_path(leaf_spec, cache)
 
 
+def drop_batch_axis(spec_tree):
+    """Each spec with its batch entry (dimension 1, after the period axis)
+    replaced by None: where the global batch does not divide the batch
+    axes (long_500k's one sequence), as the reference's dry-run
+    (`_drop_batch_axis`) does."""
+
+    def fix(_, s):
+        entries = list(s)
+        if len(entries) >= 2:
+            entries[1] = None
+        return P(*entries)
+
+    return map_with_path(fix, spec_tree)
+
+
 def data_pspecs(batch, mesh: Mesh,
                 cfg: ShardingConfig = ShardingConfig()) -> Dict:
     """Input batch: leading batch dim over (pod?, data)."""
@@ -328,9 +353,12 @@ def _wrap(local: torch.Tensor, sh: NamedSharding, shape) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     shape = torch.Size(shape)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * max(shape[d + 1], 1)
     return DTensor.from_local(
         local, sh.mesh.device_mesh, sh.placements(), run_check=False,
-        shape=shape, stride=torch.empty(shape, device="meta").stride())
+        shape=shape, stride=tuple(stride))
 
 
 def place(tree, placements):
@@ -561,6 +589,28 @@ class _CopyToModel(torch.autograd.Function):
         return g, None
 
 
+def lse_combine(out: torch.Tensor, lse: torch.Tensor, amax, total
+                ) -> torch.Tensor:
+    """Attention outputs over several blocks of the keys merged into the
+    output over all of them: each block's `out` (..., hd) f32, normalised
+    over its own keys, and `lse` (...) the log-sum-exp of its scores (-inf
+    for a block without keys). `amax` takes the largest log-sum-exp M
+    across the blocks, `total` one sum across them of
+    [exp(lse - M) out, exp(lse - M)]; the result is their ratio."""
+    M = amax(lse)
+    M = torch.where(torch.isinf(M), 0.0, M)
+    w = torch.exp(lse - M)
+    both = total(torch.cat([out * w[..., None], w[..., None]], dim=-1))
+    return both[..., :-1] / both[..., -1:]
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """`lse_combine` of partials stacked along dimension 0 (outs (n, ...,
+    hd), lses (n, ...)): what `Placement.combine_over_model` computes over
+    `model`'s ranks, in one process."""
+    return lse_combine(outs, lses, lambda t: t.amax(0), lambda t: t.sum(0))
+
+
 def gather_on_use(t: torch.Tensor, spec, placement: "Placement"
                   ) -> torch.Tensor:
     """The parameter block `t` (its `spec`) gathered over the axes of the
@@ -591,6 +641,7 @@ class Placement:
     batch: Tuple[str, ...] = ("data",)
     tp_axis: str = "model"
     seq: bool = False  # Megatron-SP: the residual stream split over `model`
+    cache: object = None  # serving: the decode cache's specs
 
     @property
     def tp(self) -> int:
@@ -616,6 +667,28 @@ class Placement:
 
     def _tp_group(self):
         return self.mesh.group(self.tp_axis)
+
+    @functools.cached_property
+    def kv_split(self) -> bool:
+        """Whether the decode cache's positions are split over `model`
+        (flash decoding): its keys' spec names the tensor-parallel axis on
+        their sequence dimension, and that axis has more than one rank."""
+        if self.cache is None or self.tp == 1:
+            return False
+        for path, s in leaves_with_path(self.cache):
+            if path.rsplit("/", 1)[-1] == "k":
+                return self.tp_axis in _dim_axes(s, 5)[2]
+        return False
+
+    def combine_over_model(self, out: torch.Tensor, lse: torch.Tensor
+                           ) -> torch.Tensor:
+        """Each `model` rank's attention output over its block of the
+        cache (`out` f32, `lse` its log-sum-exp, -inf for an empty block)
+        merged into the output over the whole cache, on every rank: an
+        all-reduce MAX of `lse`, then one all-reduce SUM (`lse_combine`).
+        No gradient."""
+        return lse_combine(out, lse, self.max_over_model,
+                           self.reduce_from_model)
 
     def sequence_parallel(self, cfg, S: int) -> "Placement":
         """This placement with `seq` set where `cfg.act_pspec` splits the

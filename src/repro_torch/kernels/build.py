@@ -89,10 +89,10 @@ SIGNATURES: Dict[str, List] = {
                                   _P, _I, _I, _I, _I, _I, _I, _LP, _I, _F,
                                   _I, _P],
     # q, k, v, length (device pointer or null), length (by value), out,
-    # m_part, l_part, acc_part, tickets, B, Hkv, G, S, hd, q strides
-    # (b, h, g), k strides (b, h, s), v strides (b, h, s), split, scale,
-    # dtype, stream
-    "repro_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+    # lse (or null), m_part, l_part, acc_part, tickets, B, Hkv, G, S, hd,
+    # q strides (b, h, g), k strides (b, h, s), v strides (b, h, s), split,
+    # scale, dtype, stream
+    "repro_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _I, _F, _I, _P],

@@ -141,11 +141,13 @@ def flash_attention_bwd(B: int, Hkv: int, G: int, hd: int, Sq: int, Sk: int,
 
 # Kernel 7.
 def decode_attention(B: int, Hkv: int, G: int, hd: int, length: int,
-                     itemsize: int) -> Cost:
+                     itemsize: int, lse: bool = False) -> Cost:
     """One query token per head, q (B, Hkv, G, hd), against `length`
-    cached positions of k and v -> q's shape and dtype; the length is
-    one scalar."""
+    cached positions of k and v -> q's shape and dtype (with `lse`, the
+    partial form: the output in f32 and the f32 (B, Hkv, G) log-sum-exp);
+    the length is one scalar."""
     nq = B * Hkv * G * hd
+    out = 4 * nq + 4 * B * Hkv * G if lse else itemsize * nq
     return Cost(4.0 * B * Hkv * G * length * hd,
-                itemsize * (2 * B * Hkv * length * hd + 2 * nq) + 4,
+                itemsize * (2 * B * Hkv * length * hd + nq) + out + 4,
                 _unit(itemsize))

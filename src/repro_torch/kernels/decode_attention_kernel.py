@@ -9,6 +9,13 @@ dtype. The kernel is `csrc/decode_attention.cu` (the cache split across
 blocks, the partials combined by the last block of each sequence, in one
 launch); it replaces the Pallas
 `repro/kernels/decode_attention_kernel.py:_decode_attn_kernel`.
+
+The partial form (`lse=True`): the output in float32, unrounded, and the
+float32 log-sum-exp of each head's masked scores (B, Hkv, G), so that the
+results over several blocks of a cache's positions combine into the
+result over all of them (`distributed.sharding.combine_partials`). A
+length of 0 (a block wholly past the token) gives a zero output and a
+log-sum-exp of -inf, without a read of k or v.
 """
 from __future__ import annotations
 
@@ -36,19 +43,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           length) -> torch.Tensor:
+                           length, lse: bool = False):
     """The same function over the whole cache at once: (B, Hkv, G, hd) in
-    q's dtype. `length` is an int or a one-element tensor."""
+    q's dtype; with `lse`, (that output in float32, the log-sum-exp (B,
+    Hkv, G) float32). `length` is an int or a one-element tensor, >= 0."""
     hd, S = q.shape[-1], k.shape[2]
     s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) \
         * (1.0 / math.sqrt(hd))
     keep = torch.arange(S, device=q.device) < torch.as_tensor(
         length, device=q.device).reshape(())
     s = torch.where(keep, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
-    return (out / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = out / torch.clamp(l, min=1e-30)
+    if lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out.to(q.dtype)
 
 
 def split_len(n_seq: int, S: int, G: int, hd: int, elem_bytes: int,
@@ -90,14 +102,15 @@ def _scratch(dev: torch.device, n_seq: int, n_split: int, G: int,
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          length) -> torch.Tensor:
+                          length, lse: bool = False):
     """Launch the CUDA kernel (per-split partials combined by the last
     block of each sequence, one launch) on strided views (innermost axis
     contiguous), so a (B, S_max, Hkv, hd) cache is read in place. q, k
     and v must start on 16-byte boundaries with strides of whole 16-byte
     units. `length` (an int, passed by value, or a one-element tensor on
-    the card, read there) must be >= 1. Raises on anything the kernel does
-    not take.
+    the card, read there) must be >= 0. Raises on anything the kernel does
+    not take. With `lse`, returns (the output in float32, the log-sum-exp
+    (B, Hkv, G) float32), the partial form.
 
     The partial sums and the combine's tickets are kept across calls,
     per device and shape, so calls must not overlap: the wrapper serves
@@ -129,8 +142,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         length_ptr, length_v = length_t.data_ptr(), 0
     else:
         length_ptr, length_v = None, int(length)
-        if length_v < 1:
-            raise ValueError(f"length must be >= 1, got {length_v}")
+        if length_v < 0:
+            raise ValueError(f"length must be >= 0, got {length_v}")
     n_seq = B * Hkv
     split = split_len(n_seq, S, G, hd, q.element_size(),
                       sm_count(dev.index if dev.index is not None
@@ -138,9 +151,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unit = 16 // q.element_size()
     stats, acc, tickets = _scratch(dev, n_seq, -(-S // split), G,
                                    -(-hd // unit) * unit)
-    out = torch.empty((B, Hkv, G, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Hkv, G, hd), dtype=torch.float32 if lse
+                      else q.dtype, device=dev)
+    lse_t = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev) \
+        if lse else None
     launch("repro_decode_attention", dev, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), length_ptr, length_v, out.data_ptr(),
+           None if lse_t is None else lse_t.data_ptr(),
            stats[0].data_ptr(), stats[1].data_ptr(), acc.data_ptr(),
            tickets.data_ptr(), B, Hkv, G, S, hd,
            *(q.stride(i) for i in range(3)),
@@ -148,7 +165,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *(v.stride(i) for i in range(3)),
            split, 1.0 / math.sqrt(hd), _DTYPES[q.dtype])
     count_launch(decode_attention_cuda)
-    return out
+    return (out, lse_t) if lse else out
 
 
 decode_attention_cuda.launches = 0

@@ -240,19 +240,24 @@ def _attention(q, k, v, causal: bool, plain):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length) -> torch.Tensor:
+                     length, lse: bool = False):
     """One query token per head: q (B, Hkv, G, hd) against the cache k, v
-    (B, Hkv, S, hd) masked to positions < length (>= 1) -> (B, Hkv, G, hd)
-    in q's dtype. The card's kernel has no backward (decode is never
-    trained) and raises under grad mode on an input requiring one."""
+    (B, Hkv, S, hd) masked to positions < length (>= 0) -> (B, Hkv, G, hd)
+    in q's dtype; with `lse`, the partial form: (that output in float32,
+    the log-sum-exp (B, Hkv, G) float32), zero and -inf at length 0. The
+    card's kernel has no backward (decode is never trained) and raises
+    under grad mode on an input requiring one."""
     B, Hkv, G, hd = q.shape
-    n = length if isinstance(length, int) else k.shape[2]
+    n = min(length, k.shape[2]) if isinstance(length, int) else k.shape[2]
     return _dispatch(
         "decode_attention",
-        lambda: cost.decode_attention(B, Hkv, G, hd, n, q.element_size()), q,
-        lambda: decode_attention_cuda(q, k, v, length),
-        lambda: decode_attention_plain(q, k, v, length),
-        lambda: _empty(q.shape, q.dtype, q))
+        lambda: cost.decode_attention(B, Hkv, G, hd, n, q.element_size(),
+                                      lse), q,
+        lambda: decode_attention_cuda(q, k, v, length, lse),
+        lambda: decode_attention_plain(q, k, v, length, lse),
+        lambda: (_empty(q.shape, torch.float32, q),
+                 _empty(q.shape[:3], torch.float32, q)) if lse
+        else _empty(q.shape, q.dtype, q))
 
 
 def hash_encode(corner_idx: torch.Tensor, corner_w: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Multi-pod dry-run: trace every train cell's step at rank 0 of a fake
-256- or 512-rank mesh.
+"""Multi-pod dry-run: trace every cell's step at rank 0 of a fake 256- or
+512-rank mesh.
 
 The counterpart of `repro/launch/dryrun.py`. The reference lowers and
 compiles each (arch x shape x mesh) cell's jitted step on 512 fake host
@@ -18,8 +18,17 @@ this shows, without the cards:
     collective link bytes, loop-aware (the time loops and the microbatch
     loop counted by their trip counts), against `ChipSpec`'s H100 rates.
 
-Only the train cells are ported (ROADMAP item 10a); prefill and decode
-cells print NOT PORTED (item 10b).
+The train cells trace the placed train step, its microbatch loop
+extrapolated from steps of one and two microbatches. The prefill and
+decode cells trace one call of the placed serve step
+(`launch.steps.make_prefill_step` / `make_decode_step`): parameters by
+their specs, the batch over the data axes where it divides them (else
+whole), the cache by `cache_pspecs` with its positions over `model`
+(flash decoding). A decode cell is traced at pos = seq_len - 1, the
+cache full: every `model` rank's block of positions is full, the
+reference's traced worst case (its step takes `pos` as data and reads
+the whole cache at any position). Its `alias_size_in_bytes` is the
+cache, which the step updates in place where the reference donates it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-350m \\
@@ -39,7 +48,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, SHAPES, get_arch, train_input_specs
+from repro_torch.configs import (
+    ARCH_IDS,
+    SHAPES,
+    get_arch,
+    prefill_input_specs,
+    train_input_specs,
+)
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.distributed.hlo_analysis import ChipSpec, RooflineTerms
 from repro_torch.distributed.hlo_counters import (
@@ -49,6 +64,7 @@ from repro_torch.distributed.hlo_counters import (
     extrapolate,
 )
 from repro_torch.distributed.sharding import (
+    Placement,
     ShardingConfig,
     blocks,
     from_blocks,
@@ -57,13 +73,17 @@ from repro_torch.distributed.sharding import (
     place,
 )
 from repro_torch.launch.mesh import Mesh, fake_mesh
-from repro_torch.launch.steps import make_train_step, opt_state_pspecs
+from repro_torch.launch.steps import (
+    make_decode_step,
+    make_prefill_step,
+    make_train_step,
+    opt_state_pspecs,
+    serve_pspecs,
+)
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.tree_util import tree_leaves
-
-NOT_PORTED = "ROADMAP item 10b"
 
 
 def _model_flops(spec: ArchSpec, shape: ShapeSpec) -> float:
@@ -116,17 +136,18 @@ def mesh_name(shape) -> str:
 
 def build_cell(spec: ArchSpec, shape: ShapeSpec, mesh: Mesh,
                device="cpu"):
-    """(the placed train step, (params, opt state, one microbatch of
-    zero tokens), the microbatches a step accumulates) on `mesh`: a fake
-    one under a `FakeTensorMode` for the dry-run, or a real one (the
-    parameters drawn whole on `device`, then placed). The reference's
-    train cell: its `act_pspec` (Megatron-SP; the sequence left whole
-    under `no_tp`), one MoE dispatch group a data-parallel rank, the
+    """(the cell's placed step, its arguments, the microbatches a step
+    accumulates) on `mesh`: a fake one under a `FakeTensorMode` for the
+    dry-run, or a real one (the parameters drawn whole on `device`, then
+    placed by their pruned specs). A train cell's arguments are (params,
+    opt state, one microbatch of zero tokens), the reference's train
+    cell: its `act_pspec` (Megatron-SP; the sequence left whole under
+    `no_tp`), one MoE dispatch group a data-parallel rank, the
     microbatch at least one sequence a data-parallel rank, the arch's
-    moment dtype; parameters and moments placed by their pruned
-    specs."""
+    moment dtype. A prefill or decode cell (`_serve_cell`) accumulates
+    one."""
     if shape.kind != "train":
-        raise NotImplementedError(f"{shape.name}: {NOT_PORTED}")
+        return _serve_cell(spec, shape, mesh, device)
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     dp_total = int(np.prod([sizes[a] for a in ("pod", "data")
                             if a in sizes]))
@@ -157,6 +178,32 @@ def build_cell(spec: ArchSpec, shape: ShapeSpec, mesh: Mesh,
     return step, (p, o, batch), accum
 
 
+def _serve_cell(spec: ArchSpec, shape: ShapeSpec, mesh: Mesh, device):
+    """The reference's prefill or decode cell (neither `act_pspec` nor
+    MoE dispatch groups set): (the placed serve step, its arguments, 1).
+    Prefill takes (params, a batch of zero tokens, frames or patches);
+    decode (params, a zero cache placed by its pruned specs, zero tokens,
+    pos = seq_len - 1)."""
+    model = spec.model
+    B, S = shape.global_batch, shape.seq_len
+    scfg = ShardingConfig(tp_axis=None) if spec.no_tp else ShardingConfig()
+    params = lm.init_params(model, torch.Generator(device=device)
+                            .manual_seed(0), device=device)
+    p = place(params, named(mesh, param_pspecs(params, scfg, mesh)))
+    del params
+    sp = serve_pspecs(model, B, S, mesh, scfg)
+    if shape.kind == "prefill":
+        batch = {k: torch.zeros(tuple(v.shape), dtype=v.dtype,
+                                device=mesh.device)
+                 for k, v in prefill_input_specs(model, shape).items()}
+        return make_prefill_step(model, S, mesh, sp.cache), (p, batch), 1
+    cache = from_blocks(lm.init_cache(model, B, S, mesh.device, Placement(
+        mesh, None, cache=sp.cache)), named(mesh, sp.cache))
+    tokens = torch.zeros((B, 1), dtype=torch.int32, device=mesh.device)
+    return (make_decode_step(model, mesh, sp.cache),
+            (p, cache, tokens, S - 1), 1)
+
+
 def _bytes(tree) -> int:
     return int(sum(getattr(t, "_local_tensor", t).numel()
                    * t.element_size() for t in tree_leaves(tree)
@@ -166,12 +213,15 @@ def _bytes(tree) -> int:
 def trace_cell(spec: ArchSpec, shape: ShapeSpec, mesh_shape, axes
                ) -> Tuple[Trace, dict]:
     """Rank 0's step of the cell on a fake mesh of `mesh_shape`: the trace
-    of the whole step (the microbatch loop extrapolated from steps of one
-    and two microbatches) and its memory at rank 0 in the reference's
-    `memory_analysis` keys."""
+    of the whole step (a train step's microbatch loop extrapolated from
+    steps of one and two microbatches; one call of a serve step) and its
+    memory at rank 0 in the reference's `memory_analysis` keys."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with fake_mesh(mesh_shape, axes) as mesh, FakeTensorMode():
+        if shape.kind != "train":
+            return _trace_serve(*build_cell(spec, shape, mesh)[:2],
+                                shape.kind)
         step, (p, o, one), accum = build_cell(spec, shape, mesh)
         traces, mem = [], {}
         for a in (1, 2):
@@ -190,6 +240,21 @@ def trace_cell(spec: ArchSpec, shape: ShapeSpec, mesh_shape, axes
                    "peak_size_in_bytes": int(rec.trace.peak_bytes)}
             del out
     return extrapolate(traces[0], traces[1], 1, 2, accum), mem
+
+
+def _trace_serve(step, args, kind: str) -> Tuple[Trace, dict]:
+    """One call of a serve step, recorded, and its memory: a decode
+    step's cache is updated in place (`alias_size_in_bytes`)."""
+    with Recorder() as rec:
+        rec.hold(args)
+        out = step(*args)
+    nargs, peak = _bytes(args), int(rec.trace.peak_bytes)
+    return rec.trace, {
+        "argument_size_in_bytes": nargs,
+        "output_size_in_bytes": _bytes(out),
+        "temp_size_in_bytes": peak - nargs,
+        "alias_size_in_bytes": _bytes(args[1]) if kind == "decode" else 0,
+        "peak_size_in_bytes": peak}
 
 
 def run_cell(spec: ArchSpec, shape: ShapeSpec, multi_pod: bool,
@@ -263,7 +328,7 @@ def main(argv=None):
               "both": [False, True]}[args.mesh]
     out_dir = Path(args.out)
 
-    n_ok = n_skip = n_fail = n_missing = 0
+    n_ok = n_skip = n_fail = 0
     for aid in archs:
         spec = get_arch(aid)
         for sname in shapes:
@@ -274,10 +339,6 @@ def main(argv=None):
                 continue
             for mp in meshes:
                 tag = "2pod" if mp else "1pod"
-                if shape.kind != "train":
-                    print(f"NOT PORTED {aid} x {sname} x {tag}: {NOT_PORTED}")
-                    n_missing += 1
-                    continue
                 try:
                     r = run_cell(spec, shape, mp, out_dir)
                     rf = r["roofline"]
@@ -296,9 +357,8 @@ def main(argv=None):
                     traceback.print_exc()
                     n_fail += 1
     print(f"\ndry-run: {n_ok} ok, {n_skip} skipped (recorded), {n_fail} "
-          f"failed, {n_missing} not ported ({NOT_PORTED})")
-    asked = args.shape != "all" and n_missing
-    if n_fail or asked:
+          f"failed")
+    if n_fail:
         raise SystemExit(1)
 
 

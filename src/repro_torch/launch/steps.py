@@ -9,26 +9,35 @@ of ranks, placed over it (`make_train_step`'s `mesh`: the layers gather
 their weights where they use them and `model` splits their compute, as
 GSPMD splits the reference's by the same specs); the decode step
 updates its cache in place (the counterpart of the reference's donated
-cache buffer).
+cache buffer). The serve steps run placed too, given a mesh of ranks
+(`make_prefill_step` / `make_decode_step`): the counterparts of the
+reference's dry-run cells, jitted with their `in_shardings` and
+`out_shardings` (`serve_pspecs`).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (
     NamedSharding,
     P,
+    PartitionSpec,
     Placement,
     ShardingConfig,
     all_reduce,
     batch_axes,
     blocks,
+    cache_pspecs,
+    drop_batch_axis,
+    from_blocks,
     named,
     owns,
     param_pspecs,
+    prune_pspecs,
     reduce_to_block,
     spec_of,
     sum_over_shards,
@@ -227,18 +236,128 @@ def _placed_like(local: torch.Tensor, like: torch.Tensor, placements=None):
         run_check=False, shape=like.shape, stride=like.stride())
 
 
-def make_prefill_step(cfg: ModelConfig, max_seq: int) -> Callable:
-    def prefill_step(params, batch):
-        return lm.prefill(params, batch, cfg, max_seq)
+class ServeSpecs(NamedTuple):
+    """The specs of a placed prefill or decode cell (the reference's
+    `build_cell`, `src/repro/launch/dryrun.py:177-229`)."""
+    batch: Tuple[str, ...]  # the batch axes that split the batch: () if none
+    cache: object  # the cache's specs, pruned
+    logits: PartitionSpec  # P(b, None, vocab axis)
+    tokens: PartitionSpec  # a batch leaf's first two dimensions: P(b, None)
 
-    return prefill_step
+
+def serve_pspecs(cfg: ModelConfig, batch: int, max_seq: int, mesh: Mesh,
+                 scfg: ShardingConfig = ShardingConfig(),
+                 cache=None) -> ServeSpecs:
+    """The reference's serve cell over `mesh` for `batch` sequences and a
+    cache of `max_seq` positions: the batch over the batch axes where
+    they divide it (else whole: the cache's batch axis dropped,
+    `drop_batch_axis`), the cache by `cache_pspecs` (the keys' and
+    values' positions over `model`) pruned, unless given (`cache`), the
+    logits split over the vocabulary where `model` divides it."""
+    bax = batch_axes(mesh, scfg)
+    ok = batch % int(np.prod([mesh.axis_size(a) for a in bax])) == 0
+    b = (bax if len(bax) > 1 else bax[0]) if (bax and ok) else None
+    if cache is None:
+        shapes = lm.cache_specs(cfg, batch, max_seq)
+        cache = cache_pspecs(shapes, mesh, scfg)
+        if not ok:
+            cache = drop_batch_axis(cache)
+        cache = prune_pspecs(cache, shapes, mesh)
+    tp = mesh.axis_size("model") if "model" in mesh.axis_names else 1
+    vocab = "model" if tp > 1 and cfg.vocab_size % tp == 0 else None
+    return ServeSpecs(bax if ok else (), cache, P(b, None, vocab),
+                      P(b, None))
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
-    def decode_step(params, cache, tokens, pos):
-        return lm.decode_step(params, cache, tokens, pos, cfg)
+def _serve_placement(params, cfg: ModelConfig, batch: int, max_seq: int,
+                     mesh: Mesh, cache_specs, memo: Dict) -> Tuple:
+    """(the `Placement` of a serve step on `params`' blocks, its
+    `ServeSpecs`, the cache's `cache_specs` where given); the specs of
+    each (batch, max_seq) computed once (`memo`)."""
+    if (batch, max_seq) not in memo:
+        memo[batch, max_seq] = serve_pspecs(cfg, batch, max_seq, mesh,
+                                            cache=cache_specs)
+    sp = memo[batch, max_seq]
+    specs = map_with_path(lambda _, t: spec_of(t), params)
+    return Placement(mesh, specs, sp.batch, "model", cache=sp.cache), sp
 
-    return decode_step
+
+def _batch_block(t: torch.Tensor, sp: ServeSpecs, mesh: Mesh
+                 ) -> torch.Tensor:
+    """This rank's rows of a whole batch leaf (every rank's rows where the
+    batch is not split)."""
+    spec = P(*(tuple(sp.tokens)[:1] + (None,) * (t.ndim - 1)))
+    return NamedSharding(mesh, spec).block(t)
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: int,
+                      mesh: Optional[Mesh] = None, cache_specs=None
+                      ) -> Callable:
+    """`prefill_step(params, batch) -> (logits, cache)`. On a mesh of
+    ranks the step is placed: `params` placed by their specs (DTensors),
+    `batch` whole on every rank (each rank takes its rows); under
+    `torch.no_grad()` `lm.prefill` runs on this rank's blocks (a gather
+    a layer, `model` splitting the compute as in training, the cache
+    written as this rank's blocks of the whole batch's cache), and the
+    step returns the logits and the cache placed (DTensors) by
+    `serve_pspecs` (`cache_specs`, the cache's pruned specs, in place of
+    its own)."""
+    if mesh is None or not mesh.placed:
+        def prefill_step(params, batch):
+            return lm.prefill(params, batch, cfg, max_seq)
+
+        return prefill_step
+
+    memo = {}
+
+    def placed_prefill_step(params, batch):
+        B = batch["tokens"].shape[0]
+        where, sp = _serve_placement(params, cfg, B, max_seq, mesh,
+                                     cache_specs, memo)
+        local = {k: _batch_block(v, sp, mesh) for k, v in batch.items()}
+        with torch.no_grad():
+            logits, cache = lm.prefill(blocks(params), local, cfg, max_seq,
+                                       placement=where)
+        return (from_blocks(logits, NamedSharding(mesh, sp.logits)),
+                from_blocks(cache, named(mesh, sp.cache)))
+
+    return placed_prefill_step
+
+
+def _positions(cache) -> int:
+    """The positions of a cache's keys (1 for a cache without any)."""
+    return next((t.shape[2] for p, t in leaves_with_path(cache)
+                 if p.rsplit("/", 1)[-1] == "k"), 1)
+
+
+def make_decode_step(cfg: ModelConfig, mesh: Optional[Mesh] = None,
+                     cache_specs=None) -> Callable:
+    """`decode_step(params, cache, tokens, pos) -> (logits, cache)`, the
+    cache updated in place. On a mesh of ranks the step is placed:
+    `params` and `cache` placed (DTensors; the cache as the placed
+    prefill returns it), `tokens` whole on every rank; under
+    `torch.no_grad()` `lm.decode_step` runs on this rank's blocks (flash
+    decoding over the cache's positions, `models.attention`) and the
+    step returns the placed logits and the same cache."""
+    if mesh is None or not mesh.placed:
+        def decode_step(params, cache, tokens, pos):
+            return lm.decode_step(params, cache, tokens, pos, cfg)
+
+        return decode_step
+
+    memo = {}
+
+    def placed_decode_step(params, cache, tokens, pos):
+        where, sp = _serve_placement(params, cfg, tokens.shape[0],
+                                     _positions(cache), mesh, cache_specs,
+                                     memo)
+        with torch.no_grad():
+            logits, _ = lm.decode_step(blocks(params), blocks(cache),
+                                       _batch_block(tokens, sp, mesh),
+                                       int(pos), cfg, placement=where)
+        return from_blocks(logits, NamedSharding(mesh, sp.logits)), cache
+
+    return placed_decode_step
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,21 @@ heads its query heads read, their gradient summed back to the owners.
 Under Megatron sequence parallelism (`Placement.seq`) the input is this
 rank's block of the sequence, gathered on entry and reduce-scattered on
 the way out (`Placement.enter`, `Placement.leave`).
+
+Placed serving (under `torch.no_grad()`). Prefill computes as training
+does, by heads (`attention_kv`), but the cache keeps every KV head at
+this rank's block of positions: where the rank computed only its own
+KV heads, `cache_kv` recomputes the keys and values of its block of the
+prompt for every KV head from `wk`/`wv` gathered over `model`. Decode
+(flash decoding, `Placement.kv_split`): q, k and v of the new token are
+computed by heads and gathered over `model` (each rank holds every KV
+head at its positions, so it reads every query head), the token's K/V is
+written by the rank whose block holds `pos` alone, kernel 7's partial
+form runs over this rank's block (its length clamp(pos + 1 - r S/tp, 0,
+S/tp)), `Placement.combine_over_model` merges the partials, and `wo`
+applies this rank's rows, the sum over `model` after it. Where `model`
+does not divide the heads the block's weights are whole
+(`lm._placed_block`) and so is the projection.
 """
 from __future__ import annotations
 
@@ -74,18 +89,30 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig) -> Dict:
     return params
 
 
-def _project_q(params: Dict, x: torch.Tensor, cfg: ModelConfig
-               ) -> torch.Tensor:
-    """x: (B, S, d) -> q (B, S, H, hd)."""
+def _cols(y: torch.Tensor, full: int, placement) -> torch.Tensor:
+    """A projection's output y (..., n): whole, gathered over `model`
+    where its weight's columns are split there (n < full)."""
+    if placement is None or y.shape[-1] == full:
+        return y
+    return placement.gather_model(y, y.ndim - 1)
+
+
+def _project_q(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+               placement=None) -> torch.Tensor:
+    """x: (B, S, d) -> q (B, S, H, hd) (every head: gathered over `model`
+    under a `placement` whose `model` axis splits `wq`)."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     if cfg.qkv_bias:
         q = q + params["bq"]
+    q = _cols(q, cfg.n_heads * cfg.head_dim, placement)
     return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
 
 
-def _project_kv(params: Dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, d) -> k, v (B, S, Hkv, hd)."""
+def _project_kv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                placement=None):
+    """x: (B, S, d) -> k, v (B, S, Hkv, hd) (every KV head under a
+    `placement`, as `_project_q`)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     k = x @ params["wk"]
@@ -93,6 +120,8 @@ def _project_kv(params: Dict, x: torch.Tensor, cfg: ModelConfig):
     if cfg.qkv_bias:
         k = k + params["bk"]
         v = v + params["bv"]
+    full = cfg.n_kv_heads * hd
+    k, v = _cols(k, full, placement), _cols(v, full, placement)
     return (k.reshape(B, S, cfg.n_kv_heads, hd),
             v.reshape(B, S, cfg.n_kv_heads, hd))
 
@@ -208,7 +237,20 @@ def attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     turned by the rotary embedding). Under a `placement` that splits the
     heads over `model`, this rank's heads (`_own_heads`) between
     Megatron's two operators."""
+    return attention_kv(params, x, cfg, positions, causal, use_rope, x_kv,
+                        placement)[0]
+
+
+def attention_kv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor] = None,
+                 causal: bool = True, use_rope: bool = True,
+                 x_kv: Optional[torch.Tensor] = None, placement=None):
+    """`attention`, and the keys and values it attended over: (out, k, v,
+    every) with k, v (B, Skv, n, hd) as a cache keeps them (after the
+    rotary embedding) and `every` whether they are every KV head in order
+    (else this rank's own, `_own_heads`)."""
     own = _own_heads(params, cfg, placement)
+    every = own is None or placement.tp == 1
     if own is not None:
         params, cfg = own
         if x_kv is not None:
@@ -216,13 +258,32 @@ def attention(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     if placement is not None:
         x = placement.enter(x, own is not None)
     if x_kv is not None:
-        out = cross_attention(params, x, precompute_cross_kv(params, x_kv,
-                                                             cfg),
-                              cfg, positions, use_rope)
+        kv = precompute_cross_kv(params, x_kv, cfg)
+        out = cross_attention(params, x, kv, cfg, positions, use_rope)
+        k, v = kv["k"], kv["v"]
     else:
-        out = self_attention(params, x, cfg, positions, causal, use_rope)[0]
-    return out if placement is None else placement.leave(out,
-                                                         own is not None)
+        out, k, v = self_attention(params, x, cfg, positions, causal,
+                                   use_rope)
+    if placement is not None:
+        out = placement.leave(out, own is not None)
+    return out, k, v, every
+
+
+def cache_kv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: Optional[torch.Tensor], use_rope: bool,
+             placement) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The keys and values of x (B, n, d) at `positions` (turned by the
+    rotary embedding where `use_rope`) for every KV head, from `wk`/`wv`
+    (and their biases) gathered over `model` where split: what a placed
+    prefill's cache keeps where the rank computed its own KV heads."""
+    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+    whole = {n: t if t.shape[-1] == Hkv * hd
+             else placement.gather_model(t, t.ndim - 1)
+             for n, t in params.items() if n in ("wk", "wv", "bk", "bv")}
+    k, v = _project_kv(whole, x, cfg)
+    if use_rope:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -244,42 +305,72 @@ def decode_attention(
     pos: int,  # index of the new token
     cfg: ModelConfig,
     use_rope: bool = True,
+    placement=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step against a pre-filled cache. Returns (out, cache).
 
     The new token's K/V are written into `cache` at `pos` in place. The
     reference's one-hot multiply-add update gives the same values bit for
     bit (every other position is multiplied by 1 and added to 0), so the
-    in-place write changes nothing but the copy it saves."""
+    in-place write changes nothing but the copy it saves.
+
+    Under a `placement` (see the module's docstring) `cache` is this
+    rank's block: every KV head, and where `Placement.kv_split` the
+    positions [r S, (r+1) S) of `model` rank r, S its length."""
     B = x.shape[0]
     hd = cfg.head_dim
-    q, k_new, v_new = _project_qkv(params, x, cfg)
+    k_new, v_new = _project_kv(params, x, cfg, placement)
+    q = _project_q(params, x, cfg, placement)
     if use_rope:
         p = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, p, cfg.rope_theta)
         k_new = apply_rope(k_new, p, cfg.rope_theta)
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new[:, 0].to(k.dtype)
-    v[:, pos] = v_new[:, 0].to(v.dtype)
+    split = placement is not None and placement.kv_split
+    lo = placement.tp_rank * k.shape[1] if split else 0
+    if lo <= pos < lo + k.shape[1]:
+        k[:, pos - lo] = k_new[:, 0].to(k.dtype)
+        v[:, pos - lo] = v_new[:, 0].to(v.dtype)
 
     Hkv, H = cfg.n_kv_heads, cfg.n_heads
     qh = q.reshape(B, Hkv, H // Hkv, hd).to(k.dtype)
-    out = ops.decode_attention(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                               pos + 1)  # (B, Hkv, G, hd)
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    if split:
+        n = min(max(pos + 1 - lo, 0), k.shape[1])
+        out = placement.combine_over_model(
+            *ops.decode_attention(qh, kt, vt, n, lse=True))
+    else:
+        out = ops.decode_attention(qh, kt, vt, pos + 1)  # (B, Hkv, G, hd)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ params["wo"], cache
+    return _out_proj(params, out, placement), cache
+
+
+def _out_proj(params: Dict, out: torch.Tensor, placement) -> torch.Tensor:
+    """`out` (B, 1, H hd), every head, through `wo`: under a `placement`
+    whose `model` axis splits `wo`'s rows, this rank's rows and the sum
+    over `model`."""
+    wo = params["wo"]
+    if placement is None or wo.shape[0] == out.shape[-1]:
+        return out @ wo
+    n = wo.shape[0]
+    own = out[..., placement.tp_rank * n:(placement.tp_rank + 1) * n]
+    return placement.reduce_from_model(own @ wo)
 
 
 def decode_cross_attention(params: Dict, x: torch.Tensor, kv: Dict,
-                           cfg: ModelConfig) -> torch.Tensor:
+                           cfg: ModelConfig, placement=None) -> torch.Tensor:
     """Cross-attention of one decode token x (B, 1, d) over the static
     cross cache `kv` ({"k", "v"}: (B, S_src, Hkv, hd)), through
     `ops.decode_attention` on a (B, Hkv, S_src, hd) view of every row:
-    nothing is masked, as in the reference."""
+    nothing is masked, as in the reference. Under a `placement` the cross
+    cache is whole on every `model` rank: q gathered over `model`, `wo`
+    by rows as `decode_attention`."""
     B = x.shape[0]
     hd, Hkv, H = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
     k, v = kv["k"], kv["v"]
-    qh = _project_q(params, x, cfg).reshape(B, Hkv, H // Hkv, hd).to(k.dtype)
+    qh = _project_q(params, x, cfg, placement).reshape(
+        B, Hkv, H // Hkv, hd).to(k.dtype)
     out = ops.decode_attention(qh, k.permute(0, 2, 1, 3),
                                v.permute(0, 2, 1, 3), k.shape[1])
-    return out.reshape(B, 1, H * hd).to(x.dtype) @ params["wo"]
+    return _out_proj(params, out.reshape(B, 1, H * hd).to(x.dtype),
+                     placement)

@@ -43,6 +43,15 @@ the dense FFN its hidden units, MoE its experts (`models.attention`,
 `models.xlstm_blocks`, `models.ssm`, `models.ffn`). A mixer whose heads
 (or, for Mamba, channels) `model` does not divide computes on its
 weights gathered over `model` as well, whole on every `model` rank.
+
+Placed serving (`prefill` and `decode_step` with a `placement`, under
+`torch.no_grad()`): the same split, a gather a layer, the logits left
+split over the vocabulary where `model` splits the head, and the cache
+as this rank's blocks by the placement's cache specs (`init_cache`):
+attention keeps every KV head at its block of positions (flash decoding,
+`models.attention`), Mamba its channels, the xLSTM cells their heads,
+whisper's cross cache its batch rows. At one rank every operator is the
+identity: a placed serve makes the unplaced calls.
 """
 from __future__ import annotations
 
@@ -344,10 +353,13 @@ def param_specs(cfg: ModelConfig) -> Dict:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict:
-    """`init_cache`'s tree as `meta` tensors (no storage)."""
+    """`init_cache`'s tree as `meta` tensors (no storage). A query of
+    shapes: it runs outside any dispatch mode in force (a recording of a
+    step does not see it)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _disable_current_modes
 
-    with FakeTensorMode():
+    with _disable_current_modes(), FakeTensorMode():
         return _without_storage(init_cache(cfg, batch, max_seq, "cpu"))
 
 
@@ -369,13 +381,27 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
     raise ValueError(kind)
 
 
+# The cache leaves that do not start at zero.
+_CACHE_FILL = {"m": xl.NEG_INF}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: DeviceLike = None) -> Dict:
+               device: DeviceLike = None, placement=None) -> Dict:
     """The initial decode cache in the reference's layout: for each
     position i of a period, {"pos<i>": {leaf: (n_periods, ...)}} with the
     leaves of that position's block kind (zeros; the xLSTM stabilizers
-    at -1e30)."""
+    at -1e30). Under a `placement` with cache specs, this rank's block of
+    each leaf of the cache of `batch` sequences and `max_seq`
+    positions."""
     dev = resolve_device(device)
+    if placement is not None:
+        from repro_torch.distributed.sharding import NamedSharding
+        from repro_torch.tree_util import map_with_path
+
+        return map_with_path(lambda path, t, s: torch.full(
+            NamedSharding(placement.mesh, s).block_shape(t.shape),
+            _CACHE_FILL.get(path.rsplit("/", 1)[-1], 0.0), dtype=t.dtype,
+            device=dev), cache_specs(cfg, batch, max_seq), placement.cache)
     p = period(cfg)
     n_periods = cfg.n_layers // p
     return {f"pos{i}": {
@@ -697,28 +723,34 @@ def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
 # Serving: prefill and decode
 # ---------------------------------------------------------------------------
 def _ffn_residual(bp: Dict, x: torch.Tensor, cfg: ModelConfig,
-                  has_moe: bool) -> torch.Tensor:
+                  has_moe: bool, placement=None) -> torch.Tensor:
     if "ln2" not in bp:
         return x
-    return x + _ffn(bp, apply_norm(bp["ln2"], x, cfg), cfg, has_moe)[0]
+    return x + _ffn(bp, apply_norm(bp["ln2"], x, cfg), cfg, has_moe,
+                    placement)[0]
 
 
 def _decode_block(bp: Dict, cache: Dict, x: torch.Tensor, pos: int,
-                  cfg: ModelConfig, kind: str, has_moe: bool) -> torch.Tensor:
+                  cfg: ModelConfig, kind: str, has_moe: bool,
+                  placement=None) -> torch.Tensor:
     """One block's decode step; `cache` (the layer's views) is updated in
     place."""
     h = apply_norm(bp["ln1"], x, cfg)
     if kind in ("attn", "dec"):
         h, _ = attn_mod.decode_attention(bp["attn"], h, cache, pos, cfg,
-                                         use_rope=cfg.pos_embed == "rope")
+                                         use_rope=cfg.pos_embed == "rope",
+                                         placement=placement)
     elif kind == "mamba":
-        h, state = ssm_mod.ssm_decode_step(bp["ssm"], h, cache, cfg)
+        h, state = ssm_mod.ssm_decode_step(bp["ssm"], h, cache, cfg,
+                                           placement)
         _store(cache, state)
     elif kind == "mlstm":
-        h, state = xl.mlstm_decode_step(bp["mlstm"], h, cache, cfg)
+        h, state = xl.mlstm_decode_step(bp["mlstm"], h, cache, cfg,
+                                        placement)
         _store(cache, state)
     elif kind == "slstm":
-        h, state = xl.slstm_decode_step(bp["slstm"], h, cache, cfg)
+        h, state = xl.slstm_decode_step(bp["slstm"], h, cache, cfg,
+                                        placement)
         _store(cache, state)
     else:
         raise ValueError(kind)
@@ -726,8 +758,18 @@ def _decode_block(bp: Dict, cache: Dict, x: torch.Tensor, pos: int,
     if kind == "dec":
         x = x + attn_mod.decode_cross_attention(
             bp["xattn"], apply_norm(bp["ln_x"], x, cfg),
-            {"k": cache["xk"], "v": cache["xv"]}, cfg)
-    return _ffn_residual(bp, x, cfg, has_moe)
+            {"k": cache["xk"], "v": cache["xv"]}, cfg, placement)
+    return _ffn_residual(bp, x, cfg, has_moe, placement)
+
+
+def _layers(params: Dict, cfg: ModelConfig, placement):
+    """(layer index, its parameters as it computes): under a `placement`
+    gathered where it runs (`_placed_block`), one layer at a time."""
+    for l, bp in enumerate(params["blocks"]):
+        if placement is not None:
+            bp = _placed_block(bp, placement.specs["blocks"][l], cfg,
+                               placement)
+        yield l, bp
 
 
 def decode_step(
@@ -736,18 +778,62 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1)
     pos: int,  # position being written
     cfg: ModelConfig,
+    placement=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One token for every sequence in the batch. Returns (logits, cache);
     the cache is updated in place. For llava, `pos` counts the patch
-    positions before the text."""
-    x = _embed_tokens(params, tokens, cfg)
+    positions before the text. Under a `placement` (placed serving:
+    `params`, `cache` and `tokens` this rank's blocks) each layer gathers
+    its weights where it runs, and the logits are this rank's vocabulary
+    columns where `model` splits the head."""
+    x = _embed_tokens(params, tokens, cfg, placement=placement)
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"][pos:pos + 1]
+        x = x + _used(params, "pos_embed", placement)[pos:pos + 1]
     p = period(cfg)
-    for l, bp in enumerate(params["blocks"]):
+    for l, bp in _layers(params, cfg, placement):
         x = _decode_block(bp, _layer_cache(cache, l, p), x, pos, cfg,
-                          _layer_kind(cfg, l), _layer_has_moe(cfg, l))
-    return _head(params, x, cfg), cache
+                          _layer_kind(cfg, l), _layer_has_moe(cfg, l),
+                          placement)
+    return _head(params, x, cfg, placement), cache
+
+
+def _prefill_attention(bp: Dict, h: torch.Tensor, c: Dict, cfg: ModelConfig,
+                       positions: torch.Tensor, placement) -> torch.Tensor:
+    """A block's self-attention over the prompt h (B, S, d). Writes into
+    the layer's cache views `c` the prompt's keys and values, or under a
+    `placement` those of the positions of this rank's block of the cache,
+    every KV head (recomputed by `attn_mod.cache_kv` where the rank
+    computed its own KV heads)."""
+    use_rope = cfg.pos_embed == "rope"
+    out, k, v, every = attn_mod.attention_kv(
+        bp["attn"], h, cfg, positions, True, use_rope, placement=placement)
+    n = c["k"].shape[1]
+    split = placement is not None and placement.kv_split
+    lo = placement.tp_rank * n if split else 0
+    hi = max(lo, min(lo + n, h.shape[1]))  # lo: a block past the prompt
+    if every:
+        k, v = k[:, lo:hi], v[:, lo:hi]
+    else:  # every rank gathers the weights, a block past the prompt too
+        k, v = attn_mod.cache_kv(bp["attn"], h[:, lo:hi], cfg,
+                                 positions[lo:hi], use_rope, placement)
+    c["k"][:, :hi - lo] = k
+    c["v"][:, :hi - lo] = v
+    return out
+
+
+def _prefill_cross(bp: Dict, h: torch.Tensor, c: Dict, enc_out: torch.Tensor,
+                   cfg: ModelConfig, placement) -> torch.Tensor:
+    """Whisper's cross-attention over the encoder's output; writes the
+    cross cache (every KV head, zero past the frames' length)."""
+    out, k, v, every = attn_mod.attention_kv(
+        bp["xattn"], h, cfg, causal=False, use_rope=False, x_kv=enc_out,
+        placement=placement)
+    if not every:
+        k, v = attn_mod.cache_kv(bp["xattn"], enc_out, cfg, None, False,
+                                 placement)
+    c["xk"][:, :k.shape[1]] = k
+    c["xv"][:, :v.shape[1]] = v
+    return out
 
 
 def prefill(
@@ -755,6 +841,7 @@ def prefill(
     batch: Dict,
     cfg: ModelConfig,
     max_seq: int,
+    placement=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Consume a prompt (`forward`'s batch keys), produce (logits (B, S,
     V), decode cache at pos=S).
@@ -763,46 +850,46 @@ def prefill(
     fresh cache: attention K/V, zero past S as the reference's padded
     cache is; the recurrent blocks' final states; whisper's cross K/V,
     zero past the frames' length up to `max_source_len`. The serve path
-    never quantizes (the reference's prefill passes no spec)."""
-    x = _embed_inputs(params, batch, cfg)
+    never quantizes (the reference's prefill passes no spec). Under a
+    `placement` (placed serving: `params` and `batch` this rank's blocks)
+    the cache is this rank's blocks by the placement's cache specs of
+    the whole batch, and the logits this rank's vocabulary columns where
+    `model` splits the head."""
+    x = _embed_inputs(params, batch, cfg, placement=placement)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"][:S]
+        x = x + _used(params, "pos_embed", placement)[:S]
     enc_out = None
     if cfg.pattern == "encdec":
-        enc_out = encode_source(params, batch["frames"], cfg)
-    use_rope = cfg.pos_embed == "rope"
-    cache = init_cache(cfg, B, max_seq, x.device)
+        enc_out = encode_source(params, batch["frames"], cfg,
+                                placement=placement)
+    rows = 1 if placement is None else placement.rows
+    cache = init_cache(cfg, B * rows, max_seq, x.device, placement)
     p = period(cfg)
-    for l, bp in enumerate(params["blocks"]):
+    for l, bp in _layers(params, cfg, placement):
         kind = _layer_kind(cfg, l)
         c = _layer_cache(cache, l, p)
         h = apply_norm(bp["ln1"], x, cfg)
         if kind in ("attn", "dec"):
-            h, k, v = attn_mod.self_attention(bp["attn"], h, cfg, positions,
-                                              causal=True, use_rope=use_rope)
-            c["k"][:, :S] = k
-            c["v"][:, :S] = v
+            h = _prefill_attention(bp, h, c, cfg, positions, placement)
         elif kind == "mamba":
             h, state = ssm_mod.ssm_forward(bp["ssm"], h, cfg,
-                                           return_state=True)
+                                           return_state=True,
+                                           placement=placement)
             _store(c, state)
         elif kind == "mlstm":
-            _store(c, xl.mlstm_final_state(bp["mlstm"], h, cfg))
-            h = xl.mlstm_forward(bp["mlstm"], h, cfg)
+            _store(c, xl.mlstm_final_state(bp["mlstm"], h, cfg, placement))
+            h = xl.mlstm_forward(bp["mlstm"], h, cfg, placement)
         elif kind == "slstm":
-            h, state = xl.slstm_forward_with_state(bp["slstm"], h, cfg)
+            h, state = xl.slstm_forward_with_state(bp["slstm"], h, cfg,
+                                                   placement)
             _store(c, state)
         else:
             raise ValueError(kind)
         x = x + h
         if kind == "dec":
-            xkv = attn_mod.precompute_cross_kv(bp["xattn"], enc_out, cfg)
-            x = x + attn_mod.cross_attention(
-                bp["xattn"], apply_norm(bp["ln_x"], x, cfg), xkv, cfg)
-            S_src = enc_out.shape[1]
-            c["xk"][:, :S_src] = xkv["k"]
-            c["xv"][:, :S_src] = xkv["v"]
-        x = _ffn_residual(bp, x, cfg, _layer_has_moe(cfg, l))
-    return _head(params, x, cfg), cache
+            x = x + _prefill_cross(bp, apply_norm(bp["ln_x"], x, cfg), c,
+                                   enc_out, cfg, placement)
+        x = _ffn_residual(bp, x, cfg, _layer_has_moe(cfg, l), placement)
+    return _head(params, x, cfg, placement), cache

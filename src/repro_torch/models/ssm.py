@@ -22,7 +22,9 @@ token.
 Placed training splits the block over `model` by its inner channels
 (`ssm_forward`'s `placement`): each rank runs the conv, the scan and D on
 its d_inner / tp channels, as GSPMD splits the reference's by the same
-specs.
+specs. A placed prefill and decode split it the same way: the cache's
+conv window and SSM state hold this rank's channels (the reference's
+cache specs put them over `model`).
 """
 from __future__ import annotations
 
@@ -239,9 +241,19 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device: torch.device,
 
 
 def ssm_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
-                    cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """x: (B, 1, d). O(1) recurrent update: (out (B, 1, d), new cache)."""
-    din, r, n = ssm_dims(cfg)
+                    cfg: ModelConfig, placement=None
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, d). O(1) recurrent update: (out (B, 1, d), new cache).
+    Under a `placement` whose `model` axis divides d_inner, this rank's
+    channels (`_own_channels`; `cache` holds them), x_proj's product
+    summed over `model`, as `ssm_forward`."""
+    own = _own_channels(params, cfg, placement)
+    if own is not None:
+        params = own
+    if placement is not None:
+        x = placement.enter(x, own is not None)
+    _, r, n = ssm_dims(cfg)
+    din = params["conv_w"].shape[1]
     xz = x[:, 0] @ params["in_proj"]
     xs, z = xz[..., :din], xz[..., din:]
 
@@ -256,6 +268,8 @@ def ssm_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
     new_conv = window[:, 1:]
 
     dbc = xs @ params["x_proj"]
+    if own is not None:
+        dbc = placement.sum_over_model(dbc)
     dt_in, Bc, Cc = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
     delta = _softplus(dt_in.float() @ params["dt_proj_w"]
                       + params["dt_proj_b"])  # (B, din)
@@ -267,4 +281,6 @@ def ssm_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
     y = y + params["D"] * xs.float()
     y = y.to(x.dtype) * F.silu(z)
     out = (y @ params["out_proj"])[:, None, :]
+    if placement is not None:
+        out = placement.leave(out, own is not None)
     return out, {"conv": new_conv, "ssm": h}

@@ -15,7 +15,10 @@ Both caches start their stabilizer `m` at -1e30.
 
 Placed training splits both cells over `model` by their heads (the
 forwards' `placement`): each head's recurrence is its own, so a rank
-runs its H / tp heads with no collective inside the time loop.
+runs its H / tp heads with no collective inside the time loop. A placed
+prefill and decode split them the same way, the cache holding this
+rank's heads of each state (the reference's cache specs put them over
+`model`).
 
 The sLSTM's positions and the mLSTM's query chunks run through
 `hlo_counters.counted_loop`: as they are, but under a recording with trip
@@ -186,14 +189,27 @@ def mlstm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                                                          own is not None)
 
 
-def mlstm_final_state(params: Dict, x: torch.Tensor,
-                      cfg: ModelConfig) -> Dict:
+def _enter_heads(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 placement, layout: Dict):
+    """(params, x, whether split) for a cell under `placement`: this
+    rank's heads and its input entered (`_own_heads`), or as they are."""
+    own = _own_heads(params, cfg, placement, layout)
+    if placement is not None:
+        x = placement.enter(x, own is not None)
+    return (params if own is None else own), x, own is not None
+
+
+def mlstm_final_state(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                      placement=None) -> Dict:
     """Decode cache after consuming x (for prefill): one weighted pass.
 
     C_S = sum_s exp(F_S - F_s + log i_s - m) k_s v_s^T (and n, m
-    likewise)."""
+    likewise). Under a `placement` whose `model` axis divides the heads,
+    this rank's heads (`_own_heads`)."""
+    params, x, _ = _enter_heads(params, x, cfg, placement, _MLSTM_HEADS)
     B, S, d = x.shape
-    H, dh = _heads(cfg)
+    dh = _heads(cfg)[1]
+    H = params["wi"].shape[1]
     k = (x @ params["wk"]).reshape(B, S, H, dh).float() / math.sqrt(dh)
     v = (x @ params["wv"]).reshape(B, S, H, dh).float()
     log_i, log_f = _gates(params, x)
@@ -218,10 +234,15 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int,
 
 
 def mlstm_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
-                      cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """x: (B, 1, d). Recurrent mLSTM update: (out (B, 1, d), new cache)."""
+                      cfg: ModelConfig, placement=None
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, d). Recurrent mLSTM update: (out (B, 1, d), new cache).
+    Under a `placement` whose `model` axis divides the heads, this rank's
+    heads (`cache` holds them) between Megatron's two operators."""
+    params, x, split = _enter_heads(params, x, cfg, placement, _MLSTM_HEADS)
     B = x.shape[0]
-    H, dh = _heads(cfg)
+    dh = _heads(cfg)[1]
+    H = params["wi"].shape[1]
     xt = x[:, 0]
     q = (xt @ params["wq"]).reshape(B, H, dh).float()
     k = (xt @ params["wk"]).reshape(B, H, dh).float()
@@ -243,7 +264,10 @@ def mlstm_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
     h = num / den[..., None]
     h = _headwise_rms(h, params["norm_scale"].float())
     h = (h.to(x.dtype) * og).reshape(B, 1, H * dh)
-    return h @ params["out_proj"], {"C": C, "n": n, "m": m_new}
+    out = h @ params["out_proj"]
+    if placement is not None:
+        out = placement.leave(out, split)
+    return out, {"C": C, "n": n, "m": m_new}
 
 
 # ---------------------------------------------------------------------------
@@ -363,11 +387,17 @@ def slstm_final_state(params: Dict, x: torch.Tensor,
 
 
 def slstm_forward_with_state(params: Dict, x: torch.Tensor,
-                             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                             cfg: ModelConfig, placement=None
+                             ) -> Tuple[torch.Tensor, Dict]:
     """`slstm_forward` and `slstm_final_state` from one pass of the
-    recurrence (prefill)."""
+    recurrence (prefill); under a `placement`, this rank's heads as
+    `slstm_forward` takes them, and their state."""
+    params, x, split = _enter_heads(params, x, cfg, placement, _SLSTM_HEADS)
     hs, state = _slstm_scan(params, x, cfg)
-    return _slstm_out(params, hs, x), state
+    out = _slstm_out(params, hs, x)
+    if placement is not None:
+        out = placement.leave(out, split)
+    return out, state
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int,
@@ -381,9 +411,15 @@ def init_slstm_cache(cfg: ModelConfig, batch: int,
 
 
 def slstm_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
-                      cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """x: (B, 1, d). One recurrence step: (out (B, 1, d), new cache)."""
+                      cfg: ModelConfig, placement=None
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, d). One recurrence step: (out (B, 1, d), new cache).
+    Under a `placement`, this rank's heads as `mlstm_decode_step`."""
+    params, x, split = _enter_heads(params, x, cfg, placement, _SLSTM_HEADS)
     wx = _slstm_wx(params, x, cfg)[:, 0]
     state = (cache["c"], cache["n"], cache["h"], cache["m"])
     c, n, h, m = _slstm_cell(params, wx, state, cfg)
-    return _slstm_out(params, h[:, None], x), {"c": c, "n": n, "h": h, "m": m}
+    out = _slstm_out(params, h[:, None], x)
+    if placement is not None:
+        out = placement.leave(out, split)
+    return out, {"c": c, "n": n, "h": h, "m": m}

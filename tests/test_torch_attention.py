@@ -122,6 +122,72 @@ def test_decode_attention_masks_future():
                                atol=1e-5)
 
 
+def _masked_scores(q, k, length):
+    """(B, Hkv, G, S) f32 scores of q against k, positions < length."""
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) \
+        / np.sqrt(q.shape[-1])
+    return s[..., :length]
+
+
+def _decode_inputs(seed, b, hkv, g, s, hd, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(dtype) for shape in ((b, hkv, g, hd), (b, hkv, s, hd),
+                                          (b, hkv, s, hd)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [1, 37, 100])
+def test_decode_attention_lse_is_the_logsumexp_of_the_masked_scores(dtype,
+                                                                    length):
+    """Kernel 7's partial form on the CPU: the f32 output of the plain
+    form unrounded, and the log-sum-exp of the scores at positions <
+    length."""
+    q, k, v = _decode_inputs(length, 2, 3, 4, 100, 32, dtype)
+    out, lse = tops.decode_attention(q, k, v, length, lse=True)
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+    want = torch.logsumexp(_masked_scores(q, k, length), dim=-1)
+    assert (lse - want).abs().max() <= 1e-5 * want.abs().max()
+    plain = tops.decode_attention(q, k, v, length)
+    assert torch.equal(out.to(dtype), plain)
+
+
+def test_decode_attention_of_an_empty_block_is_zero_and_minus_inf():
+    """A block of the cache wholly past the token (length 0), given as an
+    int and as a tensor: zero output, -inf log-sum-exp, no NaN; without
+    `lse`, zero in q's dtype."""
+    q, k, v = _decode_inputs(5, 2, 2, 3, 16, 16)
+    for n in (0, torch.tensor(0)):
+        out, lse = tops.decode_attention(q, k, v, n, lse=True)
+        assert torch.equal(out, torch.zeros_like(out))
+        assert torch.equal(lse, torch.full_like(lse, -torch.inf))
+        assert torch.equal(tops.decode_attention(q, k, v, n),
+                           torch.zeros_like(q))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+@pytest.mark.parametrize("length", [1, 9, 40, 64])
+def test_combined_blocks_equal_the_whole_cache(blocks, length):
+    """Flash decoding over ranks, in one process: the cache cut into
+    `blocks` blocks of positions (those wholly past the token empty),
+    kernel 7's partial form on each at its length clamp(length - lo, 0,
+    S / blocks), merged by `combine_partials`: the whole cache's output
+    within 1e-6 (float32)."""
+    from repro_torch.distributed.sharding import combine_partials
+
+    S = 64
+    q, k, v = _decode_inputs(blocks * 100 + length, 2, 2, 4, S, 32)
+    n = S // blocks
+    parts = [tops.decode_attention(
+        q, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
+        min(max(length - r * n, 0), n), lse=True) for r in range(blocks)]
+    got = combine_partials(torch.stack([o for o, _ in parts]),
+                           torch.stack([l for _, l in parts]))
+    want = tops.decode_attention(q, k, v, length)
+    assert (got - want).abs().max() <= 1e-6
+
+
 # ---------------------------------------------------------------------------
 # flash_attention
 # ---------------------------------------------------------------------------

@@ -257,6 +257,56 @@ def test_decode_attention_kernel_close(card, b, hkv, g, s, hd, dtype):
         assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_lse_form(card, dtype):
+    """Kernel 7's partial form against its plain version: the f32 output
+    and the log-sum-exp of the masked scores, at lengths across the
+    splits and at 0 (zero and -inf, given as an int and on the card);
+    the same call without `lse` still agrees with the plain version in
+    the input's dtype."""
+    rng = np.random.default_rng(21)
+    q, k, v = _decode_case(rng, card, 4, 4, 7, 1056, 128, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for length in (1, 517, 1051, 1056):
+        out, lse = ops.decode_attention(q, k, v, length, lse=True)
+        w_out, w_lse = decode_attention_plain(q, k, v, length, lse=True)
+        assert out.dtype == lse.dtype == torch.float32
+        assert (out - w_out).abs().max().item() <= tol
+        assert (lse - w_lse).abs().max().item() <= 1e-4 * \
+            w_lse.abs().max().item()
+        whole = ops.decode_attention(q, k, v, length)
+        want = decode_attention_plain(q, k, v, length)
+        assert whole.dtype == dtype
+        assert (whole.float() - want.float()).abs().max().item() <= tol
+    for n in (0, torch.tensor(0, device=card)):
+        out, lse = ops.decode_attention(q, k, v, n, lse=True)
+        assert torch.equal(out, torch.zeros_like(out))
+        assert torch.equal(lse, torch.full_like(lse, -torch.inf))
+        assert torch.equal(ops.decode_attention(q, k, v, n),
+                           torch.zeros_like(q))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_decode_attention_kernel_blocks_combine_to_the_whole(card, blocks):
+    """The cache cut into blocks of positions, some wholly past the token:
+    kernel 7's partial form on each, merged by `combine_partials`, equals
+    kernel 7 over the whole cache (f32, 1e-5)."""
+    from repro_torch.distributed.sharding import combine_partials
+
+    rng = np.random.default_rng(blocks)
+    q, k, v = _decode_case(rng, card, 2, 4, 7, 1056, 128, torch.float32)
+    n = 1056 // blocks
+    for length in (1, 300, 1056):
+        parts = [ops.decode_attention(
+            q, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
+            min(max(length - r * n, 0), n), lse=True)
+            for r in range(blocks)]
+        got = combine_partials(torch.stack([o for o, _ in parts]),
+                               torch.stack([l for _, l in parts]))
+        want = ops.decode_attention(q, k, v, length)
+        assert (got - want).abs().max().item() <= 1e-5
+
+
 def test_decode_attention_kernel_masks_future(card):
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.normal(size=(1, 2, 2, 16)).astype(np.float32)) \

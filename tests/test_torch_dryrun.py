@@ -15,8 +15,11 @@ reads, against the reference's.
 - `run_cell` of qwen2-7b's smoke config on the fake (16, 16) mesh writes
   the reference's JSON keys (`trace_s` in place of `lower_s` and
   `compile_s`; XLA's `cost_analysis_raw_body_once` has no counterpart)
-  and leaves no process group up; prefill and decode cells are not
-  ported and say so.
+  and leaves no process group up, for a train cell and for prefill and
+  decode cells at small shapes (kernel 6 once an attention layer in
+  prefill, kernel 7 once in decode; a batch of one sequence, as
+  long_500k's, whole on every rank); `main` runs an explicit small
+  decode cell and exits 0.
 """
 import dataclasses
 import json
@@ -197,17 +200,98 @@ def test_run_cell_writes_the_references_keys(tmp_path):
         r["memory_analysis"]["argument_size_in_bytes"] > 0
 
 
-def test_prefill_and_decode_cells_are_not_ported(capsys, tmp_path):
+def _small(arch: str, shape: str, seq: int = 64, batch: int = 32):
+    """(arch's smoke config as its ArchSpec, `shape` cut to `seq`
+    positions and `batch` sequences)."""
+    from repro_torch.configs import SHAPES, get_arch
+
+    spec = get_arch(arch)
+    return (dataclasses.replace(spec, model=spec.smoke),
+            dataclasses.replace(SHAPES[shape], seq_len=seq,
+                                global_batch=batch))
+
+
+def _attention_layers(cfg) -> int:
+    from repro_torch.models import lm
+
+    return sum(lm._layer_kind(cfg, l) in ("attn", "dec")
+               for l in range(cfg.n_layers))
+
+
+@pytest.mark.parametrize("cell", [("qwen2-7b", "prefill_32k", 32),
+                                  ("qwen2-7b", "decode_32k", 128),
+                                  ("jamba-v0.1-52b", "prefill_32k", 32),
+                                  ("jamba-v0.1-52b", "long_500k", 1),
+                                  ("xlstm-350m", "long_500k", 1)],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+def test_run_cell_writes_the_references_keys_for_serve_cells(cell,
+                                                             tmp_path):
+    """A prefill or decode cell at a small shape on the fake (16, 16)
+    mesh: the reference's keys; one call of the step (kernel 6 once an
+    attention layer in prefill, kernel 7 once in decode, over this
+    rank's block of the cache's positions); a decode cell's cache
+    updated in place (`alias_size_in_bytes`) and merged over `model`
+    (all-reduces); a batch the data axis does not divide whole on every
+    rank."""
     from repro_torch.launch import dryrun
 
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen2-7b", "--shape", "prefill_32k",
-                     "--mesh", "single", "--out", str(tmp_path)])
-    assert e.value.code != 0
+    arch, name, batch = cell
+    spec, shape = _small(arch, name, batch=batch)
+    r = dryrun.run_cell(spec, shape, False, tmp_path)
+    written = json.loads((tmp_path / f"{arch}__{name}__16_16.json")
+                         .read_text())
+    assert written == json.loads(json.dumps(r))
+    assert _KEYS | {"trace_s"} <= set(r)
+    assert _MEMORY <= set(r["memory_analysis"])
+    assert _ROOFLINE <= set(r["roofline"])
+    assert (r["mesh"], r["n_devices"], r["ok"]) == ("16x16", 256, True)
+    n = _attention_layers(spec.model)
+    mem = r["memory_analysis"]
+    if shape.kind == "prefill":
+        assert r["kernels"] == {"flash_attention": float(n)}
+        assert mem["alias_size_in_bytes"] == 0
+    else:
+        assert r["kernels"] == ({"decode_attention": float(n)} if n else {})
+        assert 0 < mem["alias_size_in_bytes"] < mem["argument_size_in_bytes"]
+        assert r["collectives"]["counts"]["all-reduce"] > 0
+    assert mem["peak_size_in_bytes"] >= mem["argument_size_in_bytes"] > 0
+    assert r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+
+
+def test_a_decode_cell_reads_its_block_of_the_cache(tmp_path):
+    """Flash decoding in the dry-run: kernel 7's bytes at (16, 16) are
+    those of one sixteenth of the cache's positions (its block, full at
+    pos = seq_len - 1) of this rank's eighth of the batch, in the partial
+    form (f32 output and log-sum-exp)."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch import dryrun
+
+    spec, shape = _small("qwen2-7b", "decode_32k", seq=256, batch=128)
+    trace, _ = dryrun.trace_cell(spec, shape, (16, 16), ("data", "model"))
+    cfg = spec.model
+    c = cost.decode_attention(128 // 16, cfg.n_kv_heads,
+                              cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                              256 // 16, 4, lse=True)
+    got = [r for r in trace.records if r.op == "kernel.decode_attention"]
+    assert sum(r.calls for r in got) == _attention_layers(cfg)
+    assert sum(r.out_bytes for r in got) == c.bytes * _attention_layers(cfg)
+
+
+def test_main_runs_an_explicit_small_decode_cell(capsys, tmp_path,
+                                                 monkeypatch):
+    """`--shape decode_32k` asked for by name runs (at a small shape here)
+    and exits 0 with its JSON written."""
+    from repro_torch.launch import dryrun
+
+    spec, shape = _small("qwen2-7b", "decode_32k", batch=128)
+    monkeypatch.setitem(dryrun.SHAPES, "decode_32k", shape)
+    monkeypatch.setattr(dryrun, "get_arch", lambda _: spec)
+    dryrun.main(["--arch", "qwen2-7b", "--shape", "decode_32k", "--mesh",
+                 "single", "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "NOT PORTED qwen2-7b x prefill_32k x 1pod: ROADMAP item 10b" in out
-    assert "0 ok, 0 skipped (recorded), 0 failed, 1 not ported" in out
-    assert not list(tmp_path.iterdir())
+    assert "OK   qwen2-7b x decode_32k x 1pod" in out
+    assert "dry-run: 1 ok, 0 skipped (recorded), 0 failed" in out
+    assert (tmp_path / "qwen2-7b__decode_32k__16_16.json").exists()
 
 
 def test_a_fake_mesh_refuses_a_second_group():
