@@ -15,8 +15,8 @@ Phases, each of which raises on failure:
    every kernel's registers, the attention, quantized-matmul, encode,
    march and gather-composite kernels' spill bytes, and the tensor-core
    (HGMMA, HMMA, IMMA) and cp.async (LDGSTS) instructions in their SASS
-   (``cuobjdump``); the bf16 flash kernel must hold HGMMA, and both
-   quantized matmuls an s8 tensor-core instruction.
+   (``cuobjdump``); the bf16 flash kernels (hd 128 and hd 64) must hold
+   HGMMA, and both quantized matmuls an s8 tensor-core instruction.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes its serve path gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call that computes the same function
@@ -179,7 +179,9 @@ Phases, each of which raises on failure:
    self-attention (S 1,024, G 1, hd 64) and llava's and jamba's causal
    layers (Hkv 8, G 4, hd 128, S 1,024), bf16 within ``BF16_ATTN_LIMIT``
    and f32 within 1e-4 of ``full_attention_plain`` or
-   ``flash_attention_plain``; decode attention at whisper's cross decode
+   ``flash_attention_plain``, each printed with the route it took (bf16
+   at hd <= 64: ``flash_tcp_kernel<64>``); decode attention at whisper's
+   cross decode
    (all 1,500 rows of the cross cache) and at whisper's and llava's
    self-attention decode, held alike to ``decode_attention_plain``; each
    timed beside it and SDPA with its bound; each of whisper-large-v3,
@@ -269,8 +271,12 @@ Phases, each of which raises on failure:
 16. Placed prefill and decode (ROADMAP item 10b): (a) kernel 7's
    partial form (``lse=True``: the f32 output and the log-sum-exp)
    against its plain version in bf16 and f32 at phase 10's shape and
-   lengths, and at length 0 (zero and -inf), its time at a sixteenth of
-   the cache; (b) that cache cut into 2, 4 and 16 blocks of positions,
+   lengths, on either side of the one-pass route's threshold, and at
+   length 0 (zero and -inf), each length's route printed; its time at a
+   sixteenth of the cache (the one-pass route, required) and at a rank's
+   block of the dry-run's decode_32k cell (B 8, 2,048 positions, the
+   split route), each beside memory-efficient attention asked for its
+   log-sum-exp and the bound; (b) that cache cut into 2, 4 and 16 blocks of positions,
    some empty, kernel 7's partial form on each merged by
    ``distributed.sharding.combine_partials`` against kernel 7 over the
    whole cache; (c) over a one-rank NCCL mesh, qwen2-7b at its published
@@ -305,8 +311,11 @@ the flash entry also carries the phase 12 shapes' numbers under
 llava_jamba}`` and the decode entry under
 ``*_{whisper_cross,whisper_self,llava_jamba}`` and phase 16's partial
 form under ``max_abs_err_lse``, ``lse_err``, ``ms_lse_block16``,
-``plain_ms_lse_block16``, ``library_ms_lse_block16`` and
-``combine_err``, and the backward's
+``plain_ms_lse_block16``, ``library_ms_lse_block16``,
+``bound_ms_lse_block16`` (a sixteenth of the cache, the one-pass route),
+``ms_lse_block2048``, ``library_ms_lse_block2048``,
+``bound_ms_lse_block2048`` (a rank's block of the decode_32k cell, B 8,
+2,048 positions, the split route) and ``combine_err``, and the backward's
 entry, ``flash_attention_bwd``, qwen2-7b's shape with whisper's under
 ``*_{whisper_enc,whisper_dec,whisper_cross}``),
 the card's name and power limit (``nvidia-smi``), and
@@ -1102,33 +1111,45 @@ def phase_decode_attention(dev):
     from repro_torch.kernels.decode_attention_kernel import (
         decode_attention_cuda as kernel,
         decode_attention_plain as plain,
+        one_pass,
         split_len,
     )
 
     gen = torch.Generator(device=dev).manual_seed(2)
     B, Hkv, G, hd, S = LM_B, LM_HKV, LM_G, LM_HD, LM_SMAX
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    worst = 0.0
+    worst, routes = 0.0, {}
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(dtype)
         cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
                  .to(dtype) for _ in range(2)]
         k, v = (c.permute(0, 2, 1, 3) for c in cache)
-        sp = split_len(B * Hkv, S, G, hd, q.element_size(), n_sm)
+        esize = q.element_size()
+        sp = split_len(B * Hkv, S, G, hd, esize, n_sm)
         edges = {sp - 1, sp, sp + 1, 2 * sp, 2 * sp + 1, (S // sp) * sp}
+        if one_pass(S, G, hd, esize):
+            raise AssertionError("a length on the card reads all the cache's "
+                                 f"{S} rows: it must take the split route")
+        # Each length as an int (the route `one_pass` picks by it) and on
+        # the card (the split route, whose split edges the int lengths
+        # below the one-pass threshold no longer reach).
         for length in sorted({1, 64, LM_PROMPT + 1, LM_PROMPT + 16, S - 1,
                               S} | edges):
-            a = kernel(q, k, v, length)
+            routes.setdefault((str(dtype)[6:], "one-pass" if one_pass(
+                length, G, hd, esize) else "split"), []).append(length)
             b = plain(q, k, v, length)
-            torch.cuda.synchronize()
-            err = (a.float() - b.float()).abs().max().item()
-            if dtype == torch.bfloat16:
-                tol = min(tol, BF16_ATTN_LIMIT)
-            if not err <= tol:
-                raise AssertionError(f"decode_attention {dtype} length="
-                                     f"{length}: {err} > {tol}")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
+            for n in (length, torch.tensor(length, dtype=torch.int32,
+                                           device=dev)):
+                a = kernel(q, k, v, n)
+                torch.cuda.synchronize()
+                err = (a.float() - b.float()).abs().max().item()
+                if dtype == torch.bfloat16:
+                    tol = min(tol, BF16_ATTN_LIMIT)
+                if not err <= tol:
+                    raise AssertionError(f"decode_attention {dtype} length="
+                                         f"{n}: {err} > {tol}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
         # Positions at or past `length` are never read: poison them.
         length = LM_PROMPT + 16
         base = kernel(q, k, v, length)
@@ -1142,8 +1163,10 @@ def phase_decode_attention(dev):
     print(f"decode_attention: within {BF16_ATTN_LIMIT} (bf16, worst "
           f"{worst:.3g}) and 1e-4 "
           f"(f32) of the plain version at lengths 1..{S}, on and beside the "
-          f"edges of its {sp}-position splits; future positions poisoned "
-          "change nothing")
+          f"edges of its {sp}-position splits, each length on the card (the "
+          "split route) and as an int (" + "; ".join(
+              f"{d} {r} at {v}" for (d, r), v in sorted(routes.items()))
+          + "); future positions poisoned change nothing")
     q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(torch.bfloat16)
     cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
              .to(torch.bfloat16) for _ in range(2)]
@@ -2596,10 +2619,88 @@ def lm_profile(dev, steps: int = 4) -> None:
               f"launches, {100.0 * t / busy:.1f} % of their device time")
 
 
-def by_name_sum(by_name, part: str):
-    """(launches, ms) of the profiled kernels whose name holds `part`."""
-    hits = [v for name, v in by_name.items() if part in name]
+def by_name_sum(by_name, *parts: str):
+    """(launches, ms) of the profiled kernels whose name holds one of
+    `parts`."""
+    hits = [v for name, v in by_name.items()
+            if any(part in name for part in parts)]
     return sum(n for n, _ in hits), sum(t for _, t in hits)
+
+
+# The profiled name of each route's kernel in csrc/flash_attention.cu
+# (`flash_route`), and all of them: kernel 6's forward launches.
+FLASH_ROUTE_KERNELS = {"tc64": "flash_tcp_kernel<64>",
+                       "tc128": "flash_tc_kernel", "f32": "flash_f32_kernel"}
+FLASH_FORWARD = tuple(FLASH_ROUTE_KERNELS.values())
+
+
+# Empty spin kernels launched before and after a profiled call: at least
+# EDGE_PAD of them and EDGE_PAD_S seconds of host time a side.
+EDGE_PAD, EDGE_PAD_S = 256, 5e-3
+
+
+def spin_pad() -> int:
+    """One pad of empty spin kernels (`torch.cuda._sleep`): EDGE_PAD
+    launches, and more while EDGE_PAD_S seconds have not passed, so that
+    a slower host sends more. Returns how many."""
+    t0, n = time.perf_counter(), 0
+    while n < EDGE_PAD or time.perf_counter() - t0 < EDGE_PAD_S:
+        torch.cuda._sleep(1)
+        n += 1
+    return n
+
+
+def kernels_run(fn, tries: int = 3) -> list:
+    """The names of the device kernels that `fn` launches, from one call
+    under the profiler between two spin pads. Late in a full run the
+    profiler drops a window's first events (`edge_padded_profile`); a
+    window that kept no pad before the call or none after it is printed
+    and profiled again, `tries` times in all."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sent = spin_pad()
+            fn()
+            sent += spin_pad()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        own = [i for i, n in enumerate(names) if "spin_kernel" not in n]
+        if own and 0 < own[0] and own[-1] < len(names) - 1:
+            return [names[i] for i in own]
+        print(f"  a profiled call kept {len(names) - len(own)} of {sent} "
+              f"spin kernels and {len(own)} kernels of its own, at "
+              f"{own[:1]}..{own[-1:]} of {len(names)}: profiled again")
+    raise AssertionError(f"{tries} profiles of a call each lost a pad or "
+                         "the call's kernels")
+
+
+def flash_kernel_route(fn) -> str:
+    """The route of kernel 6's forward that `fn` (one call) launched, by
+    the profiled kernel's name."""
+    names = [n for n in kernels_run(fn) if any(k in n for k in FLASH_FORWARD)]
+    routes = [r for r, k in FLASH_ROUTE_KERNELS.items() if k in names[-1]] \
+        if len(names) == 1 else []
+    if len(routes) != 1:
+        raise AssertionError(f"one call of kernel 6 launched {names}")
+    return routes[0]
+
+
+def decode_kernel_route(fn) -> str:
+    """The route of kernel 7 that `fn` (one call) launched: "one-pass" or
+    "split", by the template flag of the profiled `decode_kernel`."""
+    import re
+
+    names = [n for n in kernels_run(fn) if "decode_kernel" in n]
+    m = re.search(r"decode_kernel<[^()]*, (true|false)>", names[0]) \
+        if len(names) == 1 else None
+    if not m:
+        raise AssertionError(f"one call of kernel 7 launched {names}")
+    return "one-pass" if m.group(1) == "true" else "split"
 
 
 def to_device(tree, dev):
@@ -3156,13 +3257,15 @@ def flash_full_shapes(dev, entry):
     """Kernel 6 at FULL_SHAPES: the non-causal ones as `ops.full_attention`
     runs them (Sq queries against Sk keys) held to `full_attention_plain`,
     the causal ones to `flash_attention_plain`; bf16 within
-    BF16_ATTN_LIMIT and f32 within 1e-4; the bf16 call timed beside the
-    plain version and SDPA, with its bound (kept in `entry` under
-    `*_<shape>`)."""
+    BF16_ATTN_LIMIT and f32 within 1e-4; each call profiled once, and the
+    kernel it launched must be the one of `flash_route`'s route; the bf16
+    call timed beside the plain version and SDPA, with its bound (kept in
+    `entry` under `*_<shape>`)."""
     from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention_kernel import (
         flash_attention_cuda as kernel,
         flash_attention_plain,
+        flash_route,
         full_attention_plain,
     )
 
@@ -3173,7 +3276,7 @@ def flash_full_shapes(dev, entry):
         H = Hkv * G
         plain = (lambda q, k, v: flash_attention_plain(q, k, v, True)) \
             if causal else full_attention_plain
-        errs = {}
+        errs, ran = {}, {}
         for dtype, tol in ((torch.float32, 1e-4),
                            (torch.bfloat16, BF16_ATTN_LIMIT)):
             q = torch.randn((B, Sq, H, hd), generator=gen, device=dev) \
@@ -3190,6 +3293,12 @@ def flash_full_shapes(dev, entry):
             if not err <= tol:
                 raise AssertionError(f"flash_attention {name} ({dtype}, Sq "
                                      f"{Sq}, Sk {Sk}): {err} > {tol}")
+            ran[dtype] = flash_kernel_route(
+                lambda: kernel(q5, k4, v4, causal))
+            if ran[dtype] != flash_route(dtype, hd):
+                raise AssertionError(f"flash_attention {name} ({dtype}): "
+                                     f"launched the {ran[dtype]} kernel, "
+                                     f"not {flash_route(dtype, hd)}'s")
         qs = q.transpose(1, 2)  # the bf16 inputs in the library's layout
         t_k = median_ms(lambda: kernel(q5, k4, v4, causal))
         t_p = median_ms(lambda: plain(q5, k4, v4))
@@ -3197,7 +3306,9 @@ def flash_full_shapes(dev, entry):
                                      enable_gqa=True))
         bnd = bound(cost.flash_attention(B, Hkv, G, hd, Sq, Sk, causal, 2))
         print(f"flash_attention (B {B}, Hkv {Hkv}, G {G}, hd {hd}, Sq {Sq}, "
-              f"Sk {Sk}, causal {causal}, {name}): max |diff| bf16 "
+              f"Sk {Sk}, causal {causal}, {name}; profiled routes bf16 "
+              f"{ran[torch.bfloat16]}, f32 {ran[torch.float32]}): max "
+              "|diff| bf16 "
               f"{errs[torch.bfloat16]:.3g}, f32 {errs[torch.float32]:.3g}; "
               f"bf16 kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
               f"{t_l:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -3962,16 +4073,30 @@ def qwen2_run(dev, kern, moment_dtype: str):
     return params, opt, step, batch, dict(rows=rows, launches=launches)
 
 
-def print_attention_shares(by_name, busy: float) -> None:
-    """Kernel 6's forward and its backward's three kernels in a profiled
-    train step: device ms, launches, share of the step's device time."""
-    for part, label in (("flash_tc_kernel", "forward kernel"),
-                        ("bwd_dkdv", "backward dK/dV"),
-                        ("bwd_dq", "backward dQ"),
-                        ("bwd_delta", "backward D")):
-        n, t = by_name_sum(by_name, part)
-        print(f"  {label}: {t:.3f} ms over {n} launches, "
+def profile_attention(label: str, fn):
+    """`profile` of a train step `fn`, then kernel 6's forward (the
+    kernels of every route) and its backward's three kernels in it: device
+    ms, launches, share of the step's device time. Fails if the wrapper
+    counted forward launches in the step and the profile shows none."""
+    from repro_torch.kernels.flash_attention_kernel import (
+        flash_attention_cuda,
+    )
+
+    before = flash_attention_cuda.launches
+    busy, by_name, stats = profile(label, fn)
+    counted = flash_attention_cuda.launches - before
+    for parts, what in ((FLASH_FORWARD, "forward kernel"),
+                        (("bwd_dkdv",), "backward dK/dV"),
+                        (("bwd_dq",), "backward dQ"),
+                        (("bwd_delta",), "backward D")):
+        n, t = by_name_sum(by_name, *parts)
+        print(f"  {what}: {t:.3f} ms over {n} launches, "
               f"{100.0 * t / busy:.1f} % of the step's device time")
+    if counted and not by_name_sum(by_name, *FLASH_FORWARD)[0]:
+        raise AssertionError(f"{label}: {counted} forward launches counted, "
+                             "none of them profiled under a forward "
+                             f"kernel's name {FLASH_FORWARD}")
+    return busy, by_name, stats
 
 
 def profile_whisper(dev):
@@ -4000,10 +4125,8 @@ def profile_whisper(dev):
         vocab_size=model.vocab_size, seq_len=seq, global_batch=mb, seed=0))
     b = build_batch_fn(model, pipe, accum, mb, dev)()
     params, opt, _ = step(params, opt, b)
-    busy, by_name, _ = profile(f"whisper-large-v3 train step ({accum} x "
-                               f"{mb} x {seq} tokens)",
-                               lambda: step(params, opt, b))
-    print_attention_shares(by_name, busy)
+    profile_attention(f"whisper-large-v3 train step ({accum} x {mb} x "
+                      f"{seq} tokens)", lambda: step(params, opt, b))
     del params, opt, step, b
     gc.collect()
     torch.cuda.empty_cache()
@@ -4019,9 +4142,8 @@ def train_qwen2(dev, kern):
 
     params, opt, step, batch, int8 = qwen2_run(dev, kern, "int8")
     b = batch()
-    busy, by_name, _ = profile("qwen2-7b 2-layer train step",
-                               lambda: step(params, opt, b))
-    print_attention_shares(by_name, busy)
+    profile_attention("qwen2-7b 2-layer train step",
+                      lambda: step(params, opt, b))
     del params, opt, step, b
     gc.collect()
     torch.cuda.empty_cache()
@@ -4455,14 +4577,13 @@ def placed_qwen2(dev, kern, mesh):
                              f"against {rows_u}")
     check_train_launches("the placed qwen2-7b steps", launches,
                          train_launches(model, QWEN_ACCUM * PLACED_STEPS))
-    busy, by_name, stats = profile("placed qwen2-7b 2-layer train step",
-                                   lambda: step(p, o, batches[0]))
+    busy, by_name, stats = profile_attention(
+        "placed qwen2-7b 2-layer train step", lambda: step(p, o, batches[0]))
     t_n, n_n, t_c, n_c = collective_time(by_name, stats["annotations"])
     print(f"  collectives: NCCL ranges {t_n:.3f} ms over {n_n} events, "
           f"device-to-device copies {t_c:.3f} ms over {n_c} events "
           f"({100.0 * t_c / busy:.1f} % of the step's device time); "
           f"device time placed {busy:.2f} ms, unplaced {busy_u:.2f} ms")
-    print_attention_shares(by_name, busy)
     del p, o, step, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4996,7 +5117,7 @@ def dryrun_phase(dev, kern):
             dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    prof = {"flash_attention": by_name_sum(by_name, "flash_tc_kernel")[0],
+    prof = {"flash_attention": by_name_sum(by_name, *FLASH_FORWARD)[0],
             "flash_attention_bwd": by_name_sum(by_name, "bwd_dq")[0]}
     want = {n: int(pred["kernels"][n]) for n in prof}
     got = {n: launches[n] for n in prof}
@@ -5044,25 +5165,48 @@ SERVE_COMBINE_F32 = 1e-5  # (b): the combined blocks against the whole, f32
 def phase_lse_form(dev):
     """(a) Kernel 7's partial form (`lse=True`: the f32 output and the
     log-sum-exp) against its plain version, bf16 and f32, at
-    `phase_decode_attention`'s shape and lengths, and at length 0 (zero
-    and -inf, no read of the cache). Returns (the worst output error, the
-    worst log-sum-exp error, the kernel's, the plain version's and the
-    library's ms at a sixteenth of the cache, `model` rank 0's block of a 16-rank mesh)."""
+    `phase_decode_attention`'s shape and lengths (on both routes: the
+    one-pass route below its threshold, the split route above), and at
+    length 0 (zero and -inf, no read of the cache); each bf16 call
+    profiled once, and the route it launched (the kernel's template flag)
+    must be `one_pass`'s, the one-pass route at a sixteenth of the cache
+    and the split route at the decode_32k block. Returns (the worst
+    output error, the worst log-sum-exp error, and the times: the
+    kernel's, the plain version's and the library's ms and the bound at a
+    sixteenth of the cache, `model` rank 0's block of a 16-rank mesh, by
+    the one-pass route, and at the block a rank holds in the dry-run's
+    qwen2-7b decode_32k cell on the 16 x 16 mesh: B 8, 2,048 positions,
+    by the split route)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.decode_attention_kernel import (
         decode_attention_cuda as kernel,
         decode_attention_plain as plain,
+        one_pass,
     )
 
     gen = torch.Generator(device=dev).manual_seed(16)
     B, Hkv, G, hd, S = LM_B, LM_HKV, LM_G, LM_HD, LM_SMAX
     worst = {"out": 0.0, "lse": 0.0}
+    routes = {}
     for dtype, tol in ((torch.bfloat16, BF16_ATTN_LIMIT),
                        (torch.float32, 1e-4)):
         q = torch.randn((B, Hkv, G, hd), generator=gen, device=dev).to(dtype)
         cache = [torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
                  .to(dtype) for _ in range(2)]
         k, v = (c.permute(0, 2, 1, 3) for c in cache)
-        for length in (1, 64, LM_PROMPT + 1, LM_PROMPT + 16, S - 1, S):
+        esize = q.element_size()
+        for length in (1, 64, 66, 69, 70, LM_PROMPT + 1, LM_PROMPT + 16,
+                       S - 1, S):
+            want_route = "one-pass" if one_pass(length, G, hd, esize) \
+                else "split"
+            if dtype == torch.bfloat16:
+                got = decode_kernel_route(
+                    lambda: kernel(q, k, v, length, lse=True))
+                if got != want_route:
+                    raise AssertionError(f"the lse form at length {length} "
+                                         f"launched the {got} route, not "
+                                         f"{want_route}")
+                routes.setdefault(got, []).append(length)
             out, lse = kernel(q, k, v, length, lse=True)
             w_out, w_lse = plain(q, k, v, length, lse=True)
             torch.cuda.synchronize()
@@ -5084,10 +5228,16 @@ def phase_lse_form(dev):
                                      "not zero and -inf")
     print(f"decode_attention lse form: output within {worst['out']:.3g}, "
           f"log-sum-exp within {worst['lse']:.3g} of the plain version "
-          f"(bf16, f32, lengths 1..{S}); length 0 gives zero and -inf")
+          f"(bf16, f32, lengths 1..{S}); length 0 gives zero and -inf; "
+          "bf16 routes by profile: " + "; ".join(
+              f"{r} at lengths {v}" for r, v in sorted(routes.items())))
     n = S // 16
     qb = q.to(torch.bfloat16)
     kb, vb = (c.to(torch.bfloat16)[:, :n].permute(0, 2, 1, 3) for c in cache)
+    route = decode_kernel_route(lambda: kernel(qb, kb, vb, n, lse=True))
+    if route != "one-pass":
+        raise AssertionError(f"the lse form at {n} positions launched the "
+                             f"{route} route, not the one-pass route")
     t_k = median_ms(lambda: kernel(qb, kb, vb, n, lse=True))
     t_p = median_ms(lambda: plain(qb, kb, vb, n, lse=True))
     # The library's call for the same output and log-sum-exp: the G query
@@ -5105,11 +5255,47 @@ def phase_lse_form(dev):
         raise AssertionError(f"memory-efficient attention differs from "
                              f"the lse form: output {e_out}, lse {e_lse}")
     t_l = median_ms(lambda: eff(qb, kb, vb, None, True))
-    print(f"decode_attention lse form at {n} positions (bf16): kernel "
-          f"{t_k:.4f} ms, plain {t_p:.4f} ms, memory-efficient attention "
-          f"with its log-sum-exp {t_l:.4f} ms (output within {e_out:.3g}, "
-          f"log-sum-exp within {e_lse:.3g} of the kernel's)")
-    return worst, t_k, t_p, t_l
+    bnd = bound(cost.decode_attention(B, Hkv, G, hd, n, 2, lse=True))
+    print(f"decode_attention lse form at {n} positions (bf16, {route} "
+          f"route by profile): kernel {t_k:.4f} "
+          f"ms, plain {t_p:.4f} ms, memory-efficient attention with its "
+          f"log-sum-exp {t_l:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}) "
+          f"(output within {e_out:.3g}, log-sum-exp within {e_lse:.3g} of "
+          "the kernel's)")
+    times = {"ms_lse_block16": t_k, "plain_ms_lse_block16": t_p,
+             "library_ms_lse_block16": t_l, "bound_ms_lse_block16": bnd[0]}
+    # A rank's block in the decode_32k cell: B 8, 2,048 positions.
+    B2, n2 = 8, 2048
+    q2 = torch.randn((B2, Hkv, G, hd), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    k2, v2 = (torch.randn((B2, n2, Hkv, hd), generator=gen, device=dev)
+              .to(torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+    out, lse = kernel(q2, k2, v2, n2, lse=True)
+    w_out, w_lse = plain(q2, k2, v2, n2, lse=True)
+    torch.cuda.synchronize()
+    e_out = (out - w_out).abs().max().item()
+    e_lse = (lse - w_lse).abs().max().item()
+    if not (e_out <= BF16_ATTN_LIMIT
+            and e_lse <= 1e-4 * w_lse.abs().max().item()):
+        raise AssertionError(f"the lse form at the decode_32k block: output "
+                             f"{e_out}, lse {e_lse}")
+    route2 = decode_kernel_route(lambda: kernel(q2, k2, v2, n2, lse=True))
+    if route2 != "split":
+        raise AssertionError(f"the lse form at the decode_32k block "
+                             f"launched the {route2} route, not the split "
+                             "route")
+    t_k2 = median_ms(lambda: kernel(q2, k2, v2, n2, lse=True))
+    t_l2 = median_ms(lambda: eff(q2, k2, v2, None, True))
+    bnd2 = bound(cost.decode_attention(B2, Hkv, G, hd, n2, 2, lse=True))
+    print(f"decode_attention lse form at the decode_32k cell's rank block "
+          f"(B {B2}, {n2} positions, bf16, "
+          f"{route2} route by profile): kernel "
+          f"{t_k2:.4f} ms, memory-efficient attention {t_l2:.4f} ms, bound "
+          f"{bnd2[0]:.4f} ms ({bnd2[1]}); output within {e_out:.3g}, "
+          f"log-sum-exp within {e_lse:.3g} of the plain version")
+    times.update(ms_lse_block2048=t_k2, library_ms_lse_block2048=t_l2,
+                 bound_ms_lse_block2048=bnd2[0])
+    return worst, times
 
 
 def phase_flash_combine(dev):
@@ -5156,14 +5342,9 @@ def phase_flash_combine(dev):
     return worst
 
 
-# Spin kernels on each side of a phase-16 profile window: at least
-# EDGE_PAD, and on until EDGE_PAD_S seconds of the host's time have passed.
-EDGE_PAD, EDGE_PAD_S = 256, 5e-3
-
-
 def edge_padded_profile(label, fn):
-    """`profile` of `fn` with empty spin kernels (`torch.cuda._sleep`)
-    launched before and after it inside the window (EDGE_PAD, EDGE_PAD_S);
+    """`profile` of `fn` with a pad of empty spin kernels (`spin_pad`)
+    launched before and after it inside the window;
     they are left out of the device time and the counts by name. Late in
     a full run of this script the profiler drops the device events at
     the start of a window (58 and 79 spin kernels in two runs, more on
@@ -5173,17 +5354,10 @@ def edge_padded_profile(label, fn):
     shows the margin held, and a pad dropped whole fails the phase."""
     sent = []
 
-    def pad():
-        t0, n = time.perf_counter(), 0
-        while n < EDGE_PAD or time.perf_counter() - t0 < EDGE_PAD_S:
-            torch.cuda._sleep(1)
-            n += 1
-        sent.append(n)
-
     def padded():
-        pad()
+        sent.append(spin_pad())
         fn()
-        pad()
+        sent.append(spin_pad())
 
     busy, by_name, info = profile(label, padded)
     spin = {n: v for n, v in by_name.items() if "spin_kernel" in n}
@@ -5308,7 +5482,7 @@ def serve_qwen2(dev, kern, mesh, after_timed):
         "one placed prefill", lambda: prefill(placed, {"tokens": tokens}))
     busy_d, by_d, _ = edge_padded_profile(
         "one placed decode step", lambda: decode(placed, cache, tok, S - 1))
-    prof = {"flash_attention": by_name_sum(by_p, "flash_tc_kernel")[0],
+    prof = {"flash_attention": by_name_sum(by_p, *FLASH_FORWARD)[0],
             "decode_attention": by_name_sum(by_d, "decode_kernel")[0]}
     del placed, cache
     gc.collect()
@@ -5370,11 +5544,10 @@ def serve_phase(dev, kern, decode_entry):
     from repro_torch.launch.mesh import init_distributed, make_mesh
 
     t0 = time.perf_counter()
-    worst, t_k, t_p, t_l = phase_lse_form(dev)
+    worst, times = phase_lse_form(dev)
     combine = phase_flash_combine(dev)
     decode_entry.update(max_abs_err_lse=worst["out"], lse_err=worst["lse"],
-                        ms_lse_block16=t_k, plain_ms_lse_block16=t_p,
-                        library_ms_lse_block16=t_l, combine_err=combine)
+                        combine_err=combine, **times)
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: loopback
     with tempfile.TemporaryDirectory() as tmp:
         init_distributed(dev, rank=0, world_size=1,
@@ -5442,7 +5615,8 @@ DETAIL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
                   "hash_encode.cu", "ray_march.cu", "gather_composite.cu")
 # Kernels whose tensor-core (HGMMA, HMMA, IMMA) and cp.async (LDGSTS)
 # instructions are counted in the SASS.
-SASS_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "decode_kernel",
+SASS_KERNELS = ("flash_tc_kernel", "flash_tcp_kernel", "flash_f32_kernel",
+                "decode_kernel",
                 "qmm_packed_kernel", "qmm_kernel", "bwd_dkdv_tc_kernel",
                 "bwd_dq_tc_kernel")
 
@@ -5484,6 +5658,8 @@ def sass_counts(lib) -> dict:
             name = next((k for k in SASS_KERNELS if k in fn), None)
             if name == "decode_kernel":
                 name += "<bf16>" if "bfloat16" in fn else "<f32>"
+            if name == "flash_tcp_kernel":  # <HDP>, mangled ILi64E
+                name += "<" + re.search(r"ILi(\d+)E", fn).group(1) + ">"
             if name:
                 counts.setdefault((name, "LDGSTS"), 0)
             continue
@@ -5500,7 +5676,8 @@ def print_tensor_core_ops(lib) -> None:
     counts = sass_counts(lib)
     for (kernel, op), n in sorted(counts.items()):
         print(f"  SASS {kernel}: {n} {op}")
-    for k in ("flash_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel"):
+    for k in ("flash_tc_kernel", "flash_tcp_kernel<64>", "bwd_dkdv_tc_kernel",
+              "bwd_dq_tc_kernel"):
         if not counts.get((k, "HGMMA")):
             raise AssertionError(f"the bf16 {k}'s SASS holds no HGMMA")
     for k in ("qmm_packed_kernel", "qmm_kernel"):

@@ -50,6 +50,15 @@
 // ticket, so positions >= length are never read and never change the
 // result.
 //
+// The one-pass route (`one_pass` in kernels/decode_attention_kernel.py,
+// for a call that reads few positions): one block a (b, h) stages every
+// position the call reads (at most what the route's threshold lets in,
+// ~69 positions at hd 128 in bf16) and runs phases 1-3 as above, then
+// writes the output and the log-sum-exp itself. It has no partials, no
+// ticket, no __threadfence and no combine. The same instance of the
+// kernel code serves both routes (a template flag), so the two agree on
+// every phase but the last.
+//
 // What bounds it on this card: bytes, in principle. Each step reads the K
 // and V rows up to `length` once (2 * B * Hkv * length * hd * 2 bytes in
 // bf16, ~8.5 MB per layer at the serve shapes: ~2.5 us at the memory
@@ -57,7 +66,13 @@
 // once from L2; ~30 MFLOP a call need no tensor cores. In practice a call
 // (~20 us at the serve shapes on an H100) is a chain of latencies per
 // block: the loads, four phases with a barrier each, the ticket, and the
-// combine's reads of the partials.
+// combine's reads of the partials. A short block is nothing but that
+// chain (66 positions of qwen2-7b's cache: a bound of 0.0002 ms against
+// ~0.011 ms of device time, ~0.005 of it an empty launch's floor); the
+// one-pass route drops its last two links, the ticket and the combine,
+// which is worth up to ~2 us below ~70 positions and less than the split
+// route's spread over more multiprocessors above (on an NVIDIA H100 80GB
+// HBM3 at 700 W, scripts/torch_attention_routes.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,6 +111,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
   u.x = *reinterpret_cast<const uint32_t*>(&lo);
   u.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
+}
+// Columns d .. d + 3 (d a multiple of 4) of an output row of hd: o / dn.
+template <typename O>
+__device__ __forceinline__ void store_out(O* op, float4 o, float dn, int d,
+                                          int hd) {
+  if ((hd & 3) == 0) {
+    store4(op, o.x / dn, o.y / dn, o.z / dn, o.w / dn);
+  } else {
+    const float r[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d + i < hd) store(op + i, r[i] / dn);
+  }
 }
 __device__ __forceinline__ float round_as(float p, const float*) { return p; }
 __device__ __forceinline__ float round_as(float p, const __nv_bfloat16*) {
@@ -171,8 +199,11 @@ struct Layout {
   }
 };
 
-// T: q, k and v; O: the output (T, or float in the partial form).
-template <typename T, typename O>
+// T: q, k and v; O: the output (T, or float in the partial form). ONE: the
+// one-pass route, one block a sequence with `split` covering every
+// position the call reads: phases 1-3 as below, then the block writes the
+// output itself, with no partials, ticket or combine.
+template <typename T, typename O, bool ONE>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ length_p,
@@ -288,8 +319,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
     if (lane == 0) {
-      m_part[part0 + g] = mx;
-      l_part[part0 + g] = sum;
+      if (ONE) {  // kept for the epilogue: fac holds m, den l
+        fac[g] = mx;
+        den[g] = sum;
+      } else {
+        m_part[part0 + g] = mx;
+        l_part[part0 + g] = sum;
+      }
     }
   }
   cp_async_wait<0>();
@@ -322,7 +358,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   const int n4 = G * hdp / 4;  // float4s of one split's partial
-  float4* ap = reinterpret_cast<float4*>(acc_part + part0 * hdp);
+  O* ob = out + (long long)bh * G * hd;
   for (int i4 = tid; i4 < n4; i4 += THREADS) {
     float4 s4 = reinterpret_cast<const float4*>(red)[i4];
     for (int sh = 1; sh < parts; ++sh) {
@@ -332,7 +368,18 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s4.z += r.z;
       s4.w += r.w;
     }
-    ap[i4] = s4;
+    if (ONE) {
+      const int g = 4 * i4 / hdp, d = 4 * i4 - g * hdp;
+      if (d < hd) store_out(ob + g * hd + d, s4, fmaxf(den[g], 1e-30f), d, hd);
+    } else {
+      reinterpret_cast<float4*>(acc_part + part0 * hdp)[i4] = s4;
+    }
+  }
+  if (ONE) {
+    if (lse != nullptr)
+      for (int g = tid; g < G; g += THREADS)
+        lse[(long long)bh * G + g] = fac[g] + logf(den[g]);
+    return;
   }
 
   // 4. The last block of this (b, h) combines.
@@ -388,7 +435,6 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   const float4* ab = reinterpret_cast<const float4*>(
       acc_part + (long long)bh * n_split * G * hdp);
-  O* ob = out + (long long)bh * G * hd;
   for (int i4 = tid; i4 < n4; i4 += THREADS) {
     const int g = 4 * i4 / hdp, d = 4 * i4 - g * hdp;
     if (d >= hd) continue;
@@ -403,36 +449,28 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o.z += a.z * f;
       o.w += a.w * f;
     }
-    const float dn = den[g];
-    O* op = ob + g * hd + d;
-    if ((hd & 3) == 0) {
-      store4(op, o.x / dn, o.y / dn, o.z / dn, o.w / dn);
-    } else {
-      const float r[4] = {o.x, o.y, o.z, o.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (d + i < hd) store(op + i, r[i] / dn);
-    }
+    store_out(ob + g * hd + d, o, den[g], d, hd);
   }
 }
 
-template <typename T, typename O>
+// ONE: the one-pass route (one block a sequence).
+template <typename T, typename O, bool ONE>
 int launch(const void* q, const void* k, const void* v, const void* length_p,
            int length_v, void* out, void* lse, void* m_part, void* l_part,
            void* acc_part, void* tickets, int B, int Hkv, int G, int S,
            int hd, Strides qs, Strides ks, Strides vs, int split,
            float scale, cudaStream_t stream) {
-  const int n_split = (S + split - 1) / split;
+  const int n_split = ONE ? 1 : (S + split - 1) / split;
   const size_t smem = Layout(sizeof(T), G, hd, split, n_split).bytes;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_kernel<T, O, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(n_split, B * Hkv);
-  decode_kernel<T, O><<<grid, THREADS, smem, stream>>>(
+  decode_kernel<T, O, ONE><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)length_p, length_v,
       (O*)out, (float*)lse, (float*)m_part, (float*)l_part, (float*)acc_part,
       (unsigned*)tickets, Hkv, G, S, hd, qs, ks, vs, split, n_split, scale);
@@ -446,33 +484,34 @@ int launch(const void* q, const void* k, const void* v, const void* length_p,
 // Strides are in elements: q (b, h, g), k and v (b, h, s); q, k and v
 // start on 16-byte boundaries with strides of whole 16-byte units.
 // `length_p` points to an int32 on the device, or is null and `length_v`
-// holds the length (<= 0: an empty block). `split` positions a block;
-// scratch: m_part and l_part hold B * Hkv * ceil(S / split) * G floats,
-// acc_part that times hdp (hd rounded up to whole 16-byte pieces), and
-// `tickets` B * Hkv unsigned ints that are 0 before the first call (each
-// call leaves them 0). Requires G <= 16 and hd <= 256.
+// holds the length (<= 0: an empty block). With `one_pass` 0 (the split
+// route), `split` positions a block; scratch: m_part and l_part hold
+// B * Hkv * ceil(S / split) * G floats, acc_part that times hdp (hd rounded
+// up to whole 16-byte pieces), and `tickets` B * Hkv unsigned ints that
+// are 0 before the first call (each call leaves them 0). With `one_pass` 1,
+// one block a sequence stages `split` positions, at least every position
+// the call reads (min(length, S), or S for a length on the device), and
+// the scratch pointers are not read. Requires G <= 16 and hd <= 256.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* length_p,
     int length_v, void* out, void* lse, void* m_part, void* l_part,
     void* acc_part, void* tickets, int B, int Hkv, int G, int S, int hd,
     long long qsb, long long qsh, long long qsg, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, int split, float scale, int dtype, void* stream) {
+    long long vss, int split, int one_pass, float scale, int dtype,
+    void* stream) {
   if (G < 1 || G > G_MAX || hd < 1 || hd > HD_MAX || split < 1)
     return (int)cudaErrorInvalidValue;
   if (B * Hkv == 0 || S == 0) return (int)cudaGetLastError();
   const Strides qs{qsb, qsh, qsg}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1 && lse != nullptr)
-    return launch<__nv_bfloat16, float>(q, k, v, length_p, length_v, out,
-                                        lse, m_part, l_part, acc_part,
-                                        tickets, B, Hkv, G, S, hd, qs, ks, vs,
-                                        split, scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, length_p, length_v, out, lse, m_part, l_part, acc_part,
-        tickets, B, Hkv, G, S, hd, qs, ks, vs, split, scale, st);
-  return launch<float, float>(q, k, v, length_p, length_v, out, lse, m_part,
-                              l_part, acc_part, tickets, B, Hkv, G, S, hd, qs,
-                              ks, vs, split, scale, st);
+  using Bf = __nv_bfloat16;
+  decltype(&launch<float, float, false>) go =
+      one_pass ? &launch<Bf, float, true> : &launch<Bf, float, false>;
+  if (dtype == 1 && lse == nullptr)
+    go = one_pass ? &launch<Bf, Bf, true> : &launch<Bf, Bf, false>;
+  if (dtype == 0)
+    go = one_pass ? &launch<float, float, true> : &launch<float, float, false>;
+  return go(q, k, v, length_p, length_v, out, lse, m_part, l_part, acc_part,
+            tickets, B, Hkv, G, S, hd, qs, ks, vs, split, scale, st);
 }

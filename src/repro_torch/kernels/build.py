@@ -78,7 +78,8 @@ SIGNATURES: Dict[str, List] = {
     "repro_quant_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, lse (or null), B, Hkv, S, Sk, G, hd, q strides (b, h,
     # s, g), k strides (b, h, s), v strides (b, h, s), out strides (b, h,
-    # s, g), causal, scale, dtype, stream
+    # s, g), causal, scale, route (0 f32, 1 bf16 hd <= 128, 2 bf16 hd <=
+    # 64), stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _L, _L, _L, _L, _I, _F, _I, _P],
@@ -91,11 +92,11 @@ SIGNATURES: Dict[str, List] = {
     # q, k, v, length (device pointer or null), length (by value), out,
     # lse (or null), m_part, l_part, acc_part, tickets, B, Hkv, G, S, hd,
     # q strides (b, h, g), k strides (b, h, s), v strides (b, h, s), split,
-    # scale, dtype, stream
+    # one pass, scale, dtype, stream
     "repro_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                               _I, _F, _I, _P],
+                               _I, _I, _F, _I, _P],
 }
 
 

@@ -9,9 +9,10 @@ positions). Scores are f32 and scaled by 1/sqrt(hd), masked entries
 before the PV product, and the output is the f32 sum over max(l, 1e-30).
 The kernel is `csrc/flash_attention.cu` (online softmax over key tiles);
 it replaces the Pallas
-`repro/kernels/flash_attention_kernel.py:_flash_kernel`. The dtype picks
-its route: bfloat16 runs on the tensor cores (wgmma) from tiles staged by
-`cp.async`, float32 on the CUDA cores.
+`repro/kernels/flash_attention_kernel.py:_flash_kernel`. `flash_route`
+picks its route: bfloat16 runs on the tensor cores (wgmma) from tiles
+staged by `cp.async`, in 64-column tiles at hd <= 64 and 128-column ones
+above; float32 runs on the CUDA cores.
 
 On the card the model calls `FlashAttention.apply`. Under grad mode, with
 an input that requires a gradient, its forward also has the kernel write
@@ -41,6 +42,18 @@ from repro_torch.kernels._launch import (
 NEG_INF = -1e30
 HD_MAX = 128  # the kernel's largest head dim
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The forward's routes, as `csrc/flash_attention.cu` numbers them.
+ROUTES = {"f32": 0, "tc128": 1, "tc64": 2}
+
+
+def flash_route(dtype: torch.dtype, hd: int) -> str:
+    """The forward kernel a call of `dtype` at head dim `hd` takes:
+    "tc64" (bfloat16, hd <= 64: `flash_tcp_kernel<64>`, one 64-column
+    panel a tile), "tc128" (bfloat16 above: `flash_tc_kernel`, hd zero-padded to
+    128) or "f32" (`flash_f32_kernel`)."""
+    if dtype == torch.bfloat16:
+        return "tc64" if hd <= 64 else "tc128"
+    return "f32"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,7 +152,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which the model's views never are, and on an input that requires a
     gradient while grad mode is on: this launch keeps nothing for a
     backward, and would drop the gradient without a word (call
-    `FlashAttention.apply`, as `ops` does)."""
+    `FlashAttention.apply`, as `ops` does). The kernel is the one
+    `flash_route` picks."""
+    return _flash_launch(flash_route(q.dtype, q.shape[-1]), q, k, v, causal,
+                         lse)
+
+
+def _flash_launch(route: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, causal: bool = True,
+                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`flash_attention_cuda` by the kernel `route` of ROUTES. Tests and
+    scripts/torch_attention_routes.py hold and time each route through it
+    (a bfloat16 call at hd <= 64 may take "tc128"); a route that does not
+    take the call raises."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention_cuda has no backward of its own: "
                            "differentiate through FlashAttention.apply")
@@ -155,6 +180,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(lse.shape) != (B, Hkv, S, G):
             raise ValueError(f"lse {tuple(lse.shape)} must be "
                              f"{(B, Hkv, S, G)}")
+    if route not in ROUTES or (route == "f32") != (q.dtype == torch.float32) \
+            or (route == "tc64" and hd > 64):
+        raise ValueError(f"route {route!r} does not take {q.dtype} at head "
+                         f"dim {hd}")
     out = torch.empty((B, S, Hkv, G, hd), dtype=torch.float32,
                       device=dev).permute(0, 2, 1, 3, 4)
     launch("repro_flash_attention", dev, q.data_ptr(), k.data_ptr(),
@@ -164,7 +193,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *(k.stride(i) for i in range(3)),
            *(v.stride(i) for i in range(3)),
            *(out.stride(i) for i in range(4)),
-           int(bool(causal)), 1.0 / math.sqrt(hd), _DTYPES[q.dtype])
+           int(bool(causal)), 1.0 / math.sqrt(hd), ROUTES[route])
     count_launch(flash_attention_cuda)
     return out
 

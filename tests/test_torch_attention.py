@@ -22,9 +22,14 @@ from repro_torch.kernels._launch import require_aligned
 from repro_torch.kernels.decode_attention_kernel import (
     FAC_MAX,
     KV_SMEM,
+    ONE_PASS_KV,
+    SMEM_MAX,
     SPLIT_MAX,
+    one_pass,
+    one_pass_smem,
     split_len,
 )
+from repro_torch.kernels.flash_attention_kernel import flash_route
 from repro_torch.models.attention import grouped_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -237,6 +242,27 @@ def test_flash_attention_noncausal_ragged_raises_as_the_reference():
                              torch.from_numpy(k), causal=False)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_attention_at_whispers_geometry_matches_the_reference(dtype):
+    """Cross-attention as whisper runs it, small: G 1, hd 64 (the head dim
+    the card's tc64 route takes), Sq != Sk with a ragged last key tile,
+    against the reference model's chunked attention on the same arrays."""
+    rng = np.random.default_rng(64)
+    B, Sq, Sk, H, hd = 2, 24, 41, 3, 64
+    q = rng.normal(size=(B, Sq, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, H, hd)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, H, hd)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    got = tops.full_attention(tq.view(B, Sq, H, 1, hd).permute(0, 2, 1, 3, 4),
+                              tk.permute(0, 2, 1, 3), tv.permute(0, 2, 1, 3))
+    assert got.dtype == torch.float32 and got.shape == (B, H, Sq, 1, hd)
+    want = _sdpa_chunked(jq, jk, jv, causal=False, chunk=16)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(
+        got.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).numpy(), _f32(want),
+        rtol=tol, atol=tol)
+
+
 def test_grouped_attention_on_views_matches_model_attention():
     """The model layout (B, S, H, hd), handed to the kernel as strided
     views, against the reference model's chunked attention; query head h
@@ -283,6 +309,46 @@ def test_decode_split_len_fills_the_card_within_its_limits(n_seq, S, G, hd,
     assert G * -(-S // sp) <= FAC_MAX
     if 16 < sp < most:  # no limit reached: about three blocks an SM
         assert 2 * n_sm <= n_seq * -(-S // sp) <= 4 * n_sm
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 16, "tc64"), (torch.bfloat16, 40, "tc64"),
+    (torch.bfloat16, 64, "tc64"),  # whisper, qwen3-moe
+    (torch.bfloat16, 65, "tc128"), (torch.bfloat16, 128, "tc128"),
+    (torch.float32, 64, "f32"), (torch.float32, 128, "f32")])
+def test_flash_route_takes_hd_up_to_64_in_bf16_to_the_hd64_kernel(dtype, hd,
+                                                                   route):
+    assert flash_route(dtype, hd) == route
+
+
+@pytest.mark.parametrize("positions,G,hd,esize,single", [
+    (0, 7, 128, 2, True), (1, 7, 128, 2, True),
+    (66, 7, 128, 2, True),  # a sixteenth of phase 16's cache (qwen2-7b)
+    (69, 7, 128, 2, True), (70, 7, 128, 2, False),
+    (132, 7, 128, 2, False), (1056, 7, 128, 2, False),
+    (2048, 7, 128, 2, False),  # a rank's block in the decode_32k cell
+    (35, 7, 128, 4, True), (36, 7, 128, 4, False),
+    (135, 1, 64, 2, True), (1500, 1, 64, 2, False),  # whisper
+])
+def test_decode_one_pass_route_by_the_positions_a_call_reads(positions, G,
+                                                            hd, esize,
+                                                            single):
+    assert one_pass(positions, G, hd, esize) is single
+
+
+@pytest.mark.parametrize("G", [1, 4, 7, 16])
+@pytest.mark.parametrize("hd,esize", [(8, 2), (64, 2), (128, 2), (256, 2),
+                                      (16, 4), (128, 4), (256, 4)])
+def test_decode_one_pass_route_is_a_prefix_that_fits_the_block(G, hd, esize):
+    """The one-pass route takes every length up to a threshold and none
+    above it, staging at most ONE_PASS_KV bytes of K and V in a block that
+    fits shared memory."""
+    took = [one_pass(n, G, hd, esize) for n in range(0, 2049)]
+    last = max(n for n, t in enumerate(took) if t)
+    assert all(took[:last + 1]) and not any(took[last + 1:])
+    row = -(-hd * esize // 16) * 16
+    assert last * (2 * row + 16) <= ONE_PASS_KV
+    assert one_pass_smem(last, G, hd, esize) <= SMEM_MAX
 
 
 def test_decode_split_len_refuses_a_cache_too_long_for_the_combine():

@@ -41,7 +41,12 @@ against its plain version (1e-5 of the largest gradient in float32, 2e-2
 in bfloat16) and bit-stable, its log-sum-exp within 1e-5, autograd
 through `ops` on the card equal to the CPU's within 1e-5, the bare
 forward and kernel 7 refusing a gradient they would drop, and one train
-step of six smoke configs card against CPU."""
+step of six smoke configs card against CPU. Kernel 6's hd-64 route
+(bf16 at hd <= 64) against its plain version within 5e-3 and its
+log-sum-exp within 1e-5, its gradient within 2e-2 of the f32 one; kernel
+7's one-pass route (short blocks) against its plain version at every
+length around its threshold, one launch a call on both routes and the
+tickets left at 0."""
 import importlib.util
 from pathlib import Path
 
@@ -50,16 +55,20 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention_kernel as dak
+from repro_torch.kernels import flash_attention_kernel as fak
 from repro_torch.kernels import ops
 from repro_torch.kernels.alpha_composite import alpha_composite_plain
 from repro_torch.kernels.decode_attention_kernel import (
     decode_attention_cuda,
     decode_attention_plain,
+    one_pass,
     split_len,
 )
 from repro_torch.kernels.flash_attention_kernel import (
+    attention_lse_plain,
     flash_attention_cuda,
     flash_attention_plain,
+    flash_route,
     full_attention_plain,
 )
 from repro_torch.kernels.hash_encode import (
@@ -286,11 +295,12 @@ def test_decode_attention_kernel_lse_form(card, dtype):
                            torch.zeros_like(q))
 
 
-@pytest.mark.parametrize("blocks", [1, 2, 4])
+@pytest.mark.parametrize("blocks", [1, 2, 4, 32])
 def test_decode_attention_kernel_blocks_combine_to_the_whole(card, blocks):
     """The cache cut into blocks of positions, some wholly past the token:
     kernel 7's partial form on each, merged by `combine_partials`, equals
-    kernel 7 over the whole cache (f32, 1e-5)."""
+    kernel 7 over the whole cache (f32, 1e-5). Blocks of 264 positions and
+    more take the split route; 32 blocks of 33 take the one-pass route."""
     from repro_torch.distributed.sharding import combine_partials
 
     rng = np.random.default_rng(blocks)
@@ -470,7 +480,7 @@ def test_decode_attention_back_to_back_calls_reset_tickets(card):
 def test_decode_attention_one_launch_per_call(card):
     rng = np.random.default_rng(12)
     q, k, v = _decode_case(rng, card, 1, 2, 4, 200, 64, torch.bfloat16)
-    ops.decode_attention(q, k, v, 100)
+    ops.decode_attention(q, k, v, 150)  # warm-up: the call profiled below
     torch.cuda.synchronize()
     n = decode_attention_cuda.launches
     from torch.profiler import ProfilerActivity, profile
@@ -482,6 +492,185 @@ def test_decode_attention_one_launch_per_call(card):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert decode_attention_cuda.launches == n + 1
     assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6's hd-64 route and kernel 7's one-pass route
+# ---------------------------------------------------------------------------
+TC64_CASES = [  # b, hkv, g, sq, sk, hd, causal
+    (1, 2, 1, 1001, 1001, 64, False),  # the last 64-key tile holds 41 keys
+    (2, 2, 1, 64, 1500, 64, False),  # whisper's cross-attention, Sq 64
+    (1, 2, 1, 1024, 1024, 64, True),  # whisper's causal decoder
+    (1, 2, 16, 200, 200, 64, True),  # qwen3-moe's grouping (G 16)
+    (1, 2, 16, 130, 77, 64, False),
+    (2, 2, 3, 100, 100, 32, True),  # head dims below 64 take the route too
+    (1, 2, 1, 90, 150, 48, False)]
+
+
+@pytest.mark.parametrize("b,hkv,g,sq,sk,hd,causal", TC64_CASES)
+def test_flash_attention_hd64_route_close(card, b, hkv, g, sq, sk, hd,
+                                          causal):
+    """bf16 at hd <= 64 takes `flash_tcp_kernel<64>` (`flash_route`), one
+    launch: within 5e-3 of the plain version, its log-sum-exp within 1e-5
+    of `attention_lse_plain`; the hd-128 kernel on the same views (route
+    "tc128", which it replaced there) within the same band."""
+    rng = np.random.default_rng(sq + sk + hd + g)
+    q, _, _ = _model_views(rng, card, b, sq, hkv, g, hd, torch.bfloat16)
+    _, k, v = _model_views(rng, card, b, sk, hkv, 1, hd, torch.bfloat16)
+    assert flash_route(q.dtype, hd) == "tc64"
+    want = flash_attention_plain(q, k, v, causal)
+    lse = torch.empty((b, hkv, sq, g), device=card)
+    n = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal, lse)
+    assert flash_attention_cuda.launches == n + 1
+    assert got.shape == (b, hkv, sq, g, hd) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= BF16_EDGE_TOL
+    assert (lse - attention_lse_plain(q, k, causal)).abs().max().item() \
+        <= 1e-5
+    old = fak._flash_launch("tc128", q, k, v, causal)
+    assert (old - want).abs().max().item() <= BF16_EDGE_TOL
+
+
+def test_flash_attention_routes_refuse_what_they_do_not_take(card):
+    """A route that does not take the call raises before any launch: tc64
+    above hd 64 or in float32, a bf16 route in float32."""
+    rng = np.random.default_rng(5)
+    q, k, v = _model_views(rng, card, 1, 64, 2, 2, 128, torch.bfloat16)
+    qf, kf, vf = _model_views(rng, card, 1, 64, 2, 2, 64, torch.float32)
+    n = flash_attention_cuda.launches
+    for args, route in (((q, k, v), "tc64"), ((qf, kf, vf), "tc64"),
+                        ((qf, kf, vf), "tc128"), ((q, k, v), "f32")):
+        with pytest.raises(ValueError, match="route"):
+            fak._flash_launch(route, *args, True)
+    assert flash_attention_cuda.launches == n
+
+
+def test_gradient_through_flash_attention_at_hd64(card):
+    """Autograd through `ops.flash_attention` and `ops.full_attention` at
+    hd 64 in bf16 (the tc64 forward writes the log-sum-exp the backward
+    kernel recomputes P from): dq, dk, dv within 2e-2 of the largest
+    gradient of autograd through the plain version in float32 on the same
+    bf16 inputs, the band `chip_smoke.BWD_TOL` holds bf16 to."""
+    rng = np.random.default_rng(64)
+    for causal, sq, sk in ((True, 130, 130), (False, 70, 150)):
+        q, _, _ = _model_views(rng, card, 2, sq, 2, 3, 64, torch.bfloat16)
+        _, k, v = _model_views(rng, card, 2, sk, 2, 1, 64, torch.bfloat16)
+        w = torch.from_numpy(rng.normal(size=tuple(q.shape))
+                             .astype(np.float32)).to(card)
+        ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        f = (lambda *t: ops.flash_attention(*t, causal=True)) if causal \
+            else ops.full_attention
+        got = torch.autograd.grad((f(*ts) * w).sum(), ts)
+        ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(
+            (flash_attention_plain(*ref, causal) * w).sum(), ref)
+        for a, x, t in zip(got, want, (q, k, v)):
+            assert a.shape == t.shape and a.dtype == torch.bfloat16
+            assert ((a.float() - x).abs().max() / x.abs().max()).item() \
+                <= 2e-2
+
+
+def _decode_by(route, q, k, v, length, lse=False):
+    """Kernel 7 by the route `one_pass` picks (`route` None), or by the
+    one-pass (True) or the split route (False) on an int length."""
+    if route is None:
+        return decode_attention_cuda(q, k, v, length, lse)
+    return dak._decode_launch(route, q, k, v, length, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_one_pass_route_close(card, dtype):
+    """Kernel 7 at lengths 0, 1, 15, 16, 17, 65, 66 and on either side of
+    the one-pass route's threshold, given as an int: by the route `one_pass`
+    picks and by each route forced, the partial form (output within 5e-3
+    in bf16 and 1e-4 in f32, the log-sum-exp within 1e-4 relative; length
+    0 zero and -inf) and the whole-cache form against the plain version;
+    then lengths on the card against a cache short enough that the rule
+    takes the one-pass route for its every row. The whole-cache form in
+    bf16 is rounded to bf16, one ulp of which is 7.8e-3 at magnitudes from
+    1 to 2: it is held to 2e-2, the band of
+    `test_decode_attention_kernel_close`."""
+    G, hd, S = 7, 128, 100
+    esize = torch.empty((), dtype=dtype).element_size()
+    last = max(n for n in range(S + 1) if one_pass(n, G, hd, esize))
+    assert 0 < last < S - 1
+    tol = 1e-4 if dtype == torch.float32 else BF16_EDGE_TOL
+    rng = np.random.default_rng(66)
+    q, k, v = _decode_case(rng, card, 4, 4, G, S, hd, dtype)
+
+    def check(kk, vv, length, route):
+        out, lse = _decode_by(route, q, kk, vv, length, lse=True)
+        whole = _decode_by(route, q, kk, vv, length)
+        w_out, w_lse = decode_attention_plain(q, kk, vv, length, lse=True)
+        if int(length) == 0:
+            assert torch.equal(out, torch.zeros_like(out))
+            assert torch.equal(lse, torch.full_like(lse, -torch.inf))
+            assert torch.equal(whole, torch.zeros_like(whole))
+            return
+        assert out.dtype == lse.dtype == torch.float32
+        assert (out - w_out).abs().max().item() <= tol
+        assert (lse - w_lse).abs().max().item() <= \
+            1e-4 * w_lse.abs().max().item()
+        want = decode_attention_plain(q, kk, vv, length)
+        assert whole.dtype == dtype
+        assert (whole.float() - want.float()).abs().max().item() <= \
+            (tol if dtype == torch.float32 else 2e-2)
+
+    for length in sorted({0, 1, 15, 16, 17, 65, 66, last, last + 1}):
+        assert one_pass(length, G, hd, esize) is (length <= last)
+        for route in (None, True, False):
+            check(k, v, length, route)
+    short = min(last, 40)
+    ks, vs = k[:, :, :short], v[:, :, :short]
+    assert one_pass(short, G, hd, esize)
+    for length in (0, 1, 17, short):
+        check(ks, vs, torch.tensor(length, device=card), None)
+
+
+def test_decode_attention_both_routes_launch_once_and_leave_tickets_at_zero(
+        card):
+    """Each call of either route is one kernel launch (counted once, one
+    `decode_kernel` in the profile); calls of both routes queued without
+    a sync each match the plain version, and every ticket is back at 0.
+    The profiled call sits between pads of empty spin kernels: late in a
+    long run the profiler drops the first events of a window (PERF.md
+    section 7), and a pad must survive on each side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(256):
+            torch.cuda._sleep(1)
+
+    rng = np.random.default_rng(13)
+    q, k, v = _decode_case(rng, card, 2, 4, 7, 200, 128, torch.bfloat16)
+    cases = ((True, 40), (False, 40), (None, 20), (None, 150), (True, 1),
+             (False, 0))
+    for one, length in cases:
+        _decode_by(one, q, k, v, length, lse=True)
+        torch.cuda.synchronize()
+        n = decode_attention_cuda.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad()
+            _decode_by(one, q, k, v, length, lse=True)
+            pad()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        own = [i for i, x in enumerate(names) if "spin_kernel" not in x]
+        assert own and 0 < own[0] and own[-1] < len(names) - 1, names[:3]
+        kernels = [names[i] for i in own]
+        assert decode_attention_cuda.launches == n + 1
+        assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
+    outs = [_decode_by(one, q, k, v, length, lse=True)
+            for one, length in cases]
+    torch.cuda.synchronize()
+    for (one, length), (out, _) in zip(cases, outs):
+        want, _ = decode_attention_plain(q, k, v, length, lse=True)
+        assert (out - want).abs().max().item() <= BF16_EDGE_TOL
+    for _, _, tickets in dak._SCRATCH.values():
+        assert not tickets.any()
 
 
 # ---------------------------------------------------------------------------
