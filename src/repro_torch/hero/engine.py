@@ -33,6 +33,15 @@ available). Eviction never drops an artifact with in-flight work — with
 the synchronous step loop, in-flight == queued items, and such scenes
 are protected; if every resident scene is protected the cache runs over
 budget (counted as an overflow) rather than dropping work.
+
+Spans (`repro_torch.spans`, recorded only while a recording is open):
+`hero.submit` (attrs `rid`, `n_items`) with its child
+`hero.submit.pose_key`; `hero.step` (attrs `scene` and `items`: each
+rendered item's `(rid, seq, queue_age_s)`, the engine clock's age at the
+take) with its children `hero.step.pack` (the padded host buffers, then
+the fused stepper's copy of them to the device), `hero.slot` (attrs
+`tier`, `rid`, `seq`), `hero.sync` (each blocking device read, so
+their count is the step's syncs) and `hero.step.scatter`.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.hero.scheduler import (
     AdmissionFull,
     ArtifactLoadError,
@@ -70,6 +80,13 @@ from repro_torch.nerf.pose_cache import (
     ray_fingerprint,
     warp_deviation,
 )
+
+
+def _to_host(t: torch.Tensor):
+    """A blocking device read of the step path: a 0-d tensor as an int,
+    any other as a NumPy array."""
+    with spans.span("hero.sync"):
+        return int(t) if t.dim() == 0 else t.cpu().numpy()
 
 
 def _default_size_fn(artifact) -> int:
@@ -282,7 +299,7 @@ class FusedDeviceStep:
             artifact.cfg, st["rcfg"], "fused", st["budget"],
             self.cfg.early_stop, self.cfg.compaction,
         )
-        return colors.cpu().numpy()
+        return _to_host(colors)
 
     # ------------------------------------------------------------------
     # Pose-cache tiers (the `step_items` serve path)
@@ -337,9 +354,12 @@ class FusedDeviceStep:
                 ro_s, rd_s, artifact.cfg, st["rcfg"], "fused", st["budget"],
                 self.cfg.early_stop,
             )
-            if st["budget"] is None or int(need) <= st["budget"]:
-                return color.cpu().numpy()
-            self._grow(st, int(need))
+            if st["budget"] is not None:
+                need = _to_host(need)
+                if need > st["budget"]:
+                    self._grow(st, need)
+                    continue
+            return _to_host(color)
 
     def _tier(self, st, it: WorkItem, ro_s: np.ndarray, rd_s: np.ndarray):
         """(tier, cell entry, plan) of one slot: "hit" (the rays
@@ -381,36 +401,40 @@ class FusedDeviceStep:
         S = ro.shape[0]
         colors = np.zeros((S, ro.shape[1], 3), np.float32)
         n = len(items)
-        ro_d = torch.from_numpy(ro[:n]).to(self.device)
-        rd_d = torch.from_numpy(rd[:n]).to(self.device)
+        with spans.span("hero.step.pack"):
+            ro_d = torch.from_numpy(ro[:n]).to(self.device)
+            rd_d = torch.from_numpy(rd[:n]).to(self.device)
         cache = self._pose_cache
         args = (artifact.params, artifact.pack, st["spec"], artifact.occ)
         kw = dict(cfg=artifact.cfg, rcfg=st["rcfg"], mode="fused",
                   early_stop=self.cfg.early_stop)
         for slot, it in enumerate(items):
-            tier, entry, plan = self._tier(st, it, ro[slot], rd[slot])
-            if tier == "hit":
-                cache.hits += 1
-                color = slot_plan(*args, ro_d[slot], rd_d[slot],
-                                  plan.plan_row, **kw)
-                colors[slot] = color.cpu().numpy()
-            elif tier == "warp":
-                cache.warps += 1
-                color = slot_warp(*args, ro_d[slot], rd_d[slot],
-                                  plan.inv_take, plan.take, plan.valid_cons,
-                                  **kw)
-                colors[slot] = color.cpu().numpy()
-            else:
-                if entry is not None:
-                    cache.misses += 1
-                colors[slot] = self._march_slot(st, artifact, ro_d[slot],
-                                                rd_d[slot])
-                if (entry is not None
-                        and entry.uses >= self._pose_grid.build_after):
-                    cache.put_plan(it.pose_key, it.seq, build_warp_plan(
-                        artifact.occ, ro[slot], rd[slot], st["rcfg"],
-                        artifact.cfg, self._pose_grid.margin(artifact.occ),
-                    ))
+            with spans.span("hero.slot", rid=it.rid, seq=it.seq) as sp:
+                tier, entry, plan = self._tier(st, it, ro[slot], rd[slot])
+                sp.set(tier=tier)
+                if tier == "hit":
+                    cache.hits += 1
+                    color = slot_plan(*args, ro_d[slot], rd_d[slot],
+                                      plan.plan_row, **kw)
+                    colors[slot] = _to_host(color)
+                elif tier == "warp":
+                    cache.warps += 1
+                    color = slot_warp(*args, ro_d[slot], rd_d[slot],
+                                      plan.inv_take, plan.take,
+                                      plan.valid_cons, **kw)
+                    colors[slot] = _to_host(color)
+                else:
+                    if entry is not None:
+                        cache.misses += 1
+                    colors[slot] = self._march_slot(st, artifact, ro_d[slot],
+                                                    rd_d[slot])
+                    if (entry is not None
+                            and entry.uses >= self._pose_grid.build_after):
+                        cache.put_plan(it.pose_key, it.seq, build_warp_plan(
+                            artifact.occ, ro[slot], rd[slot], st["rcfg"],
+                            artifact.cfg,
+                            self._pose_grid.margin(artifact.occ),
+                        ))
         return colors
 
     # ------------------------------------------------------------------
@@ -562,6 +586,10 @@ class ServeEngine:
         `cfg.max_pending` set, a submit that would push the queued-item
         count past the cap raises `AdmissionFull` (counted in the
         `requests_rejected` stat) without enqueuing anything."""
+        with spans.span("hero.submit") as sp:
+            return self._submit(sp, rays_o, rays_d, scene, deadline)
+
+    def _submit(self, sp, rays_o, rays_d, scene, deadline) -> int:
         ro = np.asarray(rays_o, np.float32).reshape(-1, 3)
         rd = np.asarray(rays_d, np.float32).reshape(-1, 3)
         assert ro.shape == rd.shape, (ro.shape, rd.shape)
@@ -594,6 +622,7 @@ class ServeEngine:
             )
         rid = self._next_rid
         self._next_rid += 1
+        sp.set(rid=rid, n_items=n_items)
         now = self._clock()
         self._requests[rid] = RequestState(
             rid=rid, scene=scene, n_rays=n_rays, n_items=n_items,
@@ -604,10 +633,11 @@ class ServeEngine:
         self._requests_submitted += 1
         if self._t_first_submit is None:
             self._t_first_submit = now
-        pose_key = (
-            self._stepper.pose_key(scene, ro, rd)
-            if self._stepper is not None else None
-        )
+        with spans.span("hero.submit.pose_key"):
+            pose_key = (
+                self._stepper.pose_key(scene, ro, rd)
+                if self._stepper is not None else None
+            )
         if self._stepper is not None:
             self._stepper.note_pose_use(pose_key)
         for i in range(n_items):
@@ -658,6 +688,10 @@ class ServeEngine:
         internally past fully-expired buckets, so 0 means IDLE — `drain()`
         never stops early on a run of expired work. Returns items removed
         from the queues (rendered + dropped)."""
+        with spans.span("hero.step") as sp:
+            return self._step(sp)
+
+    def _step(self, sp) -> int:
         dropped_total = 0
         while True:
             scene = self._sched.oldest_scene()
@@ -685,17 +719,21 @@ class ServeEngine:
                 raise
             items = live
             break
+        if sp.live:
+            sp.set(scene=scene, items=tuple(
+                (it.rid, it.seq, now - it.t_enqueue) for it in items))
 
         S, R = self.cfg.slots, self.cfg.slot_rays
         # Padding rays (empty slots / short items) originate far outside
         # the scene box with zero direction: every sample is inactive, so
         # padding consumes neither cull budget nor field compute.
-        ro = np.full((S, R, 3), 10.0, np.float32)
-        rd = np.zeros((S, R, 3), np.float32)
-        for slot, it in enumerate(items):
-            n = it.stop - it.start
-            ro[slot, :n] = it.rays_o
-            rd[slot, :n] = it.rays_d
+        with spans.span("hero.step.pack"):
+            ro = np.full((S, R, 3), 10.0, np.float32)
+            rd = np.zeros((S, R, 3), np.float32)
+            for slot, it in enumerate(items):
+                n = it.stop - it.start
+                ro[slot, :n] = it.rays_o
+                rd[slot, :n] = it.rays_d
 
         # The fused stepper's item-aware entry routes each slot through
         # the pose-cache tiers (hit/warp/march); injected 4-arg fakes
@@ -712,26 +750,27 @@ class ServeEngine:
         )
 
         now = self._clock()
-        for slot, it in enumerate(items):
-            if self._stepper is not None:
-                self._stepper.unpin_pose(it.pose_key)
-            req = self._requests[it.rid]
-            n = it.stop - it.start
-            req.colors[it.start:it.stop] = colors[slot, :n]
-            req.done[it.start:it.stop] = True
-            req.fresh_spans.append((it.start, it.stop))
-            req.items_done += 1
-            self._items_rendered += 1
-            self._rays_rendered += n
-            if req.items_done == req.n_items:
-                req.t_done = now
-                self._t_last_done = now
-                self._requests_completed += 1
-                self._ring.append(CompletedRecord(
-                    rid=req.rid, scene=req.scene, n_rays=req.n_rays,
-                    t_submit=req.t_submit, t_done=now,
-                ))
-                self._event(("complete", it.rid))
+        with spans.span("hero.step.scatter"):
+            for slot, it in enumerate(items):
+                if self._stepper is not None:
+                    self._stepper.unpin_pose(it.pose_key)
+                req = self._requests[it.rid]
+                n = it.stop - it.start
+                req.colors[it.start:it.stop] = colors[slot, :n]
+                req.done[it.start:it.stop] = True
+                req.fresh_spans.append((it.start, it.stop))
+                req.items_done += 1
+                self._items_rendered += 1
+                self._rays_rendered += n
+                if req.items_done == req.n_items:
+                    req.t_done = now
+                    self._t_last_done = now
+                    self._requests_completed += 1
+                    self._ring.append(CompletedRecord(
+                        rid=req.rid, scene=req.scene, n_rays=req.n_rays,
+                        t_submit=req.t_submit, t_done=now,
+                    ))
+                    self._event(("complete", it.rid))
         return dropped_total + len(items)
 
     def drain(self) -> None:

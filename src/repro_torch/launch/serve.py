@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs import get_arch
 from repro_torch.data import TokenPipeline, TokenPipelineConfig
 from repro_torch.kernels.backend import resolve_device
@@ -65,23 +66,32 @@ def generate(prefill_fn: Callable, decode_fn: Callable, params: Dict,
     (`frontend_inputs`); patches lead the prompt, so the first decode
     position follows them. `marks`, when given, receives the host clock
     after the prefill and after the last decode step (the device
-    synchronised at both)."""
+    synchronised at both).
+
+    Spans (`repro_torch.spans`): `lm.prefill` (attrs `batch`, and
+    `positions`, a request's prompt positions with its patches) and one
+    `lm.decode` a step (attr `pos`), each ending once its launches are
+    queued; `lm.sync` around the synchronisations that `marks` takes."""
     extra = extra or {}
-    logits, cache = prefill_fn(params, {"tokens": tokens, **extra})
-    tok = greedy(logits)[:, None]
-    outs = [tok]
-    if marks is not None:
-        _sync(tokens.device)
-        marks.append(time.perf_counter())
     pos = tokens.shape[1]
     if "patches" in extra:
         pos += extra["patches"].shape[1]
-    for i in range(gen - 1):
-        logits, cache = decode_fn(params, cache, tok, pos + i)
+    with spans.span("lm.prefill", batch=tokens.shape[0], positions=pos):
+        logits, cache = prefill_fn(params, {"tokens": tokens, **extra})
         tok = greedy(logits)[:, None]
+    outs = [tok]
+    if marks is not None:
+        with spans.span("lm.sync"):
+            _sync(tokens.device)
+        marks.append(time.perf_counter())
+    for i in range(gen - 1):
+        with spans.span("lm.decode", pos=pos + i):
+            logits, cache = decode_fn(params, cache, tok, pos + i)
+            tok = greedy(logits)[:, None]
         outs.append(tok)
     if marks is not None:
-        _sync(tokens.device)
+        with spans.span("lm.sync"):
+            _sync(tokens.device)
         marks.append(time.perf_counter())
     return torch.cat(outs, dim=1)
 

@@ -8,8 +8,10 @@ frames within PSNR >= 60 dB of the reference service on the same rays (a
 active counts exact; march == scatter byte for byte inside the port; the
 pose-cache tiers (miss, build, hit, warp) and their plan bytes step for
 step with the reference engine's, hit == warp == march == no pose cache
-byte for byte; and the reference's scheduler traces reproduced exactly
-by the port's engine through the same fake clock and fake device."""
+byte for byte; the reference's scheduler traces reproduced exactly
+by the port's engine through the same fake clock and fake device; and
+the engine's spans (a `hero.sync` at each device read), which leave all
+of that unchanged."""
 import dataclasses
 import json
 import shutil
@@ -31,6 +33,7 @@ from repro.nerf import occupancy as jocc
 from repro.nerf import scenes as jscenes
 from repro.nerf.render import RenderConfig as JRenderConfig
 from repro.quant.policy import QuantPolicy, UnitKind
+from repro_torch import spans
 from repro_torch.hero import artifact as tart
 from repro_torch.hero import engine as teng
 from repro_torch.hero import scheduler as tsched
@@ -536,3 +539,78 @@ def test_engine_scheduler_traces_equal_reference(scenario):
     got = _run(scenario, teng, tsched)
     assert got == want
     assert want[0]  # the scenario produced events
+
+
+# ---------------------------------------------------------------------------
+# The engine's spans (`repro_torch.spans`)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_engine_recording_leaves_traces_and_stats_alone(scenario):
+    """An open recording changes nothing the engine does: events, device
+    calls, results and `stats()` equal a run without one."""
+    want = _run(scenario, teng, tsched)
+    with spans.recording() as rec:
+        got = _run(scenario, teng, tsched)
+    assert got == want
+    assert any(s.name == "hero.step" for s in rec.spans)
+
+
+def test_engine_span_tree_and_queue_ages_on_the_fake_clock():
+    clk = FakeClock()
+    dev = FakeDevice(clk, cost=1.0)
+    eng = teng.ServeEngine({"a": FakeArtifact("a")},
+                           tsched.EngineConfig(slots=2, slot_rays=4),
+                           clock=clk, device_step=dev)
+    rng = np.random.RandomState(3)
+    with spans.recording() as rec:
+        r0 = eng.submit(*_rays(rng, 6), scene="a")
+        clk.t += 1.0
+        r1 = eng.submit(*_rays(rng, 4), scene="a")
+        clk.t += 0.5
+        eng.drain()
+    tree = [(s.name, s.parent, s.attrs) for s in rec.spans]
+    step1 = {"scene": "a", "items": ((r0, 0, 1.5), (r0, 1, 1.5))}
+    step2 = {"scene": "a", "items": ((r1, 0, 1.5),)}  # taken at 2.5
+    assert tree == [
+        ("hero.submit", -1, {"rid": r0, "n_items": 2}),
+        ("hero.submit.pose_key", 0, {}),
+        ("hero.submit", -1, {"rid": r1, "n_items": 1}),
+        ("hero.submit.pose_key", 2, {}),
+        ("hero.step", -1, step1),
+        ("hero.step.pack", 4, {}),
+        ("hero.step.scatter", 4, {}),
+        ("hero.step", -1, step2),
+        ("hero.step.pack", 7, {}),
+        ("hero.step.scatter", 7, {}),
+        ("hero.step", -1, {}),  # the idle step that ends the drain
+    ]
+    # A fake device makes no device reads: no `hero.sync`.
+    assert eng.result(r0).shape == (6, 3) and eng.result(r1).shape == (4, 3)
+
+
+def test_fused_step_reads_the_device_twice_a_march_slot(ref_dir):
+    """A real `FusedDeviceStep` on the CPU: each march slot reads its
+    active count and its colours (two `hero.sync`s under its `hero.slot`);
+    a hit slot reads its colours only."""
+    eng, _, _ = _tier_engines(ref_dir)
+    ro, rd = _view(3)
+    plain = eng.render(ro, rd, scene="chair")  # one visit: no plans yet
+    with spans.recording() as rec:
+        got = eng.render(ro, rd, scene="chair")  # misses, builds plans
+    np.testing.assert_array_equal(got, plain)
+    slots = [i for i, s in enumerate(rec.spans) if s.name == "hero.slot"]
+    assert [rec.spans[i].attrs for i in slots] == [
+        {"rid": 1, "seq": k, "tier": "march"} for k in range(4)]
+    for i in slots:
+        kids = [s.name for s in rec.spans if s.parent == i]
+        assert kids == ["hero.sync", "hero.sync"]
+    steps = sum(s.name == "hero.step" and "items" in s.attrs
+                for s in rec.spans)
+    assert steps == 1
+    assert sum(s.name == "hero.sync" for s in rec.spans) == 8
+    assert sum(s.name == "hero.step.pack" for s in rec.spans) == 2
+    with spans.recording() as rec:
+        eng.render(ro, rd, scene="chair")
+    tiers = [s.attrs["tier"] for s in rec.spans if s.name == "hero.slot"]
+    assert tiers == ["hit"] * 4
+    assert sum(s.name == "hero.sync" for s in rec.spans) == 4
