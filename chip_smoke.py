@@ -132,7 +132,10 @@ Phases, each of which raises on failure:
    hit and warp request's colours must
    equal, bit for bit, the same rays served on the card without the pose
    cache. Plan bytes and ``resident_bytes`` are printed, and one hit and
-   one warp request are profiled beside the march request.
+   one warp request are profiled beside the march request. The misses'
+   march slots must have captured a slot graph and replayed it, and
+   ``resident_bytes`` must be the artifact's, the plans' and the graphs'
+   pool's bytes.
 9. The LM path: qwen2-7b at full width (28 layers, d 3584, bf16, random
    weights from a seed) served by ``repro_torch.launch.serve``: 8 requests
    of 1024 prompt tokens and 32 generated tokens, 4 at a time. Counts are
@@ -2490,13 +2493,18 @@ def revisit_stream(path, dev, kern):
     pc = st["pose_cache"]
     print(f"revisit stream: {len(tiers)} requests, tiers {tiers}; pose cache "
           f"{pc}; launches {launches}")
-    print(f"  plan bytes {pc['bytes']}, resident_bytes "
+    sg = st["slot_graphs"]
+    print(f"  plan bytes {pc['bytes']}, slot graphs {sg}, resident_bytes "
           f"{st['cache']['resident_bytes']} (the artifact "
-          f"{art.resident_bytes()} + the plans)")
+          f"{art.resident_bytes()} + the plans + the graphs' pool)")
     if not (pc["hits"] > 0 and pc["warps"] > 0 and pc["misses"] > 0):
         raise AssertionError(f"a pose-cache tier never served: {pc}")
-    if st["cache"]["resident_bytes"] != art.resident_bytes() + pc["bytes"]:
-        raise AssertionError("plan bytes are not charged to resident_bytes")
+    if st["cache"]["resident_bytes"] != (art.resident_bytes() + pc["bytes"]
+                                         + sg["bytes"]):
+        raise AssertionError("plan and slot graph bytes are not charged to "
+                             "resident_bytes")
+    if not (sg["captures"] > 0 and sg["replays"] > 0):
+        raise AssertionError(f"the march slots were not replayed: {sg}")
     slots = pc["hits"] + pc["warps"] + pc["misses"]
     grown = st["budget_retraces"]  # a march slot rendered again, grown
     want = {"gather_composite": slots + grown, "hash_gather": 0,

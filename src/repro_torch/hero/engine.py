@@ -40,14 +40,23 @@ Spans (`repro_torch.spans`, recorded only while a recording is open):
 rendered item's `(rid, seq, queue_age_s)`, the engine clock's age at the
 take) with its children `hero.step.pack` (the padded host buffers, then
 the fused stepper's copy of them to the device), `hero.slot` (attrs
-`tier`, `rid`, `seq`), `hero.sync` (each blocking device read, so
-their count is the step's syncs) and `hero.step.scatter`.
+`tier`, `rid`, `seq`, and `graph`: "capture", "replay" or "eager", how
+its launches ran), `hero.sync` (each blocking device read, so their
+count is the step's syncs) and `hero.step.scatter`.
+
+On the card a march slot's launch chain is captured once as a CUDA graph
+and replayed (`SlotGraph`, keyed by scene, artifact and sample budget):
+a slot costs two copies and one launch on the host instead of ~160. The
+hit and warp tiers, the `"scatter"` compaction and every CPU path run
+eagerly. `stats()["slot_graphs"]` counts captures, replays and eager
+march slots, and the device bytes of the memory pool the live graphs
+share (charged to the cache's byte budget beside the pose plans).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from collections import OrderedDict, deque
+from collections import Counter, OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -64,6 +73,7 @@ from repro_torch.hero.scheduler import (
     Scheduler,
     WorkItem,
 )
+from repro_torch.kernels._launch import add_launches, tallied
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.nerf.fast_render import (
     frame_colors,
@@ -208,6 +218,52 @@ class ArtifactCache:
 
 
 # ---------------------------------------------------------------------------
+# A march slot's launches as one CUDA graph
+# ---------------------------------------------------------------------------
+class SlotGraph:
+    """`run()`'s launches captured once as a CUDA graph, then replayed on
+    the current stream. The graph reads the tensors it was captured over
+    in place, so it holds `artifact` (whose tensors it reads) and its
+    outputs. It captures on the side stream of `shared` into its memory
+    pool (`SlotGraph.shared`): graphs of one pool may reuse each other's
+    scratch memory, safe here because they replay on one stream and each
+    replay's outputs are read back before the next replay. `nbytes` is the
+    device memory the capture added to the pool. The kernel wrappers ran
+    once, at the capture, so their `launches` were tallied there and each
+    replay adds the tally."""
+
+    @staticmethod
+    def shared(device: torch.device) -> Tuple:
+        """A memory pool and a capture stream for graphs to share."""
+        return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
+
+    def __init__(self, run: Callable, artifact, device: torch.device,
+                 shared: Tuple):
+        pool, side = shared
+        self.artifact = artifact
+        self.graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream(device))
+        before = torch.cuda.memory_reserved(device)
+        with torch.cuda.stream(side), tallied() as self.launches:
+            # Thread-local: another thread's calls do not void the capture,
+            # and a blocking call of this one's raises.
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            try:
+                self.out = run()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.nbytes = torch.cuda.memory_reserved(device) - before
+
+    def replay(self):
+        """Run the captured launches again; their outputs, rewritten."""
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out
+
+
+# ---------------------------------------------------------------------------
 # Default device step: the real fused integer render
 # ---------------------------------------------------------------------------
 class FusedDeviceStep:
@@ -218,6 +274,14 @@ class FusedDeviceStep:
     eviction and reload. Derived spec/rcfg rebuild only when the artifact
     object actually changes (reload). Artifacts must live on `device`,
     where the pose cache's plans are baked too.
+
+    On the card a march slot's rays are copied into static inputs made
+    once, which every graph reads. The first march slot at a key (scene,
+    artifact, budget) runs eagerly, which makes every constant the chain
+    creates lazily; the next one captures its launches as a `SlotGraph`
+    and later ones replay it. A scene's graphs are dropped when its budget
+    grows, its artifact reloads or is evicted; the graphs share one memory
+    pool, dropped with the last of them.
     """
 
     def __init__(self, cfg: EngineConfig, device: torch.device):
@@ -225,6 +289,16 @@ class FusedDeviceStep:
         self.device = device
         self._align = 128
         self._state: Dict[str, Dict] = {}
+        # The graph path: static inputs (slot_rays, 3), key -> its graph
+        # (None once the key's eager warm-up has run), the pool and stream
+        # the graphs share and the bytes the pool holds.
+        self._graphed = device.type == "cuda"
+        self._ro_in: Optional[torch.Tensor] = None
+        self._rd_in: Optional[torch.Tensor] = None
+        self._graphs: Dict[Tuple, Optional[SlotGraph]] = {}
+        self._shared: Optional[Tuple] = None
+        self._pool_bytes = 0
+        self._runs: Counter = Counter()  # march slots by how they ran
         assert cfg.compaction in ("march", "scatter"), cfg.compaction
         self._pose_cache = None
         self._pose_grid = None
@@ -259,6 +333,7 @@ class FusedDeviceStep:
                     f"engine runs on {self.device}"
                 )
             rcfg = dataclasses.replace(artifact.rcfg, stratified=False)
+            self._drop_graphs(scene)  # they read the old artifact
             st = {
                 "artifact_id": id(artifact),
                 "spec": artifact.spec(),
@@ -329,8 +404,11 @@ class FusedDeviceStep:
             self._pose_cache.unpin(key)
 
     def drop_scene_plans(self, scene: str) -> int:
-        """Artifact left the device -> its plans index nothing; drop them
-        (even pinned: the in-flight work re-loads and re-misses)."""
+        """Artifact left the device -> its plans index nothing and its
+        slot graphs read freed tensors; drop both (plans even pinned: the
+        in-flight work re-loads and re-misses). Returns the plans
+        dropped."""
+        self._drop_graphs(scene)
         if self._pose_cache is None:
             return 0
         return self._pose_cache.drop_scene(scene)
@@ -338,28 +416,79 @@ class FusedDeviceStep:
     def plan_bytes(self) -> int:
         return self._pose_cache.nbytes if self._pose_cache is not None else 0
 
+    def graph_bytes(self) -> int:
+        """Device bytes the live slot graphs' shared pool holds."""
+        return self._pool_bytes
+
+    def graph_stats(self) -> Dict:
+        return {"captures": self._runs["capture"],
+                "replays": self._runs["replay"],
+                "eager": self._runs["eager"], "bytes": self.graph_bytes()}
+
+    def _drop_graphs(self, scene: Optional[str] = None) -> None:
+        """Drop `scene`'s graphs, or every graph with None. The pool goes
+        with the last graph: its memory returns to the allocator's cache."""
+        for key in [k for k in self._graphs if scene in (None, k[0])]:
+            del self._graphs[key]
+        if not any(self._graphs.values()):
+            self._shared, self._pool_bytes = None, 0
+
     def pose_stats(self) -> Optional[Dict]:
         return (
             self._pose_cache.stats() if self._pose_cache is not None else None
         )
 
-    def _march_slot(self, st, artifact, ro_s, rd_s) -> np.ndarray:
+    def _march_slot(self, scene: str, st, artifact, ro, rd
+                    ) -> Tuple[np.ndarray, str]:
         """Cache-miss tier for one padded slot, with grow-on-overflow: the
         march render returns the TRUE device active count of its own mask,
-        so an overflowing slot grows the budget and re-renders — no
-        silently dropped samples, no host-side mask pass per step."""
+        so an overflowing slot grows the budget, drops the scene's graphs
+        and re-renders — no silently dropped samples, no host-side mask
+        pass per step. Returns the colours and how the last render ran."""
+        if self._graphed:
+            if self._ro_in is None or self._ro_in.shape != ro.shape:
+                self._drop_graphs()  # they read the old inputs
+                self._ro_in = torch.empty_like(ro)
+                self._rd_in = torch.empty_like(rd)
+            self._ro_in.copy_(ro)
+            self._rd_in.copy_(rd)
+            ro, rd = self._ro_in, self._rd_in
         while True:
-            color, need = slot_march(
-                artifact.params, artifact.pack, st["spec"], artifact.occ,
-                ro_s, rd_s, artifact.cfg, st["rcfg"], "fused", st["budget"],
-                self.cfg.early_stop,
-            )
+            (color, need), how = self._march(scene, st, artifact, ro, rd)
             if st["budget"] is not None:
                 need = _to_host(need)
                 if need > st["budget"]:
                     self._grow(st, need)
+                    self._drop_graphs(scene)
                     continue
-            return _to_host(color)
+            return _to_host(color), how
+
+    def _march(self, scene: str, st, artifact, ro, rd):
+        """((color, need) of `slot_march` over the rays, how it ran):
+        "eager", "capture" (captured, then replayed) or "replay"."""
+        def run():
+            return slot_march(
+                artifact.params, artifact.pack, st["spec"], artifact.occ,
+                ro, rd, artifact.cfg, st["rcfg"], "fused", st["budget"],
+                self.cfg.early_stop,
+            )
+        key = (scene, id(artifact), st["budget"])
+        if not self._graphed or key not in self._graphs:
+            if self._graphed:
+                self._graphs[key] = None  # warmed up: the next one captures
+            self._runs["eager"] += 1
+            return run(), "eager"
+        graph = self._graphs[key]
+        how = "replay"
+        if graph is None:
+            if self._shared is None:
+                self._shared = SlotGraph.shared(self.device)
+            graph = self._graphs[key] = SlotGraph(run, artifact, self.device,
+                                                  self._shared)
+            self._pool_bytes += graph.nbytes
+            how = "capture"
+        self._runs[how] += 1
+        return graph.replay(), how
 
     def _tier(self, st, it: WorkItem, ro_s: np.ndarray, rd_s: np.ndarray):
         """(tier, cell entry, plan) of one slot: "hit" (the rays
@@ -411,7 +540,7 @@ class FusedDeviceStep:
         for slot, it in enumerate(items):
             with spans.span("hero.slot", rid=it.rid, seq=it.seq) as sp:
                 tier, entry, plan = self._tier(st, it, ro[slot], rd[slot])
-                sp.set(tier=tier)
+                sp.set(tier=tier, graph="eager")
                 if tier == "hit":
                     cache.hits += 1
                     color = slot_plan(*args, ro_d[slot], rd_d[slot],
@@ -426,8 +555,9 @@ class FusedDeviceStep:
                 else:
                     if entry is not None:
                         cache.misses += 1
-                    colors[slot] = self._march_slot(st, artifact, ro_d[slot],
-                                                    rd_d[slot])
+                    colors[slot], how = self._march_slot(
+                        scene, st, artifact, ro_d[slot], rd_d[slot])
+                    sp.set(graph=how)
                     if (entry is not None
                             and entry.uses >= self._pose_grid.build_after):
                         cache.put_plan(it.pose_key, it.seq, build_warp_plan(
@@ -448,6 +578,7 @@ class FusedDeviceStep:
     def reset_stats(self) -> None:
         for st in self._state.values():
             st["retraces"] = 0
+        self._runs.clear()
         if self._pose_cache is not None:
             self._pose_cache.reset_stats()
 
@@ -488,8 +619,9 @@ class ServeEngine:
             protected=lambda scene: self._sched.pending(scene) > 0,
             on_event=self._event,
             extra_bytes=(
-                self._stepper.plan_bytes if self._stepper is not None
-                else None
+                (lambda: self._stepper.plan_bytes()
+                 + self._stepper.graph_bytes())
+                if self._stepper is not None else None
             ),
         )
         for scene, artifact in self._as_scene_map(artifacts).items():
@@ -940,6 +1072,10 @@ class ServeEngine:
             "slot_rays": self.cfg.slot_rays,
             "pose_cache": (
                 self._stepper.pose_stats()
+                if self._stepper is not None else None
+            ),
+            "slot_graphs": (
+                self._stepper.graph_stats()
                 if self._stepper is not None else None
             ),
         }

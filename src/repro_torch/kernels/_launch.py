@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import functools
 import threading
+from contextlib import contextmanager
+from typing import Dict, Iterator
 
 import torch
 
@@ -81,12 +83,41 @@ def launch(entry: str, device: torch.device, *args) -> None:
 
 
 _COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to `wrapper.launches`, the count of kernels that CUDA
     wrapper launched. The read-add-store runs under a lock, so launches
     from several host threads are all counted; reading the count and
-    setting it to 0 are single stores and need none."""
+    setting it to 0 are single stores and need none. Inside `tallied()`
+    the launch goes to the tally instead."""
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextmanager
+def tallied() -> Iterator[Dict]:
+    """Tally this thread's launches inside the block by wrapper, in the
+    dict it yields, and leave the counters alone: the block is a CUDA
+    graph's capture, which runs nothing. Each replay of the graph adds
+    the tally to the counters (`add_launches`)."""
+    if getattr(_TALLY, "counts", None) is not None:
+        raise RuntimeError("launches are already being tallied")
+    _TALLY.counts = {}
+    try:
+        yield _TALLY.counts
+    finally:
+        _TALLY.counts = None
+
+
+def add_launches(tally: Dict) -> None:
+    """Count the launches of `tally` once more: one replay of the graph
+    whose capture tallied them."""
+    with _COUNT_LOCK:
+        for wrapper, n in tally.items():
+            wrapper.launches += n

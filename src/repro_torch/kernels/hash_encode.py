@@ -166,12 +166,25 @@ def trilinear_sum(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _TrilinearSum.apply(vals, w)
 
 
+@functools.lru_cache(maxsize=None)
+def _zero(device: torch.device) -> torch.Tensor:
+    """A float32 zero on `device`, made once: the codes' lower bound."""
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def act_codes(x: torch.Tensor, act: Dict) -> torch.Tensor:
+    """clip(round(x / sx + zx_f), 0, qmax): a linear layer's activation
+    codes, as floats. Both bounds are tensors, so `torch.clamp` is one
+    pass that reads nothing to the host (a number beside the one-element
+    `qmax` would read it, a blocking read)."""
+    return torch.clamp(torch.round(x / act["sx"] + act["zx_f"]),
+                       _zero(x.device), act["qmax"])
+
+
 def quantize_codes(x: torch.Tensor, act: Dict) -> torch.Tensor:
     """Activation codes of a linear layer's input, shifted into int8:
     clip(round(x / sx + zx_f), 0, qmax) - off."""
-    codes = torch.clamp(torch.round(x / act["sx"] + act["zx_f"]), 0.0,
-                        act["qmax"])
-    return (codes - act["off"]).to(torch.int8)
+    return (act_codes(x, act) - act["off"]).to(torch.int8)
 
 
 def hash_encode_corners_plain(corner_idx: torch.Tensor,

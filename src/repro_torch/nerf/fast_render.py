@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.hash_encode import KERNEL_FEATURES
+from repro_torch.kernels.hash_encode import KERNEL_FEATURES, act_codes
 from repro_torch.kernels.backend import (
     DeviceLike,
     check_device,
@@ -265,8 +265,7 @@ def _fused_linear(pack: FusedPack, i: int, name: str,
                                     lyr["wq"].scale, lyr["zx"])
         return y + lyr["b"]
     if mode == "float_qact":
-        codes = torch.clamp(torch.round(x / lyr["sx"] + lyr["zx_f"]), 0.0,
-                            lyr["qmax"])
+        codes = act_codes(x, lyr)
         x = (codes - lyr["zx_f"]) * lyr["sx"]
     return x @ _fused_weight_f32(pack, name) + lyr["b"]
 
